@@ -1,0 +1,8 @@
+"""repro_torch — the ESD stack on PyTorch and CUDA (NVIDIA Hopper).
+
+A port of the JAX package ``repro`` that imports neither JAX nor
+``repro``: host-side numpy code is copied, device code is PyTorch, and
+every Pallas TPU kernel on a ported path is a CUDA kernel written for
+``sm_90a`` (:mod:`repro_torch.kernels`).  The first ported path is
+online serving, ``python -m repro_torch.launch.serve``.
+"""

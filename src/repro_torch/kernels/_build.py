@@ -1,0 +1,83 @@
+"""Build a CUDA source of this package with ``nvcc`` and bind it with
+``ctypes``.
+
+The source compiles on first use into ``build/kernels/`` at the root of
+the checkout, named by a hash of the source and the flags, so an edited
+kernel is rebuilt and an unchanged one is loaded as it is.  The library
+has a plain C interface: its launchers take device pointers, ints and a
+stream, and return ``cudaGetLastError()``.  A failed build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["BUILD_DIR", "load_library", "build_log"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# C signature of every launcher: name -> argtypes (pointers and the stream
+# as c_void_p, so ctypes passes all 64 bits; ints as c_int)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    "emb_lookup": {
+        "staged_gather_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "pooled_lookup_staged_launch": [_P, _P, _P, _P, _P, _P,
+                                        _I, _I, _I, _I, _I, _I, _P],
+    },
+}
+
+_loaded: dict[str, ctypes.CDLL] = {}
+_logs: dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    fallback = Path("/usr/local/cuda/bin/nvcc")
+    if fallback.exists():
+        return str(fallback)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded ``lib<name>`` built from ``csrc/<name>.cu``, compiled on
+    the first call in this checkout."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"lib{name}_{digest}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                               str(src)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name} "
+                               f"(exit {proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, out)
+        _logs[name] = proc.stderr
+    lib = ctypes.CDLL(str(out))
+    for fn, argtypes in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    _loaded[name] = lib
+    return lib
+
+
+def build_log(name: str) -> str:
+    """What ``nvcc`` printed while building ``name`` in this process
+    (registers, shared memory and spills per kernel); empty when the
+    library was already built."""
+    return _logs.get(name, "")

@@ -1,0 +1,166 @@
+// Embedding-row kernels of the serving path, for Hopper (sm_90a).
+//
+// staged_gather_launch replaces the Pallas TPU kernel
+// src/repro/kernels/emb_lookup.py:staged_gather (_kernel_staged):
+//     out[s] = table[src[s]] if src[s] >= 0 else plane[s]
+// It moves bytes and does no arithmetic, so device-memory bandwidth bounds
+// it: at least 2*C*E*4 bytes (one row read and one row written per slot).
+// Design: one warp per slot, 8 slots per 256-thread block.  The warp reads
+// ONLY the selected source row (the TPU kernel DMA'd both candidate rows
+// and selected in registers) and copies it with 16-byte float4 loads and
+// stores when E % 4 == 0 and every base is 16-byte aligned, else with
+// scalar loads; neighbouring lanes touch neighbouring addresses.
+//
+// pooled_lookup_staged_launch replaces the Pallas TPU kernel
+// src/repro/kernels/emb_lookup.py:pooled_lookup_staged
+// (_kernel_pooled_staged):
+//     out[b] = sum_f w[b,f] * (plane[slots[b,f]] if slots[b,f] >= 0
+//                              else table[ids[b,f]])
+// with PAD ids (< 0) contributing nothing.  Two flops per element read, so
+// bytes bound it too: the rows of the valid lookups plus the (B, E) output.
+// Design: one block per (bag, 512-column chunk).  The block first stages
+// the bag's F row pointers and weights in shared memory (a PAD lookup gets
+// a null pointer and is skipped, never reading row 0); then each of the
+// 128 threads owns 4 columns and walks f = 0..F-1 in order, accumulating
+// in f32 registers.  That loop takes the place of the TPU's sequential
+// grid axis; there are no atomics, so the result is deterministic.  The
+// multiply and the add are rounded separately (no FMA contraction), in the
+// same order as the plain PyTorch version, which the kernel then matches
+// bit for bit.
+//
+// Both launchers run on the caller's stream, allocate nothing and return
+// cudaGetLastError() so a refused launch surfaces in the Python wrapper.
+// Row indices past the table's end are clamped to its last row, as JAX's
+// gathers clamp.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kGatherThreads = 256;   // 8 warps = 8 slots per block
+constexpr int kPoolThreads = 128;
+constexpr int kPoolCols = 4;          // columns per thread
+constexpr int kPoolChunk = kPoolThreads * kPoolCols;
+
+__global__ void staged_gather_kernel(const float* __restrict__ plane,
+                                     const float* __restrict__ table,
+                                     const int* __restrict__ src,
+                                     float* __restrict__ out,
+                                     int C, int E, int V, int vec4) {
+  const int64_t slot =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (slot >= C) return;
+  const int s = src[slot];
+  const float* row = s >= 0
+      ? table + static_cast<int64_t>(min(s, V - 1)) * E
+      : plane + slot * E;
+  float* dst = out + slot * E;
+  if (vec4) {
+    const float4* r4 = reinterpret_cast<const float4*>(row);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    for (int e = lane; e < (E >> 2); e += 32) d4[e] = r4[e];
+  } else {
+    for (int e = lane; e < E; e += 32) dst[e] = row[e];
+  }
+}
+
+__global__ void pooled_lookup_staged_kernel(const float* __restrict__ plane,
+                                            const float* __restrict__ table,
+                                            const int* __restrict__ slots,
+                                            const int* __restrict__ ids,
+                                            const float* __restrict__ weights,
+                                            float* __restrict__ out,
+                                            int F, int E, int C, int V,
+                                            int vec4) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const float** s_row = reinterpret_cast<const float**>(smem);
+  float* s_w = reinterpret_cast<float*>(s_row + F);
+
+  const int64_t b = blockIdx.x;
+  const int64_t base = b * F;
+  for (int f = threadIdx.x; f < F; f += blockDim.x) {
+    const int id = ids[base + f];
+    const int sl = slots[base + f];
+    const float* row = nullptr;
+    if (id >= 0) {
+      row = (sl >= 0 && C > 0)
+          ? plane + static_cast<int64_t>(min(sl, C - 1)) * E
+          : table + static_cast<int64_t>(min(id, V - 1)) * E;
+    }
+    s_row[f] = row;
+    s_w[f] = weights != nullptr ? weights[base + f] : 1.0f;
+  }
+  __syncthreads();
+
+  const int col0 = blockIdx.y * kPoolChunk;
+  float acc[kPoolCols] = {0.f, 0.f, 0.f, 0.f};
+  if (vec4) {
+    const int e = col0 + threadIdx.x * kPoolCols;   // E % 4 == 0 here
+    if (e >= E) return;
+    for (int f = 0; f < F; ++f) {
+      const float* row = s_row[f];
+      if (row == nullptr) continue;
+      const float w = s_w[f];
+      const float4 r = *reinterpret_cast<const float4*>(row + e);
+      acc[0] = __fadd_rn(acc[0], __fmul_rn(r.x, w));
+      acc[1] = __fadd_rn(acc[1], __fmul_rn(r.y, w));
+      acc[2] = __fadd_rn(acc[2], __fmul_rn(r.z, w));
+      acc[3] = __fadd_rn(acc[3], __fmul_rn(r.w, w));
+    }
+    *reinterpret_cast<float4*>(out + b * E + e) =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
+  } else {
+    for (int f = 0; f < F; ++f) {
+      const float* row = s_row[f];
+      if (row == nullptr) continue;
+      const float w = s_w[f];
+#pragma unroll
+      for (int k = 0; k < kPoolCols; ++k) {
+        const int e = col0 + k * kPoolThreads + threadIdx.x;
+        if (e < E) acc[k] = __fadd_rn(acc[k], __fmul_rn(row[e], w));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kPoolCols; ++k) {
+      const int e = col0 + k * kPoolThreads + threadIdx.x;
+      if (e < E) out[b * E + e] = acc[k];
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int staged_gather_launch(const void* plane, const void* table,
+                                    const void* src, void* out, int C, int E,
+                                    int V, int vec4, void* stream) {
+  if (C == 0 || E == 0) return 0;
+  const int64_t threads = static_cast<int64_t>(C) * 32;
+  const unsigned blocks =
+      static_cast<unsigned>((threads + kGatherThreads - 1) / kGatherThreads);
+  staged_gather_kernel<<<blocks, kGatherThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(plane), static_cast<const float*>(table),
+      static_cast<const int*>(src), static_cast<float*>(out), C, E, V, vec4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int pooled_lookup_staged_launch(const void* plane,
+                                           const void* table,
+                                           const void* slots,
+                                           const void* ids,
+                                           const void* weights, void* out,
+                                           int B, int F, int E, int C, int V,
+                                           int vec4, void* stream) {
+  if (B == 0 || E == 0) return 0;
+  const dim3 grid(static_cast<unsigned>(B),
+                  static_cast<unsigned>((E + kPoolChunk - 1) / kPoolChunk));
+  const size_t smem = static_cast<size_t>(F) * (sizeof(float*) + sizeof(float));
+  pooled_lookup_staged_kernel<<<grid, kPoolThreads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(plane), static_cast<const float*>(table),
+      static_cast<const int*>(slots), static_cast<const int*>(ids),
+      static_cast<const float*>(weights), static_cast<float*>(out), F, E, C,
+      V, vec4);
+  return static_cast<int>(cudaGetLastError());
+}

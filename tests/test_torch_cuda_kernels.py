@@ -1,0 +1,80 @@
+"""The CUDA kernels against their plain PyTorch versions, on a CUDA card.
+
+Imports no JAX, so it runs on a machine with a card and without JAX:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda_kernels.py
+
+Without a CUDA device every test here skips.  staged_gather copies rows
+and must be exact; pooled_lookup_staged sums in the plain version's order
+with the multiply and the add rounded apart, so it too should be exact,
+and is held to rtol = atol = 1e-5 all the same.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import emb_lookup as tk
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (chip_smoke.py also checks the "
+                    "kernels on the card)")
+    return torch.device("cuda")
+
+
+def _inputs(rng, V, C, E, B, F, device):
+    ids = rng.integers(0, V, (B, F)).astype(np.int32)
+    ids[rng.random((B, F)) < 0.3] = -1
+    slots = rng.integers(-1, C, (B, F)).astype(np.int32)
+    slots[ids < 0] = -1
+    src = rng.integers(-1, V, C).astype(np.int32)
+    arrays = dict(table=rng.normal(size=(V, E)).astype(np.float32),
+                  plane=rng.normal(size=(C, E)).astype(np.float32),
+                  src=src, ids=ids, slots=slots,
+                  w=rng.random((B, F)).astype(np.float32))
+    return {k: torch.from_numpy(a).to(device) for k, a in arrays.items()}
+
+
+@pytest.mark.parametrize("E", [16, 22, 520, 1030])
+def test_kernels_match_plain(cuda, E):
+    x = _inputs(np.random.default_rng(E), V=300, C=40, E=E, B=9, F=48,
+                device=cuda)
+    n0 = dict(tk.LAUNCHES)
+    got = tk.staged_gather(x["plane"], x["table"], x["src"])
+    assert torch.equal(got, tk.staged_gather_ref(x["plane"], x["table"],
+                                                 x["src"]))
+    for w in (None, x["w"]):
+        args = (x["plane"], x["table"], x["slots"], x["ids"], w)
+        torch.testing.assert_close(tk.pooled_lookup_staged(*args),
+                                   tk.pooled_lookup_staged_ref(*args),
+                                   rtol=1e-5, atol=1e-5)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["staged_gather"] == n0["staged_gather"] + 1
+    assert tk.LAUNCHES["pooled_lookup_staged"] == \
+        n0["pooled_lookup_staged"] + 2
+
+
+def test_unaligned_rows_take_the_scalar_path(cuda):
+    """A plane that starts 4 bytes into its storage is not 16-byte
+    aligned: the kernels must still read it right."""
+    x = _inputs(np.random.default_rng(0), V=64, C=10, E=32, B=4, F=6,
+                device=cuda)
+    big = torch.zeros(10 * 32 + 1, device=cuda)
+    plane = big[1:].view(10, 32)
+    plane.copy_(x["plane"])
+    assert plane.data_ptr() % 16 != 0
+    assert torch.equal(tk.staged_gather(plane, x["table"], x["src"]),
+                       tk.staged_gather_ref(plane, x["table"], x["src"]))
+    args = (plane, x["table"], x["slots"], x["ids"], None)
+    torch.testing.assert_close(tk.pooled_lookup_staged(*args),
+                               tk.pooled_lookup_staged_ref(*args),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_mixed_devices_raise(cuda):
+    x = _inputs(np.random.default_rng(1), V=20, C=4, E=8, B=2, F=3,
+                device=cuda)
+    with pytest.raises(ValueError, match="several devices"):
+        tk.staged_gather(x["plane"].cpu(), x["table"], x["src"])
