@@ -1,30 +1,40 @@
-"""Drive the PyTorch port's serving path on one CUDA card and check it.
+"""Drive the PyTorch port's serving path and training step on one CUDA
+card and check them.
 
     python3 chip_smoke.py
 
-Phases, each printing its own line:
+Phases, each printing its own lines:
 
 1. device — the card's name and ``nvidia-smi``'s name and power limit;
-2. build — compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+2. build — compiles the CUDA sources in ``src/repro_torch/kernels/csrc``,
+   one ``nvcc`` per source, all at once;
 3. kernels — each kernel against its plain PyTorch version on the card at
-   the serving path's shapes (wdl-s1: V = 502,000, E = 512, the hot-set
-   plane of C rows, bags of the synthetic stream's 48 history slots), with
-   its median time, the plain version's and the least time the card could
-   take (bytes over 3.35 TB/s, or flops over 67 TFLOP/s f32);
-4. parity — the serve step and a TTL refresh on the card against the same
-   calls on the CPU at wdl-tiny size;
-5. serve — ``run_serve`` at wdl-s1 (4 workers, 2,000 QPS for 1 s), with the
-   kernels' launch counters set to 0 just before and read just after.
+   its path's shapes, with its median time, the plain version's, one
+   PyTorch library call's where one computes the same function, and the
+   least time the card could take (bytes over 3.35 TB/s, or flops over
+   67 TFLOP/s f32).  Serving (wdl-s1: V = 502,000, E = 512): the hot-set
+   plane of C rows, bags of the stream's 48 history slots.  Training: the
+   decide stage's per-id cost table (U, 4) pooled over one S1 batch of
+   256 x 74 (and the pooled lookup again at E = 512 on the wdl-s1 table),
+   and the exchange's packs of 256 slots of ids (74 int32), dense
+   features (13 f32) and labels (1 f32);
+4. parity — the serve step and a TTL refresh, and 3 steps of the training
+   stages, on the card against the same calls on the CPU at wdl-tiny;
+5. serve — ``run_serve`` at wdl-s1 (4 workers, 2,000 QPS for 1 s);
+6. train — ``run_dlrm`` at wdl-s1 (4 workers x 256 samples, ESD alpha 1,
+   ragged exchange, 20 steps).
 
-Then one JSON line of kernel records, and as the last line
-``{"ok": true, "device": {...}}``.  Any failed check raises, so the
-script exits non-zero; it also fails without a CUDA device and when the
-package is not beside it.
+Phases 5 and 6 each set every kernel's launch counter to 0 just before
+and read the counters just after.  Then one JSON line of kernel
+records, and as the last line ``{"ok": true, "device": {...}}``.  Any
+failed check raises, so the script exits non-zero; it also fails
+without a CUDA device and when the package is not beside it.
 """
 from __future__ import annotations
 
 import argparse
 import copy
+import itertools
 import json
 import statistics
 import subprocess
@@ -38,9 +48,18 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
-SOURCE = "src/repro_torch/kernels/csrc/emb_lookup.cu"
-REPLACES = {"staged_gather": "src/repro/kernels/emb_lookup.py:174",
+CSRC = "src/repro_torch/kernels/csrc/"
+SOURCES = {"pooled_lookup": CSRC + "emb_lookup.cu",
+           "gather_rows": CSRC + "exchange_pack.cu",
+           "staged_gather": CSRC + "emb_lookup.cu",
+           "pooled_lookup_staged": CSRC + "emb_lookup.cu"}
+REPLACES = {"pooled_lookup": "src/repro/kernels/emb_lookup.py:88",
+            "gather_rows": "src/repro/kernels/exchange_pack.py:34",
+            "staged_gather": "src/repro/kernels/emb_lookup.py:174",
             "pooled_lookup_staged": "src/repro/kernels/emb_lookup.py:245"}
+TRAIN_ARGV = ["--arch", "wdl-s1", "--workers", "4", "--batch-per-worker",
+              "256", "--steps", "20", "--esd-alpha", "1", "--exchange",
+              "ragged", "--capacity-ratio", "0.2", "--device", "cuda"]
 
 
 def check(cond: bool, what: str):
@@ -104,12 +123,124 @@ def phase_device() -> str:
 def phase_build():
     from repro_torch.kernels import _build
 
+    names = ("emb_lookup", "exchange_pack")
     t = time.perf_counter()
-    _build.load_library("emb_lookup")
+    _build.load_libraries(*names)
     dt = time.perf_counter() - t
-    ptxas = [ln.strip() for ln in _build.build_log("emb_lookup").splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"[build] emb_lookup in {dt:.2f} s; " + " | ".join(ptxas))
+    print(f"[build] {', '.join(names)} in {dt:.2f} s (in parallel)")
+    for name in names:
+        ptxas = [ln.strip() for ln in _build.build_log(name).splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"[build] {name}: " + " | ".join(ptxas))
+
+
+def _launch_counters():
+    from repro_torch.kernels import emb_lookup, exchange_pack
+
+    return (emb_lookup.LAUNCHES, exchange_pack.LAUNCHES)
+
+
+def _zero_launches():
+    for counts in _launch_counters():
+        for k in counts:
+            counts[k] = 0
+
+
+def _read_launches() -> dict:
+    return {k: v for counts in _launch_counters() for k, v in counts.items()}
+
+
+def phase_train_kernels(seed: int) -> dict:
+    """B1 and B2 at the training step's shapes."""
+    from repro_torch.core.simulator import DEFAULT_BANDWIDTHS
+    from repro_torch.data.synthetic import WORKLOADS
+    from repro_torch.kernels import emb_lookup as K
+    from repro_torch.kernels import exchange_pack as P
+    from repro_torch.kernels.ops import cost_table_sparse
+
+    wl = WORKLOADS["S1"]
+    V, n, m = wl.vocab, 4, 256
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    rng = np.random.default_rng(seed + 7)
+    rec = {}
+
+    def pooled(what, table, ids, w):
+        out = K.pooled_lookup(table, ids, w)
+        ref = K.pooled_lookup_ref(table, ids, w)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        check(torch.equal(out, ref), f"pooled_lookup {what} is bitwise "
+                                     f"equal to plain")
+        ms, call_ms = device_ms(lambda: K.pooled_lookup(table, ids, w))
+        plain_ms, _ = device_ms(
+            lambda: K.pooled_lookup_ref(table, ids, w), reps=20)
+        valid = ids >= 0
+        ids_c = torch.where(valid, ids, 0).long()
+        w_c = torch.where(valid, w, 0.0)
+        lib_ms, _ = device_ms(lambda: torch.nn.functional.embedding_bag(
+            ids_c, table, mode="sum", per_sample_weights=w_c))
+        B, F = ids.shape
+        E = table.shape[1]
+        rows = int(torch.unique(ids_c).numel())
+        b_ms, b_by = bound(rows * E * 4 + 2 * B * F * 4 + B * E * 4,
+                           2 * B * F * E)
+        print(f"[kernel] pooled_lookup {what} B={B} F={F} E={E} "
+              f"rows={rows}: exact, {ms:.4f} ms (call {call_ms:.4f}), "
+              f"plain {plain_ms:.4f} ms, embedding_bag {lib_ms:.4f} ms, "
+              f"bound {b_ms:.6f} ms ({b_by})")
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+
+    # the decide stage: Alg. 1's compact (U, 4) cost table from a random
+    # cache state, pooled over one S1 batch's remapped ids
+    latest = torch.rand((n, V), generator=g, device=dev) < 0.3
+    dirty = latest & (torch.rand((n, V), generator=g, device=dev) < 0.5)
+    t_tran = torch.tensor((512 * 4.0) / DEFAULT_BANDWIDTHS(n),
+                          dtype=torch.float32, device=dev)
+    samples = torch.as_tensor(wl.sample_batch(rng, m).astype(np.int32),
+                              device=dev)
+    table, inv, w = cost_table_sparse(samples, latest, dirty, t_tran)
+    rec["pooled_lookup"] = pooled(f"(decide, U={table.shape[0]})", table,
+                                  inv, w)
+    # the same kernel at E = 512 on the wdl-s1 table
+    big = torch.randn((V, 512), generator=g, device=dev) * 0.01
+    wts = torch.rand(samples.shape, generator=g, device=dev)
+    pooled("(E=512, wdl-s1 table)", big, samples, wts)
+    del big
+
+    # the exchange's packs: 256 send slots, about a quarter PAD
+    S = m
+    slot_np = rng.permutation(m).astype(np.int32)
+    slot_np[rng.random(S) < 0.25] = -1
+    slot = torch.as_tensor(slot_np, device=dev)
+    dense = torch.as_tensor(wl.dense_batch(rng, m), device=dev)
+    labels = torch.as_tensor(wl.label_batch(rng, m)[:, None], device=dev)
+    for what, rows in (("ids int32", samples), ("dense f32", dense),
+                       ("labels f32", labels)):
+        out = P.gather_rows(rows, slot)
+        ref = P.gather_rows_ref(rows, slot)
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref), f"gather_rows {what} is exact")
+        check(bool((out[slot < 0] == -1).all()), f"gather_rows {what} "
+                                                 f"fills -1 in its dtype")
+        ms, call_ms = device_ms(lambda: P.gather_rows(rows, slot))
+        plain_ms, _ = device_ms(lambda: P.gather_rows_ref(rows, slot))
+        ext = torch.cat([rows, torch.full_like(rows[:1], -1)])
+        idx = torch.where(slot >= 0, slot, m).long()
+        lib_ms, _ = device_ms(lambda: torch.index_select(ext, 0, idx))
+        F = rows.shape[1]
+        n_valid = int((slot >= 0).sum())
+        b_ms, b_by = bound(S * F * 4 + n_valid * F * 4 + S * 4, 0)
+        print(f"[kernel] gather_rows {what} S={S} F={F} valid={n_valid}: "
+              f"exact, {ms:.4f} ms (call {call_ms:.4f}), plain "
+              f"{plain_ms:.4f} ms, index_select {lib_ms:.4f} ms, bound "
+              f"{b_ms:.6f} ms ({b_by})")
+        if what == "ids int32":
+            rec["gather_rows"] = dict(max_abs_err=0.0, ms=ms,
+                                      plain_ms=plain_ms, library_ms=lib_ms,
+                                      bound_ms=b_ms, bound_by=b_by)
+    return rec
 
 
 def phase_kernels(seed: int) -> dict:
@@ -231,6 +362,62 @@ def phase_parity(seed: int):
           f"max abs err {worst:.3g} (tolerance 1e-5)")
 
 
+def phase_train_parity(seed: int):
+    """3 steps of the training stages at wdl-tiny (4 workers x 8, ragged
+    exchange, alpha 1) on the card and on the CPU from the same weights:
+    integer outputs equal, losses and parameters within 1e-5."""
+    from repro_torch.configs import DLRM_CONFIGS
+    from repro_torch.core.dispatch import esd_sparse_init
+    from repro_torch.core.simulator import DEFAULT_BANDWIDTHS
+    from repro_torch.data.synthetic import WORKLOADS
+    from repro_torch.launch.steps import make_dlrm_esd_stages
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.dlrm import bce_loss, init_params
+    from repro_torch.optim import rowwise_adagrad
+
+    cfg = DLRM_CONFIGS["wdl-tiny"]
+    wl = WORKLOADS[cfg.workload]
+    n, m, V = 4, 8, wl.vocab
+    cap = int(0.2 * V)
+    cpu = init_params(cfg, wl, torch.Generator().manual_seed(seed), "cpu")
+    runs = {}
+    for dev, model in (("cpu", cpu), ("cuda", copy.deepcopy(cpu).to("cuda"))):
+        t = torch.tensor((cfg.embedding_dim * 4.0) / DEFAULT_BANDWIDTHS(n),
+                         dtype=torch.float32, device=dev)
+        decide, advance, _, out_rows = make_dlrm_esd_stages(
+            n, m, t, 1.0, exchange="ragged", capacity=cap)
+        state = esd_sparse_init(n, V, cap, max_ids=out_rows * wl.width,
+                                device=dev)
+        train = make_train_step(model, bce_loss, rowwise_adagrad(1e-2))
+        log = []
+        for s, d, l in itertools.islice(wl.stream(seed + 1, n * m), 3):
+            s = torch.as_tensor(s.astype(np.int32), device=dev)
+            d, l = torch.as_tensor(d, device=dev), torch.as_tensor(l,
+                                                                 device=dev)
+            assign, _ = decide(state, s)
+            x, state, counts = advance(state, s, d, l, assign)
+            loss = train(*x)
+            log.append(([assign, *x, *counts.values()], loss))
+        runs[dev] = log, [p.detach() for p in model.parameters()]
+    (lc, pc), (lg, pg) = runs["cpu"], runs["cuda"]
+    worst = 0.0
+    for (ints_c, loss_c), (ints_g, loss_g) in zip(lc, lg):
+        for a, b in zip(ints_c, ints_g):
+            check(torch.equal(a, b.cpu()), "training stages: assignment, "
+                  "exchanged arrays and counts equal on card and CPU")
+        check(torch.allclose(loss_c, loss_g.cpu(), rtol=1e-5, atol=1e-5),
+              "training loss on card vs CPU within 1e-5")
+        worst = max(worst, float((loss_c - loss_g.cpu()).abs()))
+    for a, b in zip(pc, pg):
+        check(torch.allclose(a, b.cpu(), rtol=1e-5, atol=1e-5),
+              "trained parameters on card vs CPU within 1e-5")
+        worst = max(worst, float((a - b.cpu()).abs().max()))
+    print(f"[parity] 3 training steps, card vs CPU, wdl-tiny: assignments, "
+          f"exchanged arrays and counts equal; losses "
+          f"{[round(float(x[1]), 6) for x in lg]}; max abs err of losses "
+          f"and parameters {worst:.3g} (tolerance 1e-5)")
+
+
 def phase_serve(seed: int) -> tuple[dict, dict]:
     from repro_torch.data.synthetic import WORKLOADS
     from repro_torch.kernels import emb_lookup as K
@@ -242,10 +429,9 @@ def phase_serve(seed: int) -> tuple[dict, dict]:
             "--refresh-budget", "64", "--device", "cuda",
             "--seed", str(seed)]
     args = build_parser().parse_args(argv)
-    for k in K.LAUNCHES:
-        K.LAUNCHES[k] = 0
+    _zero_launches()
     out = run_serve(args)
-    launches = dict(K.LAUNCHES)
+    launches = {k: v for k, v in _read_launches().items() if v}
     n_stream = len(request_arrivals(StreamConfig(
         workload=WORKLOADS["S1"], qps=2000.0, duration_s=1.0,
         seed=seed))[0])
@@ -258,12 +444,47 @@ def phase_serve(seed: int) -> tuple[dict, dict]:
           f"{out['decide_ms_mean']:.3f} ms/batch, worker step "
           f"{out['worker_step_ms_mean']:.3f} ms x {out['worker_steps']}; "
           f"launches {launches} ({per_batch} per micro-batch)")
-    check(all(v > 0 for v in launches.values()),
-          "both kernels launched on the serving path")
+    check(launches.get("staged_gather", 0) > 0
+          and launches.get("pooled_lookup_staged", 0) > 0,
+          "both serving kernels launched on the serving path")
     check(out["n_requests"] == n_stream, "every request of the stream served")
     check(out["nonfinite_logits"] == 0, "all logits finite")
     check(out["refresh_rows"] > 0, "TTL refreshes happened")
     return out, launches
+
+
+def phase_train(seed: int) -> dict:
+    from repro_torch.launch.train import build_parser, run_dlrm
+
+    args = build_parser().parse_args(TRAIN_ARGV + ["--seed", str(seed)])
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    out = run_dlrm(args)    # raises if a step's exchange overflowed
+    launches = {k: v for k, v in _read_launches().items() if v}
+    recs = out["metrics"]
+    per_step = {k: round(v / len(recs), 3) for k, v in launches.items()}
+    losses = [r["loss"] for r in recs]
+    print(f"[train] wdl-s1, {out['workers']} workers x "
+          f"{out['batch'] // out['workers']}, {len(recs)} steps: loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}; decide "
+          f"{out['decide_ms_mean']:.3f} ms, advance "
+          f"{out['advance_ms_mean']:.3f} ms, train "
+          f"{out['train_ms_mean']:.3f} ms per step (mean of steps 1..), "
+          f"{out['samples_per_s']:.1f} samples/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{launches} ({per_step} per step); exchange_overflow 0")
+    for key in ("miss_pull", "update_push", "evict_push"):
+        print(f"[train] {key} per step: {[r[key] for r in recs]}")
+    print("[train] step ms (decide, advance, train) per step: " + str([
+        tuple(round(x * 1e3, 2) for x in t) for t in zip(
+            *(out["stage_s"][s] for s in ("decide", "advance", "train")))]))
+    check(launches.get("pooled_lookup", 0) > 0,
+          "pooled_lookup launched on the training step")
+    check(launches.get("gather_rows", 0) > 0,
+          "gather_rows launched on the training step")
+    check(all(np.isfinite(losses)), "every training loss finite")
+    check(all(r["miss_pull"] > 0 for r in recs), "miss_pull > 0 each step")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -276,12 +497,16 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     phase_build()
     rec = phase_kernels(args.seed)
+    rec.update(phase_train_kernels(args.seed))
     phase_parity(args.seed)
+    phase_train_parity(args.seed)
     _, launches = phase_serve(args.seed)
-    kernels = [dict(name=k, route="cuda", source=SOURCE,
-                    replaces=REPLACES[k], launches=launches[k],
-                    library_ms=None, **rec[k])
-               for k in ("staged_gather", "pooled_lookup_staged")]
+    launches.update(phase_train(args.seed))
+    kernels = [dict(name=k, route="cuda", source=SOURCES[k],
+                    replaces=REPLACES[k], launches=launches.get(k, 0),
+                    **{"library_ms": None, **rec[k]})
+               for k in ("pooled_lookup", "gather_rows", "staged_gather",
+                         "pooled_lookup_staged")]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,0 +1,168 @@
+"""Profile the PyTorch port's ESD training step on one CUDA card.
+
+    python3 scripts/profile_train_torch.py [--steps 14] [--warm 4]
+
+Builds the training step as ``repro_torch.launch.train.run_dlrm`` does
+(wdl-s1, 4 workers x 256, ESD alpha 1, ragged exchange, capacity 0.2),
+runs ``--warm`` steps unprofiled, then profiles the rest with
+``torch.profiler`` (CPU and CUDA activity), each stage inside a
+``record_function`` range.  Prints, per stage, the host time (after a
+synchronise) and the time in which the device ran any of its kernels
+(the union of kernel intervals inside the stage's span); the same share
+over the whole profiled window; the auction rounds per
+step; and the kernels that took most device time.  Writes the table to
+``--out`` when given.  Needs a CUDA device; exits non-zero without one.
+"""
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+
+def _union_us(intervals) -> float:
+    total, end = 0.0, -1.0
+    for s, e in sorted(intervals):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="wdl-s1")
+    ap.add_argument("--steps", type=int, default=14)
+    ap.add_argument("--warm", type=int, default=4)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", type=Path, default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train_torch: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    import repro_torch.core.dispatch as D
+    from repro_torch.configs import DLRM_CONFIGS
+    from repro_torch.core.simulator import DEFAULT_BANDWIDTHS
+    from repro_torch.data.synthetic import WORKLOADS
+    from repro_torch.launch.steps import make_dlrm_esd_stages
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.dlrm import bce_loss, init_params
+    from repro_torch.optim import rowwise_adagrad
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    dev = torch.device("cuda")
+    cfg = DLRM_CONFIGS[args.arch]
+    wl = WORKLOADS[cfg.workload]
+    n, m, V = 4, 256, wl.vocab
+    cap = int(0.2 * V)
+    t = torch.tensor((cfg.embedding_dim * 4.0) / DEFAULT_BANDWIDTHS(n),
+                     dtype=torch.float32, device=dev)
+    decide, advance, _, out_rows = make_dlrm_esd_stages(
+        n, m, t, 1.0, exchange="ragged", capacity=cap)
+    state = D.esd_sparse_init(n, V, cap, max_ids=out_rows * wl.width,
+                              device=dev)
+    model = init_params(cfg, wl, torch.Generator(device=dev)
+                        .manual_seed(args.seed), dev)
+    train = make_train_step(model, bce_loss, rowwise_adagrad(1e-2))
+
+    rounds = [0]
+    body = D._round_body
+
+    def counted(*a):
+        rounds[0] += 1
+        return body(*a)
+
+    D._round_body = counted
+    stream = wl.stream(args.seed + 1, n * m)
+    host = {s: [] for s in ("decide", "advance", "train")}
+    per_step_rounds = []
+
+    def step(i, prof_on):
+        nonlocal state
+        s, d, l = next(stream)
+        s = torch.as_tensor(s.astype(np.int32), device=dev)
+        d, l = torch.as_tensor(d, device=dev), torch.as_tensor(l, device=dev)
+        rounds[0] = 0
+        for name in ("decide", "advance", "train"):
+            t0 = time.perf_counter()
+            with torch.profiler.record_function(name):
+                if name == "decide":
+                    assign, _ = decide(state, s)
+                elif name == "advance":
+                    x, state, _ = advance(state, s, d, l, assign)
+                else:
+                    train(*x)
+                torch.cuda.synchronize()
+            if prof_on:
+                host[name].append(time.perf_counter() - t0)
+        per_step_rounds.append(rounds[0])
+
+    for i in range(args.warm):
+        step(i, False)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(args.warm, args.steps):
+            step(i, True)
+        wall_us = (time.perf_counter() - t0) * 1e6
+
+    lines = [f"{smi}", f"[profile] {args.arch}, {n} workers x {m}, steps "
+             f"{args.warm}..{args.steps - 1} profiled, auction rounds per "
+             f"step {per_step_rounds}"]
+    # the device timeline holds each record_function range as an event
+    # of its own (the stage's device span) beside the kernels
+    stages = ("decide", "advance", "train")
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = {st: [(e.time_range.start, e.time_range.end) for e in events
+                  if e.name == st] for st in stages}
+    kernels = [e for e in events if e.name not in stages]
+    iv = [(e.time_range.start, e.time_range.end) for e in kernels]
+    n_prof = args.steps - args.warm
+    for name in stages:
+        clipped = [(max(a, s0), min(b, s1)) for s0, s1 in spans[name]
+                   for a, b in iv if a < s1 and b > s0]
+        dev_ms = _union_us(clipped) / 1e3 / n_prof
+        host_ms = float(np.mean(host[name])) * 1e3
+        lines.append(f"[profile] {name}: host {host_ms:.3f} ms/step, device "
+                     f"busy {dev_ms:.3f} ms/step ({dev_ms / host_ms:.1%})")
+    busy = _union_us(iv)
+    lines.append(f"[profile] window {wall_us / 1e3:.1f} ms, device busy "
+                 f"{busy / 1e3:.1f} ms ({busy / wall_us:.1%}), idle "
+                 f"{1 - busy / wall_us:.1%}; {len(kernels)} kernels "
+                 f"({len(kernels) / n_prof:.0f} per step)")
+    by_kernel = {}
+    for e in kernels:
+        k = by_kernel.setdefault(e.name, [0, 0.0])
+        k[0] += 1
+        k[1] += e.time_range.elapsed_us()
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:15]
+    for name, (cnt, us) in top:
+        lines.append(f"[profile] kernel {us / 1e3 / n_prof:9.3f} ms/step "
+                     f"{cnt / n_prof:8.1f} launches/step  {name[:110]}")
+    text = "\n".join(lines)
+    print(text)
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(text + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

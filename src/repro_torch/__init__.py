@@ -3,6 +3,7 @@
 A port of the JAX package ``repro`` that imports neither JAX nor
 ``repro``: host-side numpy code is copied, device code is PyTorch, and
 every Pallas TPU kernel on a ported path is a CUDA kernel written for
-``sm_90a`` (:mod:`repro_torch.kernels`).  The first ported path is
-online serving, ``python -m repro_torch.launch.serve``.
+``sm_90a`` (:mod:`repro_torch.kernels`).  Ported paths: online
+serving, ``python -m repro_torch.launch.serve``, and the ESD training
+step, ``python -m repro_torch.launch.train``.
 """

@@ -1,14 +1,26 @@
-"""Alg. 1 — the numpy subset of the expected-cost module that the
-serving path needs: per-link row transmission time and the pull-only
-cost column over a batch's unique ids.  Copied from the JAX package's
-``core/cost.py``, bit for bit, so both packages price requests alike.
+"""Alg. 1 — the expected-cost module.
+
+Numpy (copied from the JAX package's ``core/cost.py``, bit for bit, so
+both packages price serving requests alike): per-link row transmission
+time and the pull-only cost column over a batch's unique ids.
+
+PyTorch (the training step's decide stage): the per-sample id dedup, the
+per-id cost rows and the plain touched-ids Alg. 1, counterparts of the
+reference's ``dedup_mask_jnp``, ``per_id_cost_rows`` and
+``cost_matrix_sparse_jnp``.  The decide stage itself prices through the
+pooled-lookup kernel (:func:`repro_torch.kernels.ops.
+cost_matrix_sparse_kernel`); :func:`cost_matrix_sparse` is the
+reference's second formula, kept for comparison.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 __all__ = ["PAD_ID", "transmission_time", "transmission_time_codec",
-           "dedup_mask_np", "batch_unique_np", "miss_time_from_state_cols"]
+           "dedup_mask_np", "batch_unique_np", "miss_time_from_state_cols",
+           "dedup_mask", "unique_padded", "per_id_cost_rows",
+           "cost_matrix_sparse"]
 
 PAD_ID = -1  # padding slot inside a sample's id list
 
@@ -81,3 +93,76 @@ def miss_time_from_state_cols(inv: np.ndarray, mask: np.ndarray,
         return np.zeros((inv.shape[0], n), np.float64)
     miss = (~lat_cols[:, inv]) & mask[None, :, :]          # (n, k, F)
     return (miss * t_cols[:, inv]).sum(axis=2).T           # (k, n)
+
+
+# --------------------------------------------------------------------------
+# PyTorch: the decide stage's Alg. 1
+# --------------------------------------------------------------------------
+def dedup_mask(samples: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Torch twin of :func:`dedup_mask_np`: (ids, mask) with PAD clamped
+    to 0 and the first occurrence of each id in every sample kept.  The
+    argsort is stable, as the reference's."""
+    k, _ = samples.shape
+    valid = samples != PAD_ID
+    ids = torch.where(valid, samples, torch.zeros_like(samples))
+    sort_idx = torch.argsort(samples, dim=1, stable=True)
+    sorted_ids = torch.gather(samples, 1, sort_idx)
+    first = torch.cat([torch.ones((k, 1), dtype=torch.bool,
+                                  device=samples.device),
+                       sorted_ids[:, 1:] != sorted_ids[:, :-1]], dim=1)
+    dedup = torch.zeros_like(first).scatter_(1, sort_idx, first)
+    return ids, valid & dedup
+
+
+def unique_padded(x: torch.Tensor, fill: int) -> torch.Tensor:
+    """Sorted unique values along the last dim, padded with ``fill`` to
+    the same length: ``jnp.unique(x, size=x.shape[-1], fill_value=fill)``
+    row by row, for a ``fill`` no smaller than any value.  Sort, mark the
+    first of each run, scatter the firsts to their rank: no host sync."""
+    s = torch.sort(x, dim=-1).values
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[..., 1:] = s[..., 1:] != s[..., :-1]
+    L = x.shape[-1]
+    rank = torch.cumsum(first, dim=-1) - 1
+    out = torch.full(x.shape[:-1] + (L + 1,), fill, dtype=x.dtype,
+                     device=x.device)
+    out.scatter_(-1, torch.where(first, rank, L), s)   # repeats -> slot L
+    return out[..., :L]
+
+
+def per_id_cost_rows(latest_in_cache: torch.Tensor, dirty: torch.Tensor,
+                     t_tran: torch.Tensor) -> torch.Tensor:
+    """The (U, n) table v[x, j] of Alg.-1 cost contributions per id, over
+    the (n, U) state columns given:
+
+    v[x, j] = (1 - latest_in_cache[j, x]) * T_j  +  sum_{j'!=j} dirty[j', x] * T_{j'}
+
+    The sum over workers is a left fold, j' = 0..n-1, as XLA reduces the
+    reference's axis of n.
+    """
+    t = t_tran.to(torch.float32)
+    miss = (1.0 - latest_in_cache.to(torch.float32)).T * t[None, :]
+    pushes = dirty.to(torch.float32) * t[:, None]              # (n, U)
+    push_tot = pushes[0]
+    for j in range(1, pushes.shape[0]):
+        push_tot = push_tot + pushes[j]
+    push = push_tot[:, None] - dirty.to(torch.float32).T * t[None, :]
+    return miss + push
+
+
+def cost_matrix_sparse(samples: torch.Tensor, latest_in_cache: torch.Tensor,
+                       dirty: torch.Tensor, t_tran: torch.Tensor
+                       ) -> torch.Tensor:
+    """Touched-ids Alg. 1 in plain PyTorch, the reference's
+    ``cost_matrix_sparse_jnp``: gather the state at the batch's ids, one
+    cost row per (sample, slot), masked and summed over the slots.
+    (k, F) samples -> (k, n) f32."""
+    k, F = samples.shape
+    n = latest_in_cache.shape[0]
+    ids, valid = dedup_mask(samples)
+    flat = ids.reshape(-1).long()
+    lat_g = latest_in_cache[:, flat]
+    dirty_g = dirty[:, flat]
+    rows = per_id_cost_rows(lat_g, dirty_g, t_tran).reshape(k, F, n)
+    rows = torch.where(valid[:, :, None], rows, torch.zeros_like(rows))
+    return rows.sum(dim=1)

@@ -12,6 +12,7 @@ draw identical streams from one seed.
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
 
 import numpy as np
 
@@ -105,6 +106,21 @@ class CTRWorkload:
 
     def dense_batch(self, rng: np.random.Generator, batch: int) -> np.ndarray:
         return rng.standard_normal((batch, self.n_dense)).astype(np.float32)
+
+    def label_batch(self, rng: np.random.Generator, batch: int) -> np.ndarray:
+        return (rng.random(batch) < 0.25).astype(np.float32)
+
+    def stream(
+        self, seed: int, batch: int
+    ) -> Iterator[tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """Infinite (sparse_ids, dense, labels) stream."""
+        rng = np.random.default_rng(seed)
+        while True:
+            yield (
+                self.sample_batch(rng, batch),
+                self.dense_batch(rng, batch),
+                self.label_batch(rng, batch),
+            )
 
 
 def _mk(name, model, big, small, n_big, n_small, a_big, a_small):

@@ -16,7 +16,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "load_library", "build_log"]
+__all__ = ["BUILD_DIR", "load_library", "load_libraries", "build_log"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -28,9 +28,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "emb_lookup": {
+        "pooled_lookup_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
         "staged_gather_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
         "pooled_lookup_staged_launch": [_P, _P, _P, _P, _P, _P,
                                         _I, _I, _I, _I, _I, _I, _P],
+    },
+    "exchange_pack": {
+        "gather_rows_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
 }
 
@@ -51,29 +55,44 @@ def _nvcc() -> str:
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded ``lib<name>`` built from ``csrc/<name>.cu``, compiled on
     the first call in this checkout."""
-    lib = _loaded.get(name)
-    if lib is not None:
-        return lib
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}_{digest}.so"
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(src)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name} "
-                               f"(exit {proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, out)
-        _logs[name] = proc.stderr
-    lib = ctypes.CDLL(str(out))
-    for fn, argtypes in SIGNATURES[name].items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
-    _loaded[name] = lib
-    return lib
+    return load_libraries(name)[0]
+
+
+def load_libraries(*names: str) -> list[ctypes.CDLL]:
+    """Load several libraries; the ones not built yet compile together,
+    one ``nvcc`` process per source, all started at once."""
+    builds = []
+    for name in names:
+        if name in _loaded:
+            continue
+        src = CSRC / f"{name}.cu"
+        digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS)
+                                .encode()).hexdigest()[:16]
+        out = BUILD_DIR / f"lib{name}_{digest}.so"
+        proc = tmp = None
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+            proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                     str(src)], stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+        builds.append((name, src, out, tmp, proc))
+    # wait for every compiler before raising, so none outlives a failure
+    errs = [proc.communicate()[1] if proc is not None else ""
+            for *_, proc in builds]
+    for (name, src, out, tmp, proc), err in zip(builds, errs):
+        if proc is not None:
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} "
+                                   f"(exit {proc.returncode}):\n{err}")
+            os.replace(tmp, out)
+            _logs[name] = err
+        lib = ctypes.CDLL(str(out))
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _loaded[name] = lib
+    return [_loaded[name] for name in names]
 
 
 def build_log(name: str) -> str:

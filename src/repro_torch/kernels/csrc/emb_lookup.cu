@@ -1,4 +1,22 @@
-// Embedding-row kernels of the serving path, for Hopper (sm_90a).
+// Embedding-row kernels of the serving path and of the training step's
+// Alg. 1, for Hopper (sm_90a).
+//
+// pooled_lookup_launch replaces the Pallas TPU kernel
+// src/repro/kernels/emb_lookup.py:pooled_lookup (_kernel, _kernel_blocked):
+//     out[b] = sum_f w[b,f] * table[ids[b,f]]
+// The wrapper has already clamped PAD ids to row 0 with weight 0.  On the
+// training step it prices Alg. 1: a compact (U, n) per-id cost table, n = 4
+// columns wide, pooled over 256 bags of 74 ids.  Two flops per element
+// read, so bytes bound it (the distinct rows read, the ids and weights,
+// the (B, E) output); at E = 4 it is really bound by the latency of the
+// F dependent-free loads per output.  Design for narrow rows: one thread
+// per (bag, column), 256 threads to a block, so a block holds 64 bags at
+// E = 4 (B6's one-block-per-bag layout would leave 127 of 128 threads
+// idle) and half a bag at E = 512.  Each thread walks f = 0..F-1 in order
+// and accumulates in an f32 register, multiply and add rounded apart
+// (__fmul_rn, __fadd_rn: no FMA contraction), so the plain PyTorch
+// version (out = out + table[ids[:, f]] * w[:, f]) is matched bit for
+// bit.  No lookup is skipped: a zero weight adds what the plain sum adds.
 //
 // staged_gather_launch replaces the Pallas TPU kernel
 // src/repro/kernels/emb_lookup.py:staged_gather (_kernel_staged):
@@ -41,6 +59,29 @@ constexpr int kGatherThreads = 256;   // 8 warps = 8 slots per block
 constexpr int kPoolThreads = 128;
 constexpr int kPoolCols = 4;          // columns per thread
 constexpr int kPoolChunk = kPoolThreads * kPoolCols;
+constexpr int kLookupThreads = 256;   // (bag, column) pairs per block
+
+__global__ void pooled_lookup_kernel(const float* __restrict__ table,
+                                     const int* __restrict__ ids,
+                                     const float* __restrict__ weights,
+                                     float* __restrict__ out,
+                                     int B, int F, int E, int V) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (t >= static_cast<int64_t>(B) * E) return;
+  const int64_t b = t / E;
+  const int e = static_cast<int>(t - b * E);
+  const int* bag = ids + b * F;
+  const float* w = weights + b * F;
+  float acc = 0.f;
+#pragma unroll 4
+  for (int f = 0; f < F; ++f) {
+    const int id = min(max(bag[f], 0), V - 1);
+    acc = __fadd_rn(acc, __fmul_rn(table[static_cast<int64_t>(id) * E + e],
+                                   w[f]));
+  }
+  out[t] = acc;
+}
 
 __global__ void staged_gather_kernel(const float* __restrict__ plane,
                                      const float* __restrict__ table,
@@ -130,6 +171,21 @@ __global__ void pooled_lookup_staged_kernel(const float* __restrict__ plane,
 }
 
 }  // namespace
+
+extern "C" int pooled_lookup_launch(const void* table, const void* ids,
+                                    const void* weights, void* out, int B,
+                                    int F, int E, int V, void* stream) {
+  if (B == 0 || E == 0) return 0;
+  const int64_t threads = static_cast<int64_t>(B) * E;
+  const unsigned blocks =
+      static_cast<unsigned>((threads + kLookupThreads - 1) / kLookupThreads);
+  pooled_lookup_kernel<<<blocks, kLookupThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(table), static_cast<const int*>(ids),
+      static_cast<const float*>(weights), static_cast<float*>(out), B, F, E,
+      V);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int staged_gather_launch(const void* plane, const void* table,
                                     const void* src, void* out, int C, int E,

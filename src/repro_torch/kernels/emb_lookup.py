@@ -1,5 +1,10 @@
-"""Embedding-row kernels of the serving path: wrappers and plain versions.
+"""Embedding-row kernels: wrappers and plain versions.
 
+* :func:`pooled_lookup` — ``out[b] = sum_f w[b, f] * table[ids[b, f]]``:
+  the pooled bag, and on the training step Alg. 1 over a compact per-id
+  cost table (:func:`repro_torch.kernels.ops.cost_matrix_sparse_kernel`).
+  Replaces the Pallas TPU kernel ``repro/kernels/emb_lookup.py:
+  pooled_lookup``.
 * :func:`staged_gather` — ``out[s] = table[src[s]] if src[s] >= 0 else
   plane[s]``: the TTL refresh pull and merge into a cache plane.  Replaces
   the Pallas TPU kernel ``repro/kernels/emb_lookup.py:staged_gather``.
@@ -7,7 +12,7 @@
   plane where a live slot holds the id and from the table elsewhere.
   Replaces ``repro/kernels/emb_lookup.py:pooled_lookup_staged``.
 
-Both kernels are CUDA C++ for ``sm_90a`` in ``csrc/emb_lookup.cu``; that
+The kernels are CUDA C++ for ``sm_90a`` in ``csrc/emb_lookup.cu``; that
 file states what bounds each on the card and how its design answers it.
 Each wrapper takes the reference's signature, checks device, dtype
 (f32 rows, int32 indices), shape and contiguity, and raises on anything
@@ -20,10 +25,12 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["LAUNCHES", "staged_gather", "staged_gather_ref",
+__all__ = ["LAUNCHES", "pooled_lookup", "pooled_lookup_ref",
+           "staged_gather", "staged_gather_ref",
            "pooled_lookup_staged", "pooled_lookup_staged_ref"]
 
-LAUNCHES = {"staged_gather": 0, "pooled_lookup_staged": 0}
+LAUNCHES = {"pooled_lookup": 0, "staged_gather": 0,
+            "pooled_lookup_staged": 0}
 
 _MAX_F = 4096   # the bag's row pointers and weights stage in shared memory
 
@@ -62,6 +69,66 @@ def _vec4(E: int, *ts: torch.Tensor) -> int:
 def _raise_on(rc: int, kernel: str):
     if rc != 0:
         raise RuntimeError(f"{kernel} launch failed: cudaError {rc}")
+
+
+# --------------------------------------------------------------------------
+# pooled_lookup
+# --------------------------------------------------------------------------
+def _pad_rule(ids: torch.Tensor, weights: torch.Tensor | None):
+    """PAD ids (< 0) read row 0 with weight 0, as the reference's wrapper
+    sets them up; ``None`` weights are all ones."""
+    valid = ids >= 0
+    if weights is None:
+        weights = torch.ones(ids.shape, dtype=torch.float32,
+                             device=ids.device)
+    ids_c = torch.where(valid, ids, torch.zeros_like(ids))
+    w = torch.where(valid, weights, torch.zeros_like(weights))
+    return ids_c, w
+
+
+def pooled_lookup_ref(table: torch.Tensor, ids: torch.Tensor,
+                      weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`pooled_lookup`: the sum over
+    f = 0..F-1 in order, each product rounded before its add."""
+    B, F = ids.shape
+    V, E = table.shape
+    ids_c, w = _pad_rule(ids, weights)
+    ids_c = ids_c.long().clamp(max=V - 1)
+    out = torch.zeros((B, E), dtype=torch.float32, device=table.device)
+    for f in range(F):
+        out = out + table[ids_c[:, f]] * w[:, f, None]
+    return out
+
+
+def pooled_lookup(table: torch.Tensor, ids: torch.Tensor,
+                  weights: torch.Tensor | None = None) -> torch.Tensor:
+    """out[b] = sum_f weights[b, f] * table[ids[b, f]].
+
+    table: (V, E) f32; ids: (B, F) int32, PAD = -1 (row 0, weight 0; an
+    id past the table clamps to its last row); weights: (B, F) f32 or
+    None (all ones).  Returns (B, E) f32.
+    """
+    _check("table", table, torch.float32, (None, None))
+    V, E = table.shape
+    _check("ids", ids, torch.int32, (None, None))
+    B, F = ids.shape
+    if weights is not None:
+        _check("weights", weights, torch.float32, (B, F))
+    if not _on_cuda(table, ids, weights):
+        return pooled_lookup_ref(table, ids, weights)
+    if V == 0:
+        raise ValueError("pooled_lookup needs a table with rows")
+    from ._build import load_library
+
+    lib = load_library("emb_lookup")
+    ids_c, w = _pad_rule(ids, weights)
+    out = torch.empty((B, E), dtype=torch.float32, device=table.device)
+    rc = lib.pooled_lookup_launch(
+        table.data_ptr(), ids_c.data_ptr(), w.data_ptr(), out.data_ptr(),
+        B, F, E, V, torch.cuda.current_stream(table.device).cuda_stream)
+    _raise_on(rc, "pooled_lookup")
+    LAUNCHES["pooled_lookup"] += 1
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -1,0 +1,147 @@
+"""Stage builders of the DLRM ESD training step.
+
+The counterpart of the JAX package's ``launch/steps.py``
+(``make_esd_exchange``, ``raise_on_overflow``, ``make_dlrm_esd_stages``
+for the non-elastic, single-PS case).  The reference's stages run one
+shard per device under ``shard_map``; here the ``n`` workers share one
+device and a stage's global ``(k, ...)`` batch is split by rows, worker
+``i`` holding rows ``[i * m, (i + 1) * m)``.  ``lax.all_to_all`` becomes
+a transpose of the stacked send blocks, ``all_gather`` a stack over
+workers and ``psum`` a sum over them.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.dispatch import (dispatch_cap, esd_cost_matrix, esd_decide,
+                             esd_state_update_sparse, exchange_budget,
+                             need_ids_list)
+from ..exchange.ragged import ragged_exchange
+
+__all__ = ["make_esd_exchange", "raise_on_overflow", "make_dlrm_esd_stages"]
+
+
+def make_esd_exchange(mode: str, n: int, m: int, budget: int | None = None,
+                      out_rows: int | None = None):
+    """Row-exchange function for the ESD step: ``route(a, assign)`` moves
+    every worker's (n, m, ...) rows (sample ids, dense features, labels)
+    to the worker each sample was assigned to (assign: (n, m)) and
+    returns ``(out (n, out_rows, ...), overflow)``.
+
+    ``mode="padded"`` is the fixed m/n all-to-all baseline (no kernel);
+    ``mode="ragged"`` is the budgeted executor, whose packs run the
+    row-pack kernel.  With the default ``budget = m // n`` and
+    ``out_rows = m`` the two agree exactly; a relaxed capacity passes
+    ``exchange_budget`` and ``out_rows = n * budget``, and the rows past
+    each worker's valid prefix come back as -1.
+    """
+    if mode not in ("padded", "ragged"):
+        raise ValueError(f"unknown exchange mode {mode!r}")
+    if mode == "padded":
+        if budget not in (None, m // n) or out_rows not in (None, m):
+            raise ValueError("padded exchange is fixed-shape: budget/out_rows "
+                             "cannot deviate from m/n and m")
+
+        def route(a, assign):
+            order = torch.argsort(assign, dim=1, stable=True)      # (n, m)
+            idx = order.reshape(order.shape + (1,) * (a.dim() - 2))
+            routed = torch.gather(a, 1, idx.expand(a.shape))
+            blocks = routed.reshape((n, n, m // n) + a.shape[2:])
+            out = blocks.transpose(0, 1).reshape(a.shape)
+            return out, torch.zeros((), dtype=torch.int32, device=a.device)
+    else:
+        budget = m // n if budget is None else budget
+        out_rows = m if out_rows is None else out_rows
+
+        def route(a, assign):
+            if a.dim() == 2:       # labels pack as (m, 1) rows
+                out, _, _, overflow = ragged_exchange(a[..., None], assign,
+                                                      budget, out_rows)
+                return out[..., 0], overflow
+            out, _, _, overflow = ragged_exchange(a, assign, budget,
+                                                  out_rows)
+            return out, overflow
+
+    return route
+
+
+def raise_on_overflow(counts: dict) -> None:
+    """Host-side guard for the ragged wire: an undersized budget drops
+    rows, so the driver checks the step's ``exchange_overflow`` counter
+    and fails loudly instead of training on a truncated batch."""
+    ov = counts.get("exchange_overflow")
+    if ov is None:
+        return
+    ov = int(ov)
+    if ov:
+        raise RuntimeError(
+            f"ragged exchange dropped {ov} rows: the per-link budget is "
+            f"smaller than the dispatch capacity (raise cap_slack's budget "
+            f"or fix the assignment)")
+
+
+def make_dlrm_esd_stages(n: int, m: int, t_tran: torch.Tensor, alpha: float,
+                         *, exchange: str = "padded",
+                         cap_slack: float = 0.0,
+                         capacity: int | None = None):
+    """Stage functions of the DLRM ESD step (reference
+    ``make_dlrm_esd_stages``, non-elastic, single PS, sparse engine):
+
+      decide(esd_state, sparse)                    -> (assign (k,), alg1)
+      advance(esd_state, sparse, dense, labels, assign)
+          -> ((sparse', dense', labels'), new_esd_state, counts)
+      realized_cost(esd_state, sparse, assign)     -> alg1
+
+    ``sparse``/``dense``/``labels`` are the global (k, ...) batch, k = n
+    * m.  ``decide`` is Alg. 1 + Alg. 2 per worker; ``advance`` moves the
+    samples over the selected wire path and runs the cache-state
+    machine.  With ``cap_slack > 0`` (needs ``exchange="ragged"``) the
+    exchanged arrays come back with ``out_rows = n * exchange_budget``
+    rows per worker, valid rows first and -1 after (pair with the
+    PAD-masked loss).  Returns ``(decide, advance, realized_cost,
+    out_rows)``.
+    """
+    if cap_slack > 0.0 and exchange != "ragged":
+        raise ValueError("cap_slack > 0 needs exchange='ragged' (the padded "
+                         "all_to_all requires equal m/n groups)")
+    cap = dispatch_cap(m, n, cap_slack)
+    budget = m // n if cap_slack <= 0.0 else exchange_budget(cap, m)
+    out_rows = m if cap_slack <= 0.0 else n * budget
+    if exchange == "ragged":
+        route = make_esd_exchange(exchange, n, m, budget=budget,
+                                  out_rows=out_rows)
+    else:
+        route = make_esd_exchange(exchange, n, m)
+
+    def split(a):
+        return a.reshape((n, m) + a.shape[1:])
+
+    def decide(esd_state, sparse):
+        assign, alg1 = esd_decide(split(sparse), esd_state, t_tran, alpha,
+                                  cap_slack=cap_slack, with_cost=True)
+        return assign.reshape(-1), alg1.sum()
+
+    def advance(esd_state, sparse, dense, labels, assign):
+        a = split(assign)
+        # every array rides the same assignment/budget, so one route's
+        # overflow counter covers the step
+        s2, overflow = route(split(sparse), a)
+        d2, _ = route(split(dense), a)
+        l2, _ = route(split(labels), a)
+        need = need_ids_list(s2)
+        new_state, counts = esd_state_update_sparse(esd_state, need,
+                                                    capacity)
+        counts = dict(counts)
+        counts["exchange_overflow"] = overflow
+        flat = lambda x: x.reshape((n * out_rows,) + x.shape[2:])
+        return (flat(s2), flat(d2), flat(l2)), new_state, counts
+
+    def realized_cost(esd_state, sparse, assign):
+        s, a = split(sparse), split(assign).long()
+        total = torch.zeros((), dtype=torch.float32, device=sparse.device)
+        for i in range(n):
+            C = esd_cost_matrix(s[i], esd_state, t_tran)
+            total = total + torch.gather(C, 1, a[i][:, None])[:, 0].sum()
+        return total
+
+    return decide, advance, realized_cost, out_rows

@@ -16,7 +16,8 @@ from ..configs.dlrm_configs import DLRMConfig
 from ..data.synthetic import WORKLOADS, CTRWorkload
 from .layers import init_linear, linear
 
-__all__ = ["DLRM", "init_params", "params_from_jax"]
+__all__ = ["DLRM", "init_params", "params_from_jax", "bce_loss",
+           "bce_loss_masked"]
 
 
 def _mlp(layers, x):
@@ -32,6 +33,9 @@ class DLRM(nn.Module):
 
     Weights keep the JAX package's layout: MLP weights ``(din, dout)``,
     ``wide`` ``(V, 1)`` (wdl), ``cross_w``/``cross_b`` ``(L, d)`` (dcn).
+    The parameters are built frozen, for serving; the training driver
+    makes them trainable with ``model.requires_grad_(True)``, and the
+    embedding gather then gives a dense ``(V, E)`` gradient, as JAX's.
     """
 
     def __init__(self, cfg: DLRMConfig, embed: torch.Tensor, bottom, top,
@@ -158,3 +162,28 @@ def params_from_jax(np_params: dict, cfg: DLRMConfig, device="cpu") -> DLRM:
     return DLRM(cfg, t(np_params["embed"]),
                 [t(lp["w"]) for lp in np_params["bottom"]],
                 [t(lp["w"]) for lp in np_params["top"]], **extra)
+
+
+def _bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return (torch.clamp(logits, min=0) - logits * labels
+            + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def bce_loss(model: DLRM, sparse_ids: torch.Tensor, dense: torch.Tensor,
+             labels: torch.Tensor) -> torch.Tensor:
+    """Mean binary cross-entropy of the model's logits (stable form)."""
+    return torch.mean(_bce(model(sparse_ids, dense), labels))
+
+
+def bce_loss_masked(model: DLRM, sparse_ids: torch.Tensor,
+                    dense: torch.Tensor, labels: torch.Tensor
+                    ) -> torch.Tensor:
+    """PAD-masked BCE for uneven ragged batches (``cap_slack > 0``): rows
+    with label -1 (the exchange's PAD fill) add neither loss nor
+    gradient, and the mean runs over the valid rows only."""
+    valid = labels >= 0.0
+    logits = model(sparse_ids, dense)
+    lbl = torch.where(valid, labels, torch.zeros_like(labels))
+    per_row = torch.where(valid, _bce(logits, lbl),
+                          torch.zeros_like(logits))
+    return per_row.sum() / valid.sum().clamp(min=1).to(per_row.dtype)

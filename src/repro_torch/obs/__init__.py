@@ -5,9 +5,9 @@ from __future__ import annotations
 import json
 import sys
 
-from .metrics import Counter, Histogram, MetricsRegistry
+from .metrics import Counter, Gauge, Histogram, MetricsRegistry
 
-__all__ = ["Counter", "Histogram", "MetricsRegistry", "log_step"]
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "log_step"]
 
 # Keys pinned to the front of every step line, in this order; any other
 # fields follow sorted by name, so lines stay grep/diff-stable.

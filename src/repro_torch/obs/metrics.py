@@ -1,11 +1,13 @@
 """Metrics registry: the subset of the JAX package's ``obs.metrics`` that
-the serving driver uses (counters and histograms with quantiles)."""
+the serving and training drivers use (counters, gauges, histograms with
+quantiles, and the training driver's per-step records)."""
 from __future__ import annotations
 
 import math
 from typing import Any, Optional
 
-__all__ = ["Counter", "Histogram", "MetricsRegistry"]
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
+           "STEP_NAMESPACE"]
 
 
 class Counter:
@@ -19,6 +21,19 @@ class Counter:
     def inc(self, amount=1):
         self.value += amount
         return self.value
+
+
+class Gauge:
+    __slots__ = ("name", "value")
+    kind = "gauge"
+
+    def __init__(self, name: str):
+        self.name = name
+        self.value = None
+
+    def set(self, value):
+        self.value = value
+        return value
 
 
 class Histogram:
@@ -73,14 +88,37 @@ class Histogram:
         return xs[lo] * (1.0 - frac) + xs[hi] * frac
 
 
+# Driver per-step record field -> namespaced cumulative metric folded by
+# record_step().  Byte/count fields accumulate into counters; rates and
+# level-style fields land in gauges (last value wins).
+STEP_NAMESPACE = {
+    "cost": ("dispatch.cost_s", "counter"),
+    "alg1_est": ("dispatch.alg1_cost", "gauge"),
+    "miss_pull": ("cache.miss_pull", "counter"),
+    "update_push": ("cache.update_push", "counter"),
+    "evict_push": ("cache.evict_push", "counter"),
+    "prefetch_bytes": ("prefetch.bytes", "counter"),
+    "demand_miss_bytes": ("cache.demand_miss", "counter"),
+    "prefetch_hit_rate": ("prefetch.hit_rate", "gauge"),
+    "loss": ("train.loss", "gauge"),
+    "wall_s": ("train.wall_s", "counter"),
+}
+
+
 class MetricsRegistry:
-    """Namespaced metric store (create-on-first-use)."""
+    """Namespaced metric store (create-on-first-use) plus the training
+    driver's per-step records."""
 
     def __init__(self):
         self._metrics: dict[str, Any] = {}
+        # the training driver's list of per-step dicts
+        self.steps: list[dict] = []
 
     def counter(self, name: str) -> Counter:
         return self._get(name, Counter)
+
+    def gauge(self, name: str) -> Gauge:
+        return self._get(name, Gauge)
 
     def histogram(self, name: str, keep: bool = False) -> Histogram:
         m = self._metrics.get(name)
@@ -98,3 +136,19 @@ class MetricsRegistry:
             raise TypeError(f"metric {name!r} is a {m.kind}, "
                             f"not a {cls.kind}")
         return m
+
+    def record_step(self, step: int, fields: dict) -> dict:
+        """Append one per-step record and fold its fields into the
+        namespaced cumulative metrics.  Returns the record."""
+        rec = {"step": step, **fields}
+        self.steps.append(rec)
+        for key, value in fields.items():
+            ns = STEP_NAMESPACE.get(key)
+            if ns is None or value is None:
+                continue
+            name, kind = ns
+            if kind == "counter":
+                self.counter(name).inc(value)
+            else:
+                self.gauge(name).set(value)
+        return rec

@@ -1,1 +1,2 @@
-"""The staging plane (:mod:`.prefetch`)."""
+"""The staging plane (:mod:`.prefetch`) and the training step's stage
+runner (:mod:`.runner`)."""

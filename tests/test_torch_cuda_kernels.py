@@ -4,16 +4,20 @@ Imports no JAX, so it runs on a machine with a card and without JAX:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda_kernels.py
 
-Without a CUDA device every test here skips.  staged_gather copies rows
-and must be exact; pooled_lookup_staged sums in the plain version's order
-with the multiply and the add rounded apart, so it too should be exact,
-and is held to rtol = atol = 1e-5 all the same.
+Without a CUDA device every test here skips.  staged_gather and
+gather_rows copy rows and must be exact; pooled_lookup sums in the plain
+version's order with the multiply and the add rounded apart and must be
+exact too; pooled_lookup_staged does the same and is held to rtol =
+atol = 1e-5 all the same.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import emb_lookup as tk
+from repro_torch.kernels import exchange_pack as tp
+
+pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
@@ -78,3 +82,34 @@ def test_mixed_devices_raise(cuda):
                 device=cuda)
     with pytest.raises(ValueError, match="several devices"):
         tk.staged_gather(x["plane"].cpu(), x["table"], x["src"])
+
+
+@pytest.mark.parametrize("E", [4, 16, 512, 130])
+def test_pooled_lookup_matches_plain(cuda, E):
+    rng = np.random.default_rng(E + 1)
+    x = _inputs(rng, V=300, C=4, E=E, B=37, F=74, device=cuda)
+    n0 = tk.LAUNCHES["pooled_lookup"]
+    for w in (None, x["w"]):
+        got = tk.pooled_lookup(x["table"], x["ids"], w)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tk.pooled_lookup_ref(x["table"], x["ids"], w))
+    assert tk.LAUNCHES["pooled_lookup"] == n0 + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("F", [1, 13, 74, 40])
+def test_gather_rows_matches_plain(cuda, dtype, F):
+    rng = np.random.default_rng(F)
+    m, S = 64, 256
+    rows = torch.from_numpy(rng.normal(size=(m, F)).astype(np.float32)
+                            * 100).to(dtype).to(cuda)
+    slot = rng.integers(0, m + 5, S).astype(np.int32)   # some past the rows
+    slot[rng.random(S) < 0.25] = -1
+    slot = torch.from_numpy(slot).to(cuda)
+    n0 = tp.LAUNCHES["gather_rows"]
+    got = tp.gather_rows(rows, slot)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert torch.equal(got, tp.gather_rows_ref(rows, slot))
+    assert (got[slot < 0] == -1).all()        # -1 in the rows' own dtype
+    assert tp.LAUNCHES["gather_rows"] == n0 + 1

@@ -20,10 +20,13 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 from repro_torch.launch.serve import build_parser
+from repro_torch.launch.train import build_parser as train_parser
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps({"modules": names, "bad": bad,
-                  "device": build_parser().parse_args([]).device}))
+                  "device": build_parser().parse_args([]).device,
+                  "train_device": train_parser().parse_args(
+                      ["--arch", "wdl-s1"]).device}))
 """
 
 
@@ -40,7 +43,10 @@ def test_port_imports_no_jax_and_no_reference():
     assert out["bad"] == []
     assert "repro_torch.kernels.emb_lookup" in out["modules"]
     assert "repro_torch.launch.serve" in out["modules"]
+    assert "repro_torch.launch.train" in out["modules"]
+    assert "repro_torch.kernels.exchange_pack" in out["modules"]
     assert out["device"] == "cuda"
+    assert out["train_device"] == "cuda"
 
 
 def test_sources_name_no_jax_import():
