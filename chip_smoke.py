@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving path and training step on one CUDA
-card and check them.
+"""Drive the PyTorch port's serving path and training step, exact and
+over the quantized wire, on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -7,28 +7,35 @@ Phases, each printing its own lines:
 
 1. device — the card's name and ``nvidia-smi``'s name and power limit;
 2. build — compiles the CUDA sources in ``src/repro_torch/kernels/csrc``,
-   one ``nvcc`` per source, all at once;
+   one ``nvcc`` per source, all at once, and prints each kernel's
+   registers and spills;
 3. kernels — each kernel against its plain PyTorch version on the card at
    its path's shapes, with its median time, the plain version's, one
    PyTorch library call's where one computes the same function, and the
-   least time the card could take (bytes over 3.35 TB/s, or flops over
-   67 TFLOP/s f32).  Serving (wdl-s1: V = 502,000, E = 512): the hot-set
-   plane of C rows, bags of the stream's 48 history slots.  Training: the
-   decide stage's per-id cost table (U, 4) pooled over one S1 batch of
-   256 x 74 (and the pooled lookup again at E = 512 on the wdl-s1 table),
-   and the exchange's packs of 256 slots of ids (74 int32), dense
-   features (13 f32) and labels (1 f32);
+   least time the card could take (bytes over 3.35 TB/s, or operations
+   over 67 TFLOP/s f32).  Serving (wdl-s1: V = 502,000, E = 512): the
+   hot-set plane of C rows, bags of the stream's 48 history slots.
+   Training: the decide stage's per-id cost table (U, 4) pooled over one
+   S1 batch of 256 x 74 (and the pooled lookup again at E = 512 on the
+   wdl-s1 table), and the exchange's packs of 256 slots of ids (74
+   int32), dense features (13 f32) and labels (1 f32).  The quantized
+   wire: the fused pack-quantize of 256 slots of dense features (fp16,
+   int8, int4, int8:4; and int8 at 512 columns), and the pooled lookup
+   over the int8-quantized wdl-s1 table (256 x 74, E = 512 and E = 4);
 4. parity — the serve step and a TTL refresh, and 3 steps of the training
-   stages, on the card against the same calls on the CPU at wdl-tiny;
-5. serve — ``run_serve`` at wdl-s1 (4 workers, 2,000 QPS for 1 s);
+   stages, exact and with ``--codec int8``, on the card against the same
+   calls on the CPU at wdl-tiny;
+5. serve — ``run_serve`` at wdl-s1 (4 workers, 2,000 QPS for 1 s), then
+   for 0.5 s with ``--codec int8``;
 6. train — ``run_dlrm`` at wdl-s1 (4 workers x 256 samples, ESD alpha 1,
-   ragged exchange, 20 steps).
+   ragged exchange, 10 steps), then again with ``--codec int8``.
 
-Phases 5 and 6 each set every kernel's launch counter to 0 just before
-and read the counters just after.  Then one JSON line of kernel
-records, and as the last line ``{"ok": true, "device": {...}}``.  Any
-failed check raises, so the script exits non-zero; it also fails
-without a CUDA device and when the package is not beside it.
+Each run of phases 5 and 6 sets every kernel's launch counter to 0 just
+before and reads the counters just after.  Then one JSON line of kernel
+records, after the script's wall time, and as the last line ``{"ok":
+true, "device": {...}}``.  Any failed check raises, so the script exits
+non-zero; it also fails without a CUDA device and when the package is
+not beside it.
 """
 from __future__ import annotations
 
@@ -52,13 +59,17 @@ CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"pooled_lookup": CSRC + "emb_lookup.cu",
            "gather_rows": CSRC + "exchange_pack.cu",
            "staged_gather": CSRC + "emb_lookup.cu",
-           "pooled_lookup_staged": CSRC + "emb_lookup.cu"}
+           "pooled_lookup_staged": CSRC + "emb_lookup.cu",
+           "gather_rows_quant": CSRC + "exchange_pack.cu",
+           "pooled_lookup_quant": CSRC + "emb_lookup.cu"}
 REPLACES = {"pooled_lookup": "src/repro/kernels/emb_lookup.py:88",
             "gather_rows": "src/repro/kernels/exchange_pack.py:34",
             "staged_gather": "src/repro/kernels/emb_lookup.py:174",
-            "pooled_lookup_staged": "src/repro/kernels/emb_lookup.py:245"}
+            "pooled_lookup_staged": "src/repro/kernels/emb_lookup.py:245",
+            "gather_rows_quant": "src/repro/kernels/exchange_pack.py:108",
+            "pooled_lookup_quant": "src/repro/kernels/emb_lookup.py:337"}
 TRAIN_ARGV = ["--arch", "wdl-s1", "--workers", "4", "--batch-per-worker",
-              "256", "--steps", "20", "--esd-alpha", "1", "--exchange",
+              "256", "--steps", "10", "--esd-alpha", "1", "--exchange",
               "ragged", "--capacity-ratio", "0.2", "--device", "cuda"]
 
 
@@ -129,9 +140,18 @@ def phase_build():
     dt = time.perf_counter() - t
     print(f"[build] {', '.join(names)} in {dt:.2f} s (in parallel)")
     for name in names:
-        ptxas = [ln.strip() for ln in _build.build_log(name).splitlines()
-                 if "registers" in ln or "spill" in ln]
-        print(f"[build] {name}: " + " | ".join(ptxas))
+        # ptxas reports, per kernel: the entry, then its stack and
+        # spills, then its registers
+        kernel, facts = "?", []
+        for ln in _build.build_log(name).splitlines():
+            if "Compiling entry function" in ln:
+                kernel = next((k for k in SOURCES if f"{k}_kernel" in ln),
+                              ln.split("'")[1] if "'" in ln else ln)
+            elif "spill" in ln or "registers" in ln:
+                facts.append(ln.split(":", 1)[-1].strip())
+                if "registers" in ln:
+                    print(f"[build] {name} {kernel}: " + "; ".join(facts))
+                    facts = []
 
 
 def _launch_counters():
@@ -240,6 +260,105 @@ def phase_train_kernels(seed: int) -> dict:
             rec["gather_rows"] = dict(max_abs_err=0.0, ms=ms,
                                       plain_ms=plain_ms, library_ms=lib_ms,
                                       bound_ms=b_ms, bound_by=b_by)
+    return rec
+
+
+def phase_quant_kernels(seed: int) -> dict:
+    """B4 and B5 at the quantized wire's shapes."""
+    from repro_torch.data.synthetic import WORKLOADS
+    from repro_torch.kernels import emb_lookup as K
+    from repro_torch.kernels import exchange_pack as P
+    from repro_torch.quant.codecs import get_codec, quantize_rows
+
+    wl = WORKLOADS["S1"]
+    V, m = wl.vocab, 256
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    rng = np.random.default_rng(seed + 11)
+    rec = {}
+
+    def same_bits(a, b):
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.contiguous().view(torch.uint8),
+                                b.contiguous().view(torch.uint8)))
+
+    # B4: one worker's send slots of the dense features, about a quarter
+    # PAD; and 512-column rows
+    S = m
+    slot_np = rng.permutation(m).astype(np.int32)
+    slot_np[rng.random(S) < 0.25] = -1
+    slot = torch.as_tensor(slot_np, device=dev)
+    n_valid = int((slot_np >= 0).sum())
+    dense = torch.as_tensor(wl.dense_batch(rng, m), device=dev)
+    wide_rows = torch.randn((m, 512), generator=g, device=dev)
+    for name, rows in (("fp16", dense), ("int8", dense), ("int4", dense),
+                       ("int8:4", dense), ("int8", wide_rows)):
+        c = get_codec(name)
+        F = rows.shape[1]
+        out = P.gather_rows_quant(rows, slot, c)
+        ref = P.gather_rows_quant_ref(rows, slot, c)
+        torch.cuda.synchronize()
+        check(all(same_bits(a, b) for a, b in zip(out, ref)),
+              f"gather_rows_quant {name} F={F} is bitwise equal to plain")
+        if c.kind != "fp16":
+            check(bool((out[1][slot < 0] == 1).all()
+                       and (out[2][slot < 0] == -1).all()
+                       and (out[0][slot < 0] == 0).all()),
+                  f"gather_rows_quant {name}: PAD slots scale 1, zp -1")
+        ms, call_ms = device_ms(lambda: P.gather_rows_quant(rows, slot, c))
+        plain_ms, _ = device_ms(
+            lambda: P.gather_rows_quant_ref(rows, slot, c), reps=20)
+        G = out[1].shape[1]
+        code_bytes = 2 if c.kind == "fp16" else 4
+        n_bytes = S * 4 + n_valid * F * 4 + S * F * code_bytes + 2 * S * G * 4
+        # min, max, subtract, divide, round and two clamps per element
+        b_ms, b_by = bound(n_bytes, 0 if c.kind == "fp16" else 7 * S * F)
+        print(f"[kernel] gather_rows_quant {name} S={S} F={F} G={G} "
+              f"valid={n_valid}: bitwise, {ms:.4f} ms (call {call_ms:.4f}), "
+              f"plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        if name == "int8" and F == 13:
+            rec["gather_rows_quant"] = dict(
+                max_abs_err=float((out[0] - ref[0]).abs().max()), ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    del wide_rows
+
+    # B5: one S1 batch pooled over the int8-quantized wdl-s1 table, and
+    # over a quantized table at the decide stage's width E = 4
+    ids = torch.as_tensor(wl.sample_batch(rng, m).astype(np.int32),
+                          device=dev)
+    w = torch.rand(ids.shape, generator=g, device=dev)
+    valid = ids >= 0
+    n_lookups = int(valid.sum())
+    rows = int(torch.unique(ids[valid]).numel())
+    B, F = ids.shape
+    for E in (512, 4):
+        c = get_codec("int8")
+        codes, scale, zp = quantize_rows(
+            torch.randn((V, E), generator=g, device=dev) * 0.01, c)
+        out = K.pooled_lookup_quant(codes, scale, zp, ids, w, codec=c)
+        ref = K.pooled_lookup_quant_ref(codes, scale, zp, ids, w, codec=c)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        check(same_bits(out, ref), f"pooled_lookup_quant E={E} is bitwise "
+                                   f"equal to plain (max err {err})")
+        ms, call_ms = device_ms(
+            lambda: K.pooled_lookup_quant(codes, scale, zp, ids, w, codec=c))
+        plain_ms, _ = device_ms(
+            lambda: K.pooled_lookup_quant_ref(codes, scale, zp, ids, w,
+                                              codec=c), reps=20)
+        G = scale.shape[1]
+        n_bytes = rows * (E * 4 + G * 8) + 2 * B * F * 4 + B * E * 4
+        # a multiply-add, a multiply and an add per looked-up element
+        b_ms, b_by = bound(n_bytes, 4 * n_lookups * E)
+        print(f"[kernel] pooled_lookup_quant int8 B={B} F={F} E={E} "
+              f"G={G} V={V} rows={rows}: bitwise, {ms:.4f} ms (call "
+              f"{call_ms:.4f}), plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
+              f"({b_by})")
+        if E == 512:
+            rec["pooled_lookup_quant"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by)
+        del codes, scale, zp
     return rec
 
 
@@ -362,11 +481,14 @@ def phase_parity(seed: int):
           f"max abs err {worst:.3g} (tolerance 1e-5)")
 
 
-def phase_train_parity(seed: int):
+def phase_train_parity(seed: int, codec=None):
     """3 steps of the training stages at wdl-tiny (4 workers x 8, ragged
-    exchange, alpha 1) on the card and on the CPU from the same weights:
-    integer outputs equal, losses and parameters within 1e-5."""
+    exchange, alpha 1; exact or over the ``codec`` wire) on the card and
+    on the CPU from the same weights: integer outputs and labels equal,
+    dense features within 1e-6 (with the codec: dequantized on the
+    receiver), losses and parameters within 1e-5."""
     from repro_torch.configs import DLRM_CONFIGS
+    from repro_torch.core.cost import transmission_time_codec
     from repro_torch.core.dispatch import esd_sparse_init
     from repro_torch.core.simulator import DEFAULT_BANDWIDTHS
     from repro_torch.data.synthetic import WORKLOADS
@@ -374,37 +496,46 @@ def phase_train_parity(seed: int):
     from repro_torch.launch.train import make_train_step
     from repro_torch.models.dlrm import bce_loss, init_params
     from repro_torch.optim import rowwise_adagrad
+    from repro_torch.quant.codecs import resolve_link_codecs
 
     cfg = DLRM_CONFIGS["wdl-tiny"]
     wl = WORKLOADS[cfg.workload]
     n, m, V = 4, 8, wl.vocab
     cap = int(0.2 * V)
+    bw = DEFAULT_BANDWIDTHS(n)
+    t_np = transmission_time_codec(cfg.embedding_dim, bw,
+                                   resolve_link_codecs("uniform", bw, codec))
     cpu = init_params(cfg, wl, torch.Generator().manual_seed(seed), "cpu")
     runs = {}
-    for dev, model in (("cpu", cpu), ("cuda", copy.deepcopy(cpu).to("cuda"))):
-        t = torch.tensor((cfg.embedding_dim * 4.0) / DEFAULT_BANDWIDTHS(n),
-                         dtype=torch.float32, device=dev)
+    for key, dev, model in (("cpu", "cpu", cpu),
+                            ("card", "cuda", copy.deepcopy(cpu).to("cuda"))):
+        t = torch.tensor(t_np, dtype=torch.float32, device=dev)
         decide, advance, _, out_rows = make_dlrm_esd_stages(
-            n, m, t, 1.0, exchange="ragged", capacity=cap)
+            n, m, t, 1.0, exchange="ragged", capacity=cap, codec=codec)
         state = esd_sparse_init(n, V, cap, max_ids=out_rows * wl.width,
                                 device=dev)
-        train = make_train_step(model, bce_loss, rowwise_adagrad(1e-2))
+        train = make_train_step(model, bce_loss, rowwise_adagrad(1e-2),
+                                codec)
         log = []
         for s, d, l in itertools.islice(wl.stream(seed + 1, n * m), 3):
             s = torch.as_tensor(s.astype(np.int32), device=dev)
             d, l = torch.as_tensor(d, device=dev), torch.as_tensor(l,
                                                                  device=dev)
             assign, _ = decide(state, s)
-            x, state, counts = advance(state, s, d, l, assign)
-            loss = train(*x)
-            log.append(([assign, *x, *counts.values()], loss))
-        runs[dev] = log, [p.detach() for p in model.parameters()]
-    (lc, pc), (lg, pg) = runs["cpu"], runs["cuda"]
-    worst = 0.0
-    for (ints_c, loss_c), (ints_g, loss_g) in zip(lc, lg):
+            (s2, d2, l2), state, counts = advance(state, s, d, l, assign)
+            loss = train(s2, d2, l2)
+            log.append(([assign, s2, l2, *counts.values()], d2, loss))
+        runs[key] = log, [p.detach() for p in model.parameters()]
+    (lc, pc), (lg, pg) = runs["cpu"], runs["card"]
+    worst = dense_err = 0.0
+    for (ints_c, d_c, loss_c), (ints_g, d_g, loss_g) in zip(lc, lg):
         for a, b in zip(ints_c, ints_g):
             check(torch.equal(a, b.cpu()), "training stages: assignment, "
-                  "exchanged arrays and counts equal on card and CPU")
+                  "exchanged ids and labels and counts equal on card and "
+                  "CPU")
+        check(torch.allclose(d_c, d_g.cpu(), rtol=0, atol=1e-6),
+              "exchanged dense features on card vs CPU within 1e-6")
+        dense_err = max(dense_err, float((d_c - d_g.cpu()).abs().max()))
         check(torch.allclose(loss_c, loss_g.cpu(), rtol=1e-5, atol=1e-5),
               "training loss on card vs CPU within 1e-5")
         worst = max(worst, float((loss_c - loss_g.cpu()).abs()))
@@ -412,51 +543,63 @@ def phase_train_parity(seed: int):
         check(torch.allclose(a, b.cpu(), rtol=1e-5, atol=1e-5),
               "trained parameters on card vs CPU within 1e-5")
         worst = max(worst, float((a - b.cpu()).abs().max()))
-    print(f"[parity] 3 training steps, card vs CPU, wdl-tiny: assignments, "
-          f"exchanged arrays and counts equal; losses "
-          f"{[round(float(x[1]), 6) for x in lg]}; max abs err of losses "
-          f"and parameters {worst:.3g} (tolerance 1e-5)")
+    print(f"[parity] 3 training steps, card vs CPU, wdl-tiny, codec "
+          f"{codec or 'none'}: assignments, exchanged ids and labels and "
+          f"counts equal; dense features max abs err {dense_err:.3g} "
+          f"(tolerance 1e-6); losses {[round(float(x[2]), 6) for x in lg]}; "
+          f"max abs err of losses and parameters {worst:.3g} (tolerance "
+          f"1e-5)")
 
 
-def phase_serve(seed: int) -> tuple[dict, dict]:
+def phase_serve(seed: int, codec=None, duration: float = 1.0) -> dict:
     from repro_torch.data.synthetic import WORKLOADS
-    from repro_torch.kernels import emb_lookup as K
     from repro_torch.launch.serve import build_parser, run_serve
     from repro_torch.serve import StreamConfig, request_arrivals
 
     argv = ["--arch", "wdl-s1", "--workers", "4", "--qps", "2000",
-            "--duration", "1", "--max-batch", "16", "--ttl-batches", "32",
-            "--refresh-budget", "64", "--device", "cuda",
-            "--seed", str(seed)]
+            "--duration", str(duration), "--max-batch", "16",
+            "--ttl-batches", "32", "--refresh-budget", "64",
+            "--device", "cuda", "--seed", str(seed)]
+    if codec is not None:
+        argv += ["--codec", codec]
     args = build_parser().parse_args(argv)
     _zero_launches()
     out = run_serve(args)
     launches = {k: v for k, v in _read_launches().items() if v}
     n_stream = len(request_arrivals(StreamConfig(
-        workload=WORKLOADS["S1"], qps=2000.0, duration_s=1.0,
+        workload=WORKLOADS["S1"], qps=2000.0, duration_s=duration,
         seed=seed))[0])
     per_batch = {k: round(v / out["n_batches"], 3)
                  for k, v in launches.items()}
-    print(f"[serve] wdl-s1: n_requests {out['n_requests']} in "
+    print(f"[serve] wdl-s1, codec {out['codec']}, {duration} s: n_requests "
+          f"{out['n_requests']} in "
           f"{out['n_batches']} batches, p50 {out['p50_ms']:.3f} ms, "
           f"p99 {out['p99_ms']:.3f} ms, refresh_rows {out['refresh_rows']}, "
           f"slo_violation_rate {out['slo_violation_rate']:.4f}, decide "
           f"{out['decide_ms_mean']:.3f} ms/batch, worker step "
           f"{out['worker_step_ms_mean']:.3f} ms x {out['worker_steps']}; "
           f"launches {launches} ({per_batch} per micro-batch)")
-    check(launches.get("staged_gather", 0) > 0
-          and launches.get("pooled_lookup_staged", 0) > 0,
-          "both serving kernels launched on the serving path")
+    check(launches.get("pooled_lookup_staged", 0) > 0,
+          "the pooled history bag kernel launched on the serving path")
+    if codec is None:
+        check(launches.get("staged_gather", 0) > 0,
+              "the refresh kernel launched on the exact serving path")
+    else:      # the quantized pull is a gather and the codec's round trip
+        check("staged_gather" not in launches,
+              "the quantized refresh pull skips the exact-pull kernel")
     check(out["n_requests"] == n_stream, "every request of the stream served")
     check(out["nonfinite_logits"] == 0, "all logits finite")
     check(out["refresh_rows"] > 0, "TTL refreshes happened")
-    return out, launches
+    return launches
 
 
-def phase_train(seed: int) -> dict:
+def phase_train(seed: int, codec=None) -> dict:
     from repro_torch.launch.train import build_parser, run_dlrm
 
-    args = build_parser().parse_args(TRAIN_ARGV + ["--seed", str(seed)])
+    argv = TRAIN_ARGV + ["--seed", str(seed)]
+    if codec is not None:
+        argv += ["--codec", codec]
+    args = build_parser().parse_args(argv)
     torch.cuda.reset_peak_memory_stats()
     _zero_launches()
     out = run_dlrm(args)    # raises if a step's exchange overflowed
@@ -464,7 +607,7 @@ def phase_train(seed: int) -> dict:
     recs = out["metrics"]
     per_step = {k: round(v / len(recs), 3) for k, v in launches.items()}
     losses = [r["loss"] for r in recs]
-    print(f"[train] wdl-s1, {out['workers']} workers x "
+    print(f"[train] wdl-s1, codec {out['codec']}, {out['workers']} workers x "
           f"{out['batch'] // out['workers']}, {len(recs)} steps: loss "
           f"{losses[0]:.6f} -> {losses[-1]:.6f}; decide "
           f"{out['decide_ms_mean']:.3f} ms, advance "
@@ -478,10 +621,16 @@ def phase_train(seed: int) -> dict:
     print("[train] step ms (decide, advance, train) per step: " + str([
         tuple(round(x * 1e3, 2) for x in t) for t in zip(
             *(out["stage_s"][s] for s in ("decide", "advance", "train")))]))
-    check(launches.get("pooled_lookup", 0) > 0,
-          "pooled_lookup launched on the training step")
-    check(launches.get("gather_rows", 0) > 0,
-          "gather_rows launched on the training step")
+    check(per_step.get("pooled_lookup") == 4.0,
+          "pooled_lookup launched once per worker and step (decide)")
+    if codec is None:
+        check(per_step.get("gather_rows") == 12.0,
+              "gather_rows packs ids, dense features and labels per worker")
+    else:
+        check(per_step.get("gather_rows") == 8.0,
+              "gather_rows packs ids and labels per worker and step")
+        check(per_step.get("gather_rows_quant") == 4.0,
+              "gather_rows_quant packs the dense features per worker")
     check(all(np.isfinite(losses)), "every training loss finite")
     check(all(r["miss_pull"] > 0 for r in recs), "miss_pull > 0 each step")
     return launches
@@ -491,6 +640,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = phase_device()
@@ -498,15 +648,28 @@ def main(argv=None) -> int:
     phase_build()
     rec = phase_kernels(args.seed)
     rec.update(phase_train_kernels(args.seed))
+    rec.update(phase_quant_kernels(args.seed))
     phase_parity(args.seed)
     phase_train_parity(args.seed)
-    _, launches = phase_serve(args.seed)
-    launches.update(phase_train(args.seed))
+    phase_train_parity(args.seed, codec="int8")
+    # launches on the main paths: each run counted from zero, then summed
+    launches: dict = {}
+    for run in (lambda: phase_serve(args.seed),
+                lambda: phase_serve(args.seed, codec="int8", duration=0.5),
+                lambda: phase_train(args.seed),
+                lambda: phase_train(args.seed, codec="int8")):
+        for k, v in run().items():
+            launches[k] = launches.get(k, 0) + v
+    # B5 runs on no driver path (its phase 3 check holds it); every other
+    # kernel must have launched on a main path
+    for k in SOURCES:
+        check(k == "pooled_lookup_quant" or launches.get(k, 0) > 0,
+              f"{k} launched on a main path")
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=REPLACES[k], launches=launches.get(k, 0),
                     **{"library_ms": None, **rec[k]})
-               for k in ("pooled_lookup", "gather_rows", "staged_gather",
-                         "pooled_lookup_staged")]
+               for k in SOURCES]
+    print(f"[wall] chip_smoke.py took {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,9 +1,11 @@
 """Profile the PyTorch port's ESD training step on one CUDA card.
 
-    python3 scripts/profile_train_torch.py [--steps 14] [--warm 4]
+    python3 scripts/profile_train_torch.py [--steps 14] [--warm 4] \
+        [--codec int8]
 
 Builds the training step as ``repro_torch.launch.train.run_dlrm`` does
-(wdl-s1, 4 workers x 256, ESD alpha 1, ragged exchange, capacity 0.2),
+(wdl-s1, 4 workers x 256, ESD alpha 1, ragged exchange, capacity 0.2;
+with ``--codec``, over the quantized wire, the links priced uniformly),
 runs ``--warm`` steps unprofiled, then profiles the rest with
 ``torch.profiler`` (CPU and CUDA activity), each stage inside a
 ``record_function`` range.  Prints, per stage, the host time (after a
@@ -46,6 +48,7 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=14)
     ap.add_argument("--warm", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--codec", default=None)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -55,12 +58,15 @@ def main(argv=None) -> int:
 
     import repro_torch.core.dispatch as D
     from repro_torch.configs import DLRM_CONFIGS
+    from repro_torch.core.cost import transmission_time_codec
     from repro_torch.core.simulator import DEFAULT_BANDWIDTHS
     from repro_torch.data.synthetic import WORKLOADS
     from repro_torch.launch.steps import make_dlrm_esd_stages
     from repro_torch.launch.train import make_train_step
     from repro_torch.models.dlrm import bce_loss, init_params
     from repro_torch.optim import rowwise_adagrad
+    from repro_torch.quant.codecs import (codec_name, get_codec,
+                                          resolve_link_codecs)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -70,15 +76,18 @@ def main(argv=None) -> int:
     wl = WORKLOADS[cfg.workload]
     n, m, V = 4, 256, wl.vocab
     cap = int(0.2 * V)
-    t = torch.tensor((cfg.embedding_dim * 4.0) / DEFAULT_BANDWIDTHS(n),
-                     dtype=torch.float32, device=dev)
+    codec = get_codec(args.codec)
+    bw = DEFAULT_BANDWIDTHS(n)
+    t = torch.tensor(transmission_time_codec(
+        cfg.embedding_dim, bw, resolve_link_codecs("uniform", bw, codec)),
+        dtype=torch.float32, device=dev)
     decide, advance, _, out_rows = make_dlrm_esd_stages(
-        n, m, t, 1.0, exchange="ragged", capacity=cap)
+        n, m, t, 1.0, exchange="ragged", capacity=cap, codec=codec)
     state = D.esd_sparse_init(n, V, cap, max_ids=out_rows * wl.width,
                               device=dev)
     model = init_params(cfg, wl, torch.Generator(device=dev)
                         .manual_seed(args.seed), dev)
-    train = make_train_step(model, bce_loss, rowwise_adagrad(1e-2))
+    train = make_train_step(model, bce_loss, rowwise_adagrad(1e-2), codec)
 
     rounds = [0]
     body = D._round_body
@@ -114,6 +123,7 @@ def main(argv=None) -> int:
 
     for i in range(args.warm):
         step(i, False)
+    torch.cuda.reset_peak_memory_stats()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -122,7 +132,8 @@ def main(argv=None) -> int:
             step(i, True)
         wall_us = (time.perf_counter() - t0) * 1e6
 
-    lines = [f"{smi}", f"[profile] {args.arch}, {n} workers x {m}, steps "
+    lines = [f"{smi}", f"[profile] {args.arch}, codec {codec_name(codec)}, "
+             f"{n} workers x {m}, steps "
              f"{args.warm}..{args.steps - 1} profiled, auction rounds per "
              f"step {per_step_rounds}"]
     # the device timeline holds each record_function range as an event
@@ -156,6 +167,9 @@ def main(argv=None) -> int:
     for name, (cnt, us) in top:
         lines.append(f"[profile] kernel {us / 1e3 / n_prof:9.3f} ms/step "
                      f"{cnt / n_prof:8.1f} launches/step  {name[:110]}")
+    lines.append(f"[profile] peak device memory "
+                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+                 f"(profiled steps)")
     text = "\n".join(lines)
     print(text)
     if args.out is not None:

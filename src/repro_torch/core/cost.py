@@ -2,7 +2,8 @@
 
 Numpy (copied from the JAX package's ``core/cost.py``, bit for bit, so
 both packages price serving requests alike): per-link row transmission
-time and the pull-only cost column over a batch's unique ids.
+time, fp32 or under per-link wire codecs, and the pull-only cost column
+over a batch's unique ids.
 
 PyTorch (the training step's decide stage): the per-sample id dedup, the
 per-id cost rows and the plain touched-ids Alg. 1, counterparts of the
@@ -32,14 +33,34 @@ def transmission_time(d_tran_bytes: float, bandwidth_bytes_per_s: np.ndarray) ->
 
 def transmission_time_codec(n_elems: int, bandwidth_bytes_per_s: np.ndarray,
                             link_codecs=None) -> np.ndarray:
-    """Per-link row transmission time for an ``n_elems``-wide fp32
-    embedding row.  Quantized wire codecs (``link_codecs``) come with the
-    quantized-wire slice of the port."""
-    if link_codecs is not None:
-        raise NotImplementedError(
-            "per-link wire codecs arrive with the quantized-wire slice")
+    """Per-link row transmission time for an ``n_elems``-wide embedding
+    row under per-link wire codecs — Alg. 1's T_j with the byte width
+    folded in.
+
+    ``link_codecs`` is what :func:`repro_torch.quant.codecs.
+    resolve_link_codecs` returns: ``None`` (every link fp32 — bitwise
+    identical to ``transmission_time(n_elems * 4.0, bw)``) or an array
+    of codec names shaped like ``bandwidth_bytes_per_s`` ((n,) or
+    (n, n_ps)).  A quantized link is charged payload + scale/zero-point
+    metadata (:func:`repro_torch.quant.codecs.row_wire_bytes`).
+    """
     bw = np.asarray(bandwidth_bytes_per_s, np.float64)
-    return transmission_time(n_elems * 4.0, bw)
+    if link_codecs is None:
+        return transmission_time(n_elems * 4.0, bw)
+    from ..quant.codecs import row_wire_bytes
+
+    codecs = np.asarray(link_codecs, object)
+    if codecs.shape != bw.shape:
+        raise ValueError(f"link_codecs shape {codecs.shape} != "
+                         f"bandwidth shape {bw.shape}")
+    byte_of = {}
+    flat = codecs.reshape(-1)
+    d = np.empty(flat.shape, np.float64)
+    for i, name in enumerate(flat):
+        if name not in byte_of:
+            byte_of[name] = float(row_wire_bytes(n_elems, name))
+        d[i] = byte_of[name]
+    return d.reshape(bw.shape) / bw
 
 
 def dedup_mask_np(samples: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

@@ -19,28 +19,28 @@ Wire order: a destination's batch is the concatenation over ascending
 source of each source's rows in their original local order.  Every pack
 goes through the kernel: 1-D rows (labels) pack as (m, 1), where the
 reference scatters them.
+
+:func:`ragged_exchange_quant` is the quantized wire for float rows: the
+pack quantizes each send slot's row (kernel :func:`repro_torch.kernels.
+exchange_pack.gather_rows_quant`), codes, scales and zero-points cross
+the transpose, and each receiver dequantizes before it compacts.
 """
 from __future__ import annotations
 
 import torch
 
-from ..kernels.exchange_pack import gather_rows
+from ..kernels.exchange_pack import gather_rows, gather_rows_quant
+from ..quant.codecs import dequantize_rows, get_codec
 
-__all__ = ["pack_send", "compact_recv", "ragged_exchange"]
+__all__ = ["pack_send", "compact_recv", "ragged_exchange",
+           "ragged_exchange_quant"]
 
 
-def pack_send(rows: torch.Tensor, assign: torch.Tensor, n: int, budget: int,
-              fill: int = -1):
-    """Pack one worker's rows into per-destination send blocks.
-
-    rows: (m, ...) int32 or f32 payload; assign: (m,) destination in
-    [0, n).  Returns (send (n, budget, ...), counts (n,) int32, overflow
-    () int32).  Rows keep their order within each destination block;
-    rows beyond ``budget`` for a destination are dropped from the wire
-    and counted in ``overflow`` (the driver raises on it).
-    """
-    m = rows.shape[0]
-    dev = rows.device
+def _slots(assign: torch.Tensor, n: int, budget: int):
+    """One worker's wire layout: ``slot_to_row`` ((n * budget,) int32,
+    -1 = PAD slot), counts (n,) int32 and overflow () int32."""
+    m = assign.shape[0]
+    dev = assign.device
     a = assign.long()
     counts = torch.zeros((n,), dtype=torch.int64, device=dev)
     counts.scatter_add_(0, a, torch.ones_like(a))
@@ -57,9 +57,22 @@ def pack_send(rows: torch.Tensor, assign: torch.Tensor, n: int, budget: int,
                              device=dev)
     slot_to_row.scatter_(0, slot, torch.arange(m, dtype=torch.int32,
                                                device=dev))
-    send = gather_rows(rows.reshape(m, -1), slot_to_row[:n * budget], fill)
-    return (send.reshape((n, budget) + rows.shape[1:]),
-            counts.to(torch.int32), overflow)
+    return slot_to_row[:n * budget], counts.to(torch.int32), overflow
+
+
+def pack_send(rows: torch.Tensor, assign: torch.Tensor, n: int, budget: int,
+              fill: int = -1):
+    """Pack one worker's rows into per-destination send blocks.
+
+    rows: (m, ...) int32 or f32 payload; assign: (m,) destination in
+    [0, n).  Returns (send (n, budget, ...), counts (n,) int32, overflow
+    () int32).  Rows keep their order within each destination block;
+    rows beyond ``budget`` for a destination are dropped from the wire
+    and counted in ``overflow`` (the driver raises on it).
+    """
+    slot_to_row, counts, overflow = _slots(assign, n, budget)
+    send = gather_rows(rows.reshape(rows.shape[0], -1), slot_to_row, fill)
+    return send.reshape((n, budget) + rows.shape[1:]), counts, overflow
 
 
 def compact_recv(recv: torch.Tensor, recv_counts: torch.Tensor,
@@ -111,3 +124,46 @@ def ragged_exchange(rows: torch.Tensor, assign: torch.Tensor, budget: int,
             for j in range(n)]
     return (torch.stack([o[0] for o in outs]),
             torch.stack([o[1] for o in outs]), recv_counts, overflow)
+
+
+def ragged_exchange_quant(rows: torch.Tensor, assign: torch.Tensor,
+                          budget: int, codec, out_rows: int | None = None,
+                          fill: int = -1):
+    """Quantized variant of :func:`ragged_exchange` for (n, m, E) float
+    rows.
+
+    Each source packs and quantizes its send slots in one pass (kernel
+    :func:`repro_torch.kernels.exchange_pack.gather_rows_quant`), the
+    codes and the per-group scale and zero-point cross the transpose as
+    separate tensors (the values of the reference's concatenated block),
+    and each destination dequantizes its blocks before compacting them.
+    PAD fill rows are constant and come back bitwise ``fill``.
+    ``codec=None`` is the exact fp32 path.  Returns (out, total,
+    recv_counts, overflow) like :func:`ragged_exchange`.
+    """
+    c = get_codec(codec)
+    if c is None:
+        return ragged_exchange(rows, assign, budget, out_rows=out_rows,
+                               fill=fill)
+    if rows.dim() != 3:
+        raise ValueError("ragged_exchange_quant packs (n, m, E) float rows")
+    n, _, E = rows.shape
+    wire, counts, overflow = [], [], []
+    for i in range(n):
+        slot_to_row, cnt, ov = _slots(assign[i], n, budget)
+        wire.append(gather_rows_quant(rows[i], slot_to_row, c, fill))
+        counts.append(cnt)
+        overflow.append(ov)
+    # (src, dst * budget, ...) -> (dst, src, budget, ...)
+    codes, scale, zp = (
+        torch.stack(t).reshape((n, n, budget, -1)).transpose(0, 1)
+        for t in zip(*wire))
+    recv_counts = torch.stack(counts).T.clamp(max=budget)
+    if out_rows is None:
+        out_rows = n * budget
+    outs = [compact_recv(dequantize_rows(codes[j], scale[j], zp[j], c),
+                         recv_counts[j], out_rows, fill=fill)
+            for j in range(n)]
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]), recv_counts,
+            torch.stack(overflow).sum().to(torch.int32))

@@ -20,21 +20,28 @@ __all__ = ["BUILD_DIR", "load_library", "load_libraries", "build_log"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+# no --use_fast_math: the quantize kernel relies on IEEE division and
+# nvcc's default -prec-div=true
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # C signature of every launcher: name -> argtypes (pointers and the stream
-# as c_void_p, so ctypes passes all 64 bits; ints as c_int)
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# as c_void_p, so ctypes passes all 64 bits; ints as c_int, floats as
+# c_float)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "emb_lookup": {
         "pooled_lookup_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
         "staged_gather_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
         "pooled_lookup_staged_launch": [_P, _P, _P, _P, _P, _P,
                                         _I, _I, _I, _I, _I, _I, _P],
+        "pooled_lookup_quant_launch": [_P, _P, _P, _P, _P, _P,
+                                       _I, _I, _I, _I, _I, _I, _P],
     },
     "exchange_pack": {
         "gather_rows_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "gather_rows_quant_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _F, _F, _F, _P],
     },
 }
 

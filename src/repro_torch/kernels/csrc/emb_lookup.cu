@@ -1,5 +1,5 @@
-// Embedding-row kernels of the serving path and of the training step's
-// Alg. 1, for Hopper (sm_90a).
+// Embedding-row kernels of the serving path, of the training step's Alg. 1
+// and of the quantized table, for Hopper (sm_90a).
 //
 // pooled_lookup_launch replaces the Pallas TPU kernel
 // src/repro/kernels/emb_lookup.py:pooled_lookup (_kernel, _kernel_blocked):
@@ -46,7 +46,22 @@
 // same order as the plain PyTorch version, which the kernel then matches
 // bit for bit.
 //
-// Both launchers run on the caller's stream, allocate nothing and return
+// pooled_lookup_quant_launch replaces the Pallas TPU kernel
+// src/repro/kernels/emb_lookup.py:pooled_lookup_quant (_kernel_quant):
+//     out[b] = sum_f w[b,f] * (codes[id,e] * scale[id,g] + zp[id,g])
+// the pooled bag over a table quantized per group of Bg columns (g =
+// e / Bg), the dequant fused into the accumulate so the f32 table never
+// exists.  The wrapper has already clamped PAD ids to row 0 with weight 0.
+// It reads the distinct rows' codes (E f32-valued integers) and their G
+// scale/zero-point pairs, three flops per element read: bytes bound it.
+// Design: B1's, one thread per (bag, column), 256 threads to a block,
+// walking f = 0..F-1 in order.  The dequant is one fused multiply-add
+// (__fmaf_rn), the form the JAX reference takes under jit; the weight
+// multiply and the accumulate are rounded apart (__fmul_rn, __fadd_rn), as
+// in B1, so the plain PyTorch version (the dequant in f64, rounded once;
+// then out = out + row * w[:, f]) is matched bit for bit.
+//
+// All launchers run on the caller's stream, allocate nothing and return
 // cudaGetLastError() so a refused launch surfaces in the Python wrapper.
 // Row indices past the table's end are clamped to its last row, as JAX's
 // gathers clamp.
@@ -170,6 +185,33 @@ __global__ void pooled_lookup_staged_kernel(const float* __restrict__ plane,
   }
 }
 
+__global__ void pooled_lookup_quant_kernel(const float* __restrict__ codes,
+                                           const float* __restrict__ scale,
+                                           const float* __restrict__ zp,
+                                           const int* __restrict__ ids,
+                                           const float* __restrict__ weights,
+                                           float* __restrict__ out, int B,
+                                           int F, int E, int V, int Bg,
+                                           int G) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (t >= static_cast<int64_t>(B) * E) return;
+  const int64_t b = t / E;
+  const int e = static_cast<int>(t - b * E);
+  const int g = e / Bg;
+  const int* bag = ids + b * F;
+  const float* w = weights + b * F;
+  float acc = 0.f;
+#pragma unroll 4
+  for (int f = 0; f < F; ++f) {
+    const int64_t id = min(max(bag[f], 0), V - 1);
+    const float x = __fmaf_rn(codes[id * E + e], scale[id * G + g],
+                              zp[id * G + g]);
+    acc = __fadd_rn(acc, __fmul_rn(x, w[f]));
+  }
+  out[t] = acc;
+}
+
 }  // namespace
 
 extern "C" int pooled_lookup_launch(const void* table, const void* ids,
@@ -218,5 +260,24 @@ extern "C" int pooled_lookup_staged_launch(const void* plane,
       static_cast<const int*>(slots), static_cast<const int*>(ids),
       static_cast<const float*>(weights), static_cast<float*>(out), F, E, C,
       V, vec4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int pooled_lookup_quant_launch(const void* codes,
+                                          const void* scale, const void* zp,
+                                          const void* ids,
+                                          const void* weights, void* out,
+                                          int B, int F, int E, int V, int Bg,
+                                          int G, void* stream) {
+  if (B == 0 || E == 0) return 0;
+  const int64_t threads = static_cast<int64_t>(B) * E;
+  const unsigned blocks =
+      static_cast<unsigned>((threads + kLookupThreads - 1) / kLookupThreads);
+  pooled_lookup_quant_kernel<<<blocks, kLookupThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(codes), static_cast<const float*>(scale),
+      static_cast<const float*>(zp), static_cast<const int*>(ids),
+      static_cast<const float*>(weights), static_cast<float*>(out), B, F, E,
+      V, Bg, G);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,6 +11,10 @@
 * :func:`pooled_lookup_staged` — the pooled history bag read from the
   plane where a live slot holds the id and from the table elsewhere.
   Replaces ``repro/kernels/emb_lookup.py:pooled_lookup_staged``.
+* :func:`pooled_lookup_quant` — the pooled bag over a quantized table,
+  ``out[b] = sum_f w[b, f] * (codes[id] * scale[id, g] + zp[id, g])``,
+  the dequant fused into the accumulate.  Replaces
+  ``repro/kernels/emb_lookup.py:pooled_lookup_quant``.
 
 The kernels are CUDA C++ for ``sm_90a`` in ``csrc/emb_lookup.cu``; that
 file states what bounds each on the card and how its design answers it.
@@ -25,12 +29,15 @@ from __future__ import annotations
 
 import torch
 
+from ..quant.codecs import dequantize_rows, get_codec, group_size
+
 __all__ = ["LAUNCHES", "pooled_lookup", "pooled_lookup_ref",
            "staged_gather", "staged_gather_ref",
-           "pooled_lookup_staged", "pooled_lookup_staged_ref"]
+           "pooled_lookup_staged", "pooled_lookup_staged_ref",
+           "pooled_lookup_quant", "pooled_lookup_quant_ref"]
 
 LAUNCHES = {"pooled_lookup": 0, "staged_gather": 0,
-            "pooled_lookup_staged": 0}
+            "pooled_lookup_staged": 0, "pooled_lookup_quant": 0}
 
 _MAX_F = 4096   # the bag's row pointers and weights stage in shared memory
 
@@ -237,4 +244,79 @@ def pooled_lookup_staged(plane_rows: torch.Tensor, table: torch.Tensor,
         torch.cuda.current_stream(table.device).cuda_stream)
     _raise_on(rc, "pooled_lookup_staged")
     LAUNCHES["pooled_lookup_staged"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# pooled_lookup_quant
+# --------------------------------------------------------------------------
+def pooled_lookup_quant_ref(codes: torch.Tensor, scale: torch.Tensor,
+                            zp: torch.Tensor, ids: torch.Tensor,
+                            weights: torch.Tensor | None = None, *,
+                            codec) -> torch.Tensor:
+    """Plain PyTorch version of :func:`pooled_lookup_quant`: each looked-up
+    row dequantized (:func:`repro_torch.quant.codecs.dequantize_rows`, one
+    rounding as a fused multiply-add), then the sum over f = 0..F-1 in
+    order, each product rounded before its add."""
+    c = get_codec(codec)
+    if c.kind == "fp16":
+        return pooled_lookup_ref(codes.float(), ids, weights)
+    B, F = ids.shape
+    V, E = codes.shape
+    ids_c, w = _pad_rule(ids, weights)
+    ids_c = ids_c.long().clamp(max=V - 1)
+    out = torch.zeros((B, E), dtype=torch.float32, device=codes.device)
+    for f in range(F):
+        i = ids_c[:, f]
+        row = dequantize_rows(codes[i], scale[i], zp[i], c)
+        out = out + row * w[:, f, None]
+    return out
+
+
+def pooled_lookup_quant(codes: torch.Tensor, scale: torch.Tensor,
+                        zp: torch.Tensor, ids: torch.Tensor,
+                        weights: torch.Tensor | None = None, *,
+                        codec) -> torch.Tensor:
+    """Pooled lookup over a quantized table: ``out[b] = sum_f w[b, f] *
+    (codes[ids[b, f]] * scale[ids[b, f], g] + zp[ids[b, f], g])`` with g
+    the column's scale group, the f32 table never materialized.
+
+    codes: (V, E) f32-valued integer codes (fp16 codec: the (V, E) f16
+    cast, pooled by :func:`pooled_lookup` on ``codes.float()``, as the
+    reference routes it); scale, zp: (V, G) f32; ids: (B, F) int32, PAD
+    = -1 (row 0, weight 0; an id past the table clamps to its last
+    row); weights: (B, F) f32 or None (all ones).  Returns (B, E) f32.
+    """
+    c = get_codec(codec)
+    if c is None:
+        raise ValueError("pooled_lookup_quant needs a codec")
+    if c.kind == "fp16":
+        _check("codes", codes, torch.float16, (None, None))
+        return pooled_lookup(codes.float(), ids, weights)
+    _check("codes", codes, torch.float32, (None, None))
+    V, E = codes.shape
+    Bg = group_size(E, c)
+    G = -(-E // Bg)
+    _check("scale", scale, torch.float32, (V, G))
+    _check("zp", zp, torch.float32, (V, G))
+    _check("ids", ids, torch.int32, (None, None))
+    B, F = ids.shape
+    if weights is not None:
+        _check("weights", weights, torch.float32, (B, F))
+    if not _on_cuda(codes, scale, zp, ids, weights):
+        return pooled_lookup_quant_ref(codes, scale, zp, ids, weights,
+                                       codec=c)
+    if V == 0:
+        raise ValueError("pooled_lookup_quant needs a table with rows")
+    from ._build import load_library
+
+    lib = load_library("emb_lookup")
+    ids_c, w = _pad_rule(ids, weights)
+    out = torch.empty((B, E), dtype=torch.float32, device=codes.device)
+    rc = lib.pooled_lookup_quant_launch(
+        codes.data_ptr(), scale.data_ptr(), zp.data_ptr(), ids_c.data_ptr(),
+        w.data_ptr(), out.data_ptr(), B, F, E, V, Bg, G,
+        torch.cuda.current_stream(codes.device).cuda_stream)
+    _raise_on(rc, "pooled_lookup_quant")
+    LAUNCHES["pooled_lookup_quant"] += 1
     return out

@@ -11,7 +11,8 @@ cache plane seeded with the workload's hot set.  Every micro-batch
      uniformly at random (``--mechanism random``),
   3. for each worker that got requests: a TTL refresh of its plane
      (:func:`repro_torch.serve.plane.refresh_plane`, through the
-     ``staged_gather`` kernel), then the serve step
+     ``staged_gather`` kernel; with ``--codec`` a gather and the codec's
+     round trip, as the quantized wire delivers rows), then the serve step
      (:func:`repro_torch.serve.step.make_serve_step`, the pooled bag
      through the ``pooled_lookup_staged`` kernel), synchronised so that
      latency means completion.
@@ -25,6 +26,8 @@ Examples:
       --qps 2000 --duration 1 --device cuda
   PYTHONPATH=src python -m repro_torch.launch.serve --arch wdl-tiny \\
       --qps 100 --duration 0.3 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch wdl-tiny \\
+      --qps 100 --duration 0.3 --codec int8 --device cpu
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ from ..core.simulator import DEFAULT_BANDWIDTHS
 from ..data.synthetic import WORKLOADS
 from ..models.dlrm import init_params
 from ..obs import MetricsRegistry, log_step
+from ..quant.codecs import codec_name, get_codec, resolve_link_codecs
 from ..serve import (StreamConfig, make_serve_step, micro_batches,
                      plane_ages, refresh_plane, request_arrivals, seed_plane,
                      serve_cost_matrix, serve_decide)
@@ -65,7 +69,9 @@ def build_parser():
     ap.add_argument("--cache-ratio", type=float, default=0.25,
                     help="plane capacity as a fraction of the vocab")
     ap.add_argument("--codec", default=None,
-                    help="wire codec for plane pulls (only none so far)")
+                    help="wire codec for plane pulls (none/fp16/int8/int4)")
+    ap.add_argument("--codec-policy", choices=("uniform", "bandwidth"),
+                    default="uniform")
     ap.add_argument("--mechanism", choices=("esd", "random"), default="esd")
     ap.add_argument("--alpha", type=float, default=1.0)
     ap.add_argument("--slo-penalty", type=float, default=4.0)
@@ -93,9 +99,7 @@ def run_serve(args) -> dict:
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.codec not in (None, "none"):
-        raise NotImplementedError(
-            "--codec arrives with the quantized-wire slice of the port")
+    codec = get_codec(args.codec)
     cfg = DLRM_CONFIGS[args.arch]
     wl = WORKLOADS[cfg.workload]
     n, V, F = args.workers, wl.vocab, wl.n_fields
@@ -109,13 +113,15 @@ def run_serve(args) -> dict:
     # replicated hot-set planes, one per worker
     cap = max(1, int(args.cache_ratio * V))
     hot = _hot_set(wl, np.random.default_rng(args.seed + 1), 2048, cap)
-    planes = [seed_plane(table, hot, step=0, ttl=args.ttl_batches)
-              for _ in range(n)]
+    planes = [seed_plane(table, hot, step=0, ttl=args.ttl_batches,
+                         codec=codec) for _ in range(n)]
     resident = np.zeros((n, V), bool)
     resident[:, hot] = True
 
     bw = DEFAULT_BANDWIDTHS(n)
-    t_row = transmission_time_codec(cfg.embedding_dim, bw)
+    link_codecs = (resolve_link_codecs(args.codec_policy, bw, codec)
+                   if codec is not None else None)
+    t_row = transmission_time_codec(cfg.embedding_dim, bw, link_codecs)
 
     serve_step = make_serve_step(cfg, F)
     t_arr, sparse, dense = request_arrivals(StreamConfig(
@@ -142,7 +148,7 @@ def run_serve(args) -> dict:
     pad_dense = np.zeros((args.max_batch, wl.n_dense), np.float32)
     serve_step(model, planes[0], pad_sparse, pad_dense, 0)
     refresh_plane(planes[0], table, 0, ttl=args.ttl_batches,
-                  budget=args.refresh_budget)
+                  budget=args.refresh_budget, codec=codec)
     _sync(device)
 
     rng = np.random.default_rng(args.seed + 2)
@@ -175,7 +181,7 @@ def run_serve(args) -> dict:
             dn = np.where(rows[:, None], b.dense, 0.0).astype(np.float32)
             planes[j], n_ref = refresh_plane(
                 planes[j], table, bi, ttl=args.ttl_batches,
-                budget=args.refresh_budget)
+                budget=args.refresh_budget, codec=codec)
             n_refresh += int(n_ref)
             logits, _ = serve_step(model, planes[j], sp, dn, bi)
             _sync(device)
@@ -203,6 +209,7 @@ def run_serve(args) -> dict:
     n_req = req_c.value
     out = {
         "mechanism": args.mechanism,
+        "codec": codec_name(codec),
         "device": str(device),
         "n_requests": n_req,
         "n_batches": len(batches),

@@ -16,13 +16,14 @@ import torch
 from ..core.dispatch import (dispatch_cap, esd_cost_matrix, esd_decide,
                              esd_state_update_sparse, exchange_budget,
                              need_ids_list)
-from ..exchange.ragged import ragged_exchange
+from ..exchange.ragged import ragged_exchange, ragged_exchange_quant
+from ..quant.codecs import get_codec
 
 __all__ = ["make_esd_exchange", "raise_on_overflow", "make_dlrm_esd_stages"]
 
 
 def make_esd_exchange(mode: str, n: int, m: int, budget: int | None = None,
-                      out_rows: int | None = None):
+                      out_rows: int | None = None, codec=None):
     """Row-exchange function for the ESD step: ``route(a, assign)`` moves
     every worker's (n, m, ...) rows (sample ids, dense features, labels)
     to the worker each sample was assigned to (assign: (n, m)) and
@@ -34,9 +35,17 @@ def make_esd_exchange(mode: str, n: int, m: int, budget: int | None = None,
     ``out_rows = m`` the two agree exactly; a relaxed capacity passes
     ``exchange_budget`` and ``out_rows = n * budget``, and the rows past
     each worker's valid prefix come back as -1.
+
+    ``codec`` (ragged only) quantizes the float (n, m, F) payload, the
+    dense features, on the wire
+    (:func:`repro_torch.exchange.ragged.ragged_exchange_quant`); sample
+    ids and labels always travel exact.
     """
     if mode not in ("padded", "ragged"):
         raise ValueError(f"unknown exchange mode {mode!r}")
+    codec = get_codec(codec)
+    if codec is not None and mode != "ragged":
+        raise ValueError("codec exchange needs mode='ragged'")
     if mode == "padded":
         if budget not in (None, m // n) or out_rows not in (None, m):
             raise ValueError("padded exchange is fixed-shape: budget/out_rows "
@@ -58,6 +67,10 @@ def make_esd_exchange(mode: str, n: int, m: int, budget: int | None = None,
                 out, _, _, overflow = ragged_exchange(a[..., None], assign,
                                                       budget, out_rows)
                 return out[..., 0], overflow
+            if codec is not None and a.is_floating_point():
+                out, _, _, overflow = ragged_exchange_quant(
+                    a, assign, budget, codec, out_rows)
+                return out, overflow
             out, _, _, overflow = ragged_exchange(a, assign, budget,
                                                   out_rows)
             return out, overflow
@@ -83,7 +96,7 @@ def raise_on_overflow(counts: dict) -> None:
 def make_dlrm_esd_stages(n: int, m: int, t_tran: torch.Tensor, alpha: float,
                          *, exchange: str = "padded",
                          cap_slack: float = 0.0,
-                         capacity: int | None = None):
+                         capacity: int | None = None, codec=None):
     """Stage functions of the DLRM ESD step (reference
     ``make_dlrm_esd_stages``, non-elastic, single PS, sparse engine):
 
@@ -98,18 +111,21 @@ def make_dlrm_esd_stages(n: int, m: int, t_tran: torch.Tensor, alpha: float,
     machine.  With ``cap_slack > 0`` (needs ``exchange="ragged"``) the
     exchanged arrays come back with ``out_rows = n * exchange_budget``
     rows per worker, valid rows first and -1 after (pair with the
-    PAD-masked loss).  Returns ``(decide, advance, realized_cost,
-    out_rows)``.
+    PAD-masked loss).  ``codec`` (needs ``exchange="ragged"``) sends the
+    dense features over the quantized wire.  Returns ``(decide, advance,
+    realized_cost, out_rows)``.
     """
     if cap_slack > 0.0 and exchange != "ragged":
         raise ValueError("cap_slack > 0 needs exchange='ragged' (the padded "
                          "all_to_all requires equal m/n groups)")
+    if get_codec(codec) is not None and exchange != "ragged":
+        raise ValueError("codec exchange needs exchange='ragged'")
     cap = dispatch_cap(m, n, cap_slack)
     budget = m // n if cap_slack <= 0.0 else exchange_budget(cap, m)
     out_rows = m if cap_slack <= 0.0 else n * budget
     if exchange == "ragged":
         route = make_esd_exchange(exchange, n, m, budget=budget,
-                                  out_rows=out_rows)
+                                  out_rows=out_rows, codec=codec)
     else:
         route = make_esd_exchange(exchange, n, m)
 

@@ -14,6 +14,14 @@ feeds, with ``--esd-alpha``, three stages per step
   train    the DLRM forward and backward on the exchanged batch, then
            row-wise Adagrad.
 
+``--codec`` (fp16, int8, int4, ``int8:64`` …) turns on the quantized
+wire: the exchange sends the dense features quantized (the fused
+gather-quantize kernel), the train stage computes on the tables as the
+wire delivers them (straight-through estimator) and pushes each table's
+gradient through the codec with error feedback, and Alg. 1 prices every
+link at the codec's bytes (``--codec-policy bandwidth``: fp16 on the
+links at or above the median bandwidth, the codec below it).
+
 Without ``--esd-alpha`` each step trains the batch as it comes.  Every
 step logs the loss and, with ESD, the cache counts and their
 transmission cost.  The summary adds the mean host-clock milliseconds of
@@ -31,6 +39,9 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch wdl-tiny \\
       --workers 4 --batch-per-worker 8 --steps 3 --esd-alpha 1 \\
       --exchange ragged --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch wdl-tiny \\
+      --workers 4 --batch-per-worker 8 --steps 3 --esd-alpha 1 \\
+      --exchange ragged --codec int8 --device cpu
 """
 from __future__ import annotations
 
@@ -42,6 +53,7 @@ import numpy as np
 import torch
 
 from ..configs import DLRM_CONFIGS
+from ..core.cost import transmission_time_codec
 from ..core.dispatch import esd_sparse_init
 from ..core.simulator import DEFAULT_BANDWIDTHS
 from ..data.synthetic import WORKLOADS
@@ -49,6 +61,8 @@ from ..models.dlrm import bce_loss, bce_loss_masked, init_params
 from ..obs import MetricsRegistry, log_step
 from ..optim import get_optimizer
 from ..pipeline.runner import PipelinedRunner
+from ..quant.codecs import (codec_name, get_codec, quantize_with_feedback,
+                            resolve_link_codecs, row_wire_bytes, ste)
 from .serve import resolve_device
 from .steps import make_dlrm_esd_stages, raise_on_overflow
 
@@ -64,8 +78,6 @@ def _unported(args) -> None:
         (args.lookahead > 0, "--lookahead", "A8"),
         (args.prefetch > 0, "--prefetch", "A8"),
         (args.prefetch_slots != 512, "--prefetch-slots", "A8"),
-        (args.codec not in (None, "none"), "--codec", "A9"),
-        (args.codec_policy != "uniform", "--codec-policy", "A9"),
         (args.fault_plan is not None, "--fault-plan", "A10"),
         (args.ckpt_dir is not None, "--ckpt-dir", "A10"),
         (args.resume, "--resume", "A10"),
@@ -87,18 +99,42 @@ def _unported(args) -> None:
                 f"{flag} is not ported to repro_torch yet (ROADMAP {item})")
 
 
-def make_train_step(model, loss_fn, optimizer):
+def make_train_step(model, loss_fn, optimizer, codec=None):
     """The train stage: ``step(sparse, dense, labels) -> loss`` runs the
     forward and backward of ``loss_fn`` and applies ``optimizer`` to the
-    model's parameters, copying the new values in place."""
+    model's parameters, copying the new values in place.
+
+    With a ``codec`` it is the quantized PS push and pull (the
+    reference's ``train_jit_q``): the loss runs on the model with its
+    tables (``embed``, and ``wide`` for wdl) passed through :func:`ste`,
+    the rows as the wire delivers them with the gradient straight
+    through; each table's gradient goes up through
+    :func:`quantize_with_feedback`, its residual carried from step to
+    step (zeros at the start), and the optimizer sees the pushed
+    ``g_hat``.  ``codec=None`` is the fp32 step, unchanged."""
     model.requires_grad_(True)
+    names = [name for name, _ in model.named_parameters()]
     params = list(model.parameters())
     opt_state = optimizer.init(params)
+    codec = get_codec(codec)
+    tables = ([i for i, name in enumerate(names) if name in ("embed", "wide")]
+              if codec is not None else [])
+    residual = {i: torch.zeros_like(params[i]) for i in tables}
+
+    def loss_of(sparse, dense, labels):
+        if not tables:
+            return loss_fn(model, sparse, dense, labels)
+        down = {names[i]: ste(params[i], codec) for i in tables}
+        return loss_fn(lambda *a: torch.func.functional_call(model, down, a),
+                       sparse, dense, labels)
 
     def step(sparse, dense, labels):
         nonlocal opt_state
-        loss = loss_fn(model, sparse, dense, labels)
-        grads = torch.autograd.grad(loss, params)
+        loss = loss_of(sparse, dense, labels)
+        grads = list(torch.autograd.grad(loss, params))
+        for i in tables:
+            grads[i], residual[i] = quantize_with_feedback(
+                grads[i], residual[i], codec)
         new, opt_state = optimizer.update(grads, opt_state, params)
         with torch.no_grad():
             for p, q in zip(params, new):
@@ -136,12 +172,23 @@ def run_dlrm(args, model=None) -> dict:
         if args.exchange != "ragged":
             raise SystemExit("--cap-slack > 0 needs --exchange ragged (the "
                              "padded all_to_all requires equal m/n groups)")
+    codec = get_codec(args.codec)
+    if codec is not None and use_esd and args.exchange != "ragged":
+        raise SystemExit("--codec with ESD needs --exchange ragged (the "
+                         "quantized sample wire rides the ragged executor)")
+    if args.codec_policy != "uniform" and codec is None:
+        raise SystemExit("--codec-policy bandwidth needs --codec (it picks "
+                         "which codec the slow links drop to)")
 
+    # each link's row time at its codec's payload + metadata bytes (no
+    # codec: 4 bytes an element)
     bw = DEFAULT_BANDWIDTHS(n)
-    t_tran = torch.tensor((cfg.embedding_dim * 4.0) / bw,
-                          dtype=torch.float32, device=device)
+    link_codecs = resolve_link_codecs(args.codec_policy, bw, codec)
+    t_tran = torch.tensor(
+        transmission_time_codec(cfg.embedding_dim, bw, link_codecs),
+        dtype=torch.float32, device=device)
     t_np = t_tran.cpu().numpy()
-    wire = cfg.embedding_dim * 4            # fp32 row bytes on the wire
+    wire = row_wire_bytes(cfg.embedding_dim, codec)   # row bytes on the wire
     optimizer = get_optimizer("rowwise_adagrad", args.lr)
     if model is None:
         model = init_params(cfg, wl, torch.Generator(device=device)
@@ -149,7 +196,7 @@ def run_dlrm(args, model=None) -> dict:
     # PAD-masked loss only when PAD rows can appear (capacity slack)
     step = make_train_step(
         model, bce_loss_masked if args.cap_slack > 0.0 else bce_loss,
-        optimizer)
+        optimizer, codec)
 
     reg = MetricsRegistry()
     stage_h = {s: reg.histogram(f"train.{s}_s", keep=True)
@@ -205,7 +252,7 @@ def run_dlrm(args, model=None) -> dict:
     else:
         decide, advance, _, out_rows = make_dlrm_esd_stages(
             n, m, t_tran, args.esd_alpha, exchange=args.exchange,
-            cap_slack=args.cap_slack, capacity=capacity)
+            cap_slack=args.cap_slack, capacity=capacity, codec=codec)
         # L = out_rows * W ids per worker after the exchange
         esd = esd_sparse_init(n, V, capacity, max_ids=out_rows * wl.width,
                               device=device)
@@ -232,7 +279,7 @@ def run_dlrm(args, model=None) -> dict:
     stages = {s: mean_ms(h) for s, h in stage_h.items()}
     step_ms = sum(v for v in stages.values() if v is not None)
     return {"metrics": reg.steps, "device": str(device), "workers": n,
-            "batch": k, "steps": len(reg.steps),
+            "batch": k, "steps": len(reg.steps), "codec": codec_name(codec),
             "decide_ms_mean": stages["decide"],
             "advance_ms_mean": stages["advance"],
             "train_ms_mean": stages["train"], "step_ms_mean": step_ms,
@@ -277,9 +324,15 @@ def build_parser():
     ap.add_argument("--ps-hetero", action="store_true")
     ap.add_argument("--fault-plan", default=None)
     ap.add_argument("--compute-time-s", type=float, default=0.010)
-    ap.add_argument("--codec", default=None)
+    ap.add_argument("--codec", default=None,
+                    help="wire codec for embedding traffic: none (exact "
+                         "fp32), fp16, int8, int4, or KIND:BLOCK for "
+                         "per-block scale groups")
     ap.add_argument("--codec-policy", choices=("uniform", "bandwidth"),
-                    default="uniform")
+                    default="uniform",
+                    help="uniform: every link uses --codec; bandwidth: "
+                         "links at or above the median get fp16, slower "
+                         "links get --codec (priced into Alg. 1)")
     ap.add_argument("--ckpt-dir", type=Path, default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")

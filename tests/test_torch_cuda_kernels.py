@@ -8,7 +8,8 @@ Without a CUDA device every test here skips.  staged_gather and
 gather_rows copy rows and must be exact; pooled_lookup sums in the plain
 version's order with the multiply and the add rounded apart and must be
 exact too; pooled_lookup_staged does the same and is held to rtol =
-atol = 1e-5 all the same.
+atol = 1e-5 all the same.  gather_rows_quant and pooled_lookup_quant
+compute in their plain versions' forms and must match them bit for bit.
 """
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch.kernels import emb_lookup as tk
 from repro_torch.kernels import exchange_pack as tp
+from repro_torch.quant.codecs import quantize_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -113,3 +115,58 @@ def test_gather_rows_matches_plain(cuda, dtype, F):
     assert torch.equal(got, tp.gather_rows_ref(rows, slot))
     assert (got[slot < 0] == -1).all()        # -1 in the rows' own dtype
     assert tp.LAUNCHES["gather_rows"] == n0 + 1
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().view(torch.uint8),
+                            b.contiguous().view(torch.uint8)))
+
+
+def _spread_rows(rng, k, E, device):
+    """Rows at many scales and offsets, one of them constant."""
+    x = (rng.normal(size=(k, E)) * rng.uniform(1e-3, 1e2, (k, 1))
+         + rng.normal(size=(k, 1)) * 10).astype(np.float32)
+    x[1] = 0.5
+    return torch.from_numpy(x).to(device)
+
+
+@pytest.mark.parametrize("name", ["int8", "int4", "int8:4", "int4:5",
+                                  "fp16"])
+@pytest.mark.parametrize("F", [13, 70, 512])
+def test_gather_rows_quant_matches_plain(cuda, name, F):
+    rng = np.random.default_rng(F)
+    m, S = 64, 256
+    rows = _spread_rows(rng, m, F, cuda)
+    slot = rng.integers(0, m + 5, S).astype(np.int32)   # some past the rows
+    slot[rng.random(S) < 0.25] = -1
+    slot = torch.from_numpy(slot).to(cuda)
+    n0 = dict(tp.LAUNCHES)
+    got = tp.gather_rows_quant(rows, slot, name)
+    want = tp.gather_rows_quant_ref(rows, slot, name)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _same_bits(g, w)
+    kernel = "gather_rows" if name == "fp16" else "gather_rows_quant"
+    assert tp.LAUNCHES[kernel] == n0[kernel] + 1
+
+
+@pytest.mark.parametrize("name", ["int8", "int4:5", "fp16"])
+@pytest.mark.parametrize("E", [4, 130, 512])
+def test_pooled_lookup_quant_matches_plain(cuda, name, E):
+    rng = np.random.default_rng(E + 2)
+    V, B, F = 300, 37, 74
+    codes, scale, zp = quantize_rows(_spread_rows(rng, V, E, cuda), name)
+    ids = rng.integers(0, V, (B, F)).astype(np.int32)
+    ids[rng.random((B, F)) < 0.3] = -1
+    ids = torch.from_numpy(ids).to(cuda)
+    w = torch.from_numpy(rng.random((B, F)).astype(np.float32)).to(cuda)
+    kernel = "pooled_lookup" if name == "fp16" else "pooled_lookup_quant"
+    n0 = tk.LAUNCHES[kernel]
+    for wt in (None, w):
+        got = tk.pooled_lookup_quant(codes, scale, zp, ids, wt, codec=name)
+        want = tk.pooled_lookup_quant_ref(codes, scale, zp, ids, wt,
+                                          codec=name)
+        torch.cuda.synchronize()
+        assert _same_bits(got, want)
+    assert tk.LAUNCHES[kernel] == n0 + 2

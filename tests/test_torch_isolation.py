@@ -45,6 +45,7 @@ def test_port_imports_no_jax_and_no_reference():
     assert "repro_torch.launch.serve" in out["modules"]
     assert "repro_torch.launch.train" in out["modules"]
     assert "repro_torch.kernels.exchange_pack" in out["modules"]
+    assert "repro_torch.quant.codecs" in out["modules"]
     assert out["device"] == "cuda"
     assert out["train_device"] == "cuda"
 

@@ -1,7 +1,10 @@
 """repro_torch's staging plane and TTL cache planes against the JAX package.
 
 Planes hold ids, expiry steps and copied rows: no arithmetic, so ids,
-expiry, refresh counts and rows must match the reference exactly.
+expiry, refresh counts and rows must match the reference exactly.  With
+a wire codec the rows are the codec's round trip of the table rows,
+which the port computes in the forms the reference's jitted pull takes:
+exact too.
 """
 import dataclasses
 
@@ -60,9 +63,11 @@ def test_seed_plane_matches_jax():
     with pytest.raises(ValueError, match="unique"):
         tpl.seed_plane(torch.from_numpy(table), np.array([1, 1]), step=0,
                        ttl=1)
-    with pytest.raises(NotImplementedError, match="quantized-wire"):
-        tpl.seed_plane(torch.from_numpy(table), ids, step=0, ttl=1,
-                       codec="int8")
+    jq = jpl.seed_plane(jnp.asarray(table), ids, step=3, ttl=5, codec="int8")
+    tq = tpl.seed_plane(torch.from_numpy(table), ids, step=3, ttl=5,
+                        codec="int8")
+    _assert_same(tq, jq)
+    assert not torch.equal(tq.rows, tp.rows)     # the rows crossed the wire
 
 
 @pytest.mark.parametrize("budget", [None, 1, 4, 100])
@@ -105,3 +110,28 @@ def test_refresh_rounds_match_jax():
                                    budget=3)
         assert int(tn) == int(jn)
         _assert_same(tp, jp)
+
+
+@pytest.mark.parametrize("codec", ["fp16", "int8", "int4:4"])
+def test_codec_planes_match_jax(codec):
+    """Seed, then budgeted TTL rounds on a changing table, every pull
+    through the codec: ids, expiry, counts and rows exact."""
+    rng = np.random.default_rng(3)
+    V, C, E = 50, 16, 6
+    table = rng.normal(size=(V, E)).astype(np.float32)
+    ids = rng.choice(V, C, replace=False)
+    jp = jpl.seed_plane(jnp.asarray(table), ids, step=0, ttl=2, codec=codec)
+    tp = tpl.seed_plane(torch.from_numpy(table), ids, step=0, ttl=2,
+                        codec=codec)
+    _assert_same(tp, jp)
+    refreshed = 0
+    for step in range(1, 6):
+        table = table * 1.5 + 0.25
+        jp, jn = jpl.refresh_plane(jp, jnp.asarray(table), step, ttl=2,
+                                   budget=5, codec=codec)
+        tp, tn = tpl.refresh_plane(tp, torch.from_numpy(table), step, ttl=2,
+                                   budget=5, codec=codec)
+        assert int(tn) == int(jn)
+        refreshed += int(tn)
+        _assert_same(tp, jp)
+    assert refreshed > 0

@@ -1,0 +1,274 @@
+"""The quantized wire: repro_torch against the JAX package on the CPU.
+
+The codecs are held against ``repro.quant.codecs`` called under
+``jax.jit``, which is how every driver of the reference calls them: XLA
+folds ``(hi - lo) / levels`` into a product with the f32 reciprocal and
+fuses the dequant ``codes * scale + zp`` into one multiply-add, and the
+port takes the same forms, so codes, scales, zero-points and dequantized
+values are bitwise equal.  Kernel B4's plain version is bitwise equal to
+the Pallas ``gather_rows_quant_pallas`` in interpret mode.  Kernel B5's
+plain version is bitwise the pooled sum of the ``fake_quant``-ed table
+(the port's own ``pooled_lookup_ref``), and agrees with the Pallas
+``pooled_lookup_quant`` in interpret mode, which fuses its multiply-adds
+differently, to rtol 1e-6 and an absolute 1e-6 of the largest output
+(a few f32 ulps of a sum of six rows).  The quantized ragged exchange
+is held against the reference's pack, quantize, dequantize and compact
+per worker, the collective emulated: bitwise.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.cost import transmission_time_codec as j_time_codec
+from repro.core.dispatch_tpu import dispatch_cap, exchange_budget
+from repro.exchange import compact_recv as j_compact, pack_send as j_pack
+from repro.kernels.emb_lookup import pooled_lookup_quant as j_pooled_quant
+from repro.kernels.exchange_pack import gather_rows_quant_pallas
+from repro.quant import codecs as J
+from repro_torch.core.cost import transmission_time_codec as t_time_codec
+from repro_torch.exchange.ragged import ragged_exchange, ragged_exchange_quant
+from repro_torch.kernels import emb_lookup as tk
+from repro_torch.kernels import exchange_pack as tp
+from repro_torch.launch.steps import make_esd_exchange
+from repro_torch.quant import codecs as T
+
+CODECS = ["fp16", "int8", "int4", "int8:4", "int4:5"]
+
+j_quantize = jax.jit(J.quantize_rows, static_argnums=1)
+j_dequantize = jax.jit(J.dequantize_rows, static_argnums=3)
+j_fake = jax.jit(J.fake_quant, static_argnums=1)
+j_ste = jax.jit(J.ste, static_argnums=1)
+j_feedback = jax.jit(J.quantize_with_feedback, static_argnums=2)
+
+
+def _bits_equal(got: torch.Tensor, want, what: str):
+    want = np.asarray(want)
+    got = got.detach().numpy()
+    assert got.dtype == want.dtype, what
+    assert got.shape == want.shape, what
+    np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8),
+                                  err_msg=what)
+
+
+def _rows(rng, k=40, E=13):
+    """Rows at many scales and offsets, plus a constant row and a PAD
+    fill row (-1), which must round-trip exactly."""
+    x = (rng.normal(size=(k, E)) * rng.uniform(1e-3, 1e2, (k, 1))
+         + rng.normal(size=(k, 1)) * 10).astype(np.float32)
+    x[3] = 0.25
+    x[4] = -1.0
+    return x
+
+
+@pytest.mark.parametrize("name", CODECS)
+def test_codec_tensor_functions_match_jit(name):
+    rng = np.random.default_rng(len(name))
+    x = _rows(rng)
+    c = T.get_codec(name)
+    jc = J.get_codec(name)
+    jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    for got, want, what in zip(T.quantize_rows(tx, c), j_quantize(jx, jc),
+                               ("codes", "scale", "zp")):
+        _bits_equal(got, want, f"{name} {what}")
+    fq = T.fake_quant(tx, c)
+    _bits_equal(fq, j_fake(jx, jc), f"{name} fake_quant")
+    # constant rows, the PAD fill row among them, round-trip exactly
+    np.testing.assert_array_equal(fq.numpy()[[3, 4]], x[[3, 4]])
+    _bits_equal(T.ste(tx, c), j_ste(jx, jc), f"{name} ste")
+    r = (rng.normal(size=x.shape) * 0.1).astype(np.float32)
+    for got, want, what in zip(
+            T.quantize_with_feedback(tx, torch.from_numpy(r), c),
+            j_feedback(jx, jnp.asarray(r), jc), ("g_hat", "residual")):
+        _bits_equal(got, want, f"{name} {what}")
+
+
+@pytest.mark.parametrize("name", CODECS)
+def test_ste_gradient_is_the_identity(name):
+    rng = np.random.default_rng(7)
+    x = _rows(rng, k=6, E=9)
+    w = rng.normal(size=x.shape).astype(np.float32)
+    c = T.get_codec(name)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    (T.ste(tx, c) * torch.from_numpy(w)).sum().backward()
+    want = jax.grad(lambda a: jnp.sum(J.ste(a, J.get_codec(name))
+                                      * jnp.asarray(w)))(jnp.asarray(x))
+    _bits_equal(tx.grad, want, f"{name} ste gradient")
+    np.testing.assert_array_equal(tx.grad.numpy(), w)
+
+
+@pytest.mark.parametrize("E", [1, 7, 8, 13])
+def test_int4_packing_matches_reference(E):
+    rng = np.random.default_rng(E)
+    codes = rng.integers(0, 16, (5, E)).astype(np.float32)
+    want = np.asarray(J.pack_int4(jnp.asarray(codes)))
+    got = T.pack_int4(torch.from_numpy(codes))
+    _bits_equal(got, want, "pack_int4")
+    assert got.shape[-1] == T.wire_row_bytes(E, "int4")
+    back = T.unpack_int4(got, E)
+    _bits_equal(back, J.unpack_int4(jnp.asarray(want), E), "unpack_int4")
+    np.testing.assert_array_equal(back.numpy(), codes.astype(np.uint8))
+
+
+@pytest.mark.parametrize("name", [None, "none"] + CODECS + ["int8:64"])
+def test_byte_accounting_and_pricing_match_reference(name):
+    c_t, c_j = T.get_codec(name), J.get_codec(name)
+    assert T.codec_name(name) == J.codec_name(name)
+    assert (c_t is None) == (c_j is None)
+    if c_t is not None:
+        assert (c_t.kind, c_t.block, c_t.bits, c_t.levels, c_t.name) == (
+            c_j.kind, c_j.block, c_j.bits, c_j.levels, c_j.name)
+    for E in (1, 13, 16, 512, 513):
+        for fn in ("wire_row_bytes", "meta_row_bytes", "row_wire_bytes"):
+            assert getattr(T, fn)(E, name) == getattr(J, fn)(E, name), (fn, E)
+    for bw in (np.array([1e8, 2e8, 5e7, 1e9]),
+               np.array([[1e8, 3e8], [2e8, 2e8], [5e7, 9e8]])):
+        for policy in ("uniform", "bandwidth"):
+            want = J.resolve_link_codecs(policy, bw, name)
+            got = T.resolve_link_codecs(policy, bw, name)
+            if want is None:
+                assert got is None
+            else:
+                np.testing.assert_array_equal(got, want)
+                assert got.dtype == object
+            for E in (16, 512):
+                np.testing.assert_array_equal(
+                    t_time_codec(E, bw, got), j_time_codec(E, bw, want))
+    with pytest.raises(ValueError, match="shape"):
+        t_time_codec(8, np.ones(2), np.array(["int8"] * 3, object))
+
+
+@pytest.mark.parametrize("name", CODECS)
+@pytest.mark.parametrize("F", [13, 20])
+def test_gather_rows_quant_ref_matches_pallas(name, F):
+    rng = np.random.default_rng(F)
+    m, S = 11, 24
+    rows = _rows(rng, k=m, E=F)
+    slot = rng.integers(0, m, S).astype(np.int32)
+    slot[rng.random(S) < 0.25] = -1
+    want = gather_rows_quant_pallas(jnp.asarray(rows), jnp.asarray(slot),
+                                    codec=J.get_codec(name), interpret=True)
+    n0 = dict(tp.LAUNCHES)
+    got = tp.gather_rows_quant(torch.from_numpy(rows), torch.from_numpy(slot),
+                               name)
+    for g, w, what in zip(got, want, ("codes", "scale", "zp")):
+        _bits_equal(g, w, f"{name} F={F} {what}")
+    assert tp.LAUNCHES == n0                 # CPU: no kernel launched
+    if name != "fp16":                       # PAD slots: scale 1, zp fill
+        pad = slot < 0
+        assert (got[0].numpy()[pad] == 0).all()
+        assert (got[1].numpy()[pad] == 1).all()
+        assert (got[2].numpy()[pad] == -1).all()
+
+
+@pytest.mark.parametrize("name", CODECS)
+def test_pooled_lookup_quant_matches_reference(name):
+    rng = np.random.default_rng(3)
+    V, E, B, F = 30, 16, 5, 6
+    table = _rows(rng, k=V, E=E)
+    ids = rng.integers(0, V, (B, F)).astype(np.int32)
+    ids[rng.random((B, F)) < 0.25] = -1
+    w = rng.random((B, F)).astype(np.float32)
+    codes, scale, zp = j_quantize(jnp.asarray(table), J.get_codec(name))
+    n0 = tk.LAUNCHES["pooled_lookup_quant"]
+    args = [torch.from_numpy(np.array(a)) for a in (codes, scale, zp, ids)]
+    for wt in (None, w):
+        tw = None if wt is None else torch.from_numpy(wt)
+        got = tk.pooled_lookup_quant(*args, tw, codec=name)
+        fq = T.fake_quant(torch.from_numpy(table), name)
+        _bits_equal(got, tk.pooled_lookup_ref(fq, args[3], tw).numpy(),
+                    f"{name} vs the pooled fake_quant table")
+        want = j_pooled_quant(codes, scale, zp, jnp.asarray(ids),
+                              None if wt is None else jnp.asarray(wt),
+                              codec=J.get_codec(name), interpret=True)
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6,
+                                   atol=1e-6 * np.abs(want).max())
+    assert tk.LAUNCHES["pooled_lookup_quant"] == n0
+
+
+def _reference_exchange_quant(rows, assign, n, budget, out_rows, codec):
+    """The reference's pack, quantize (jit), dequantize (jit) and compact
+    per worker, the all_to_all emulated."""
+    E = rows.shape[-1]
+    codes, scale, zp, counts, overflow = [], [], [], [], 0
+    for i in range(n):
+        s, cnt, ov = j_pack(jnp.asarray(rows[i]), jnp.asarray(assign[i]), n,
+                            budget)
+        q = j_quantize(s.reshape(n * budget, E), codec)
+        for acc, a in zip((codes, scale, zp), q):
+            acc.append(np.asarray(a).reshape((n, budget, -1)))
+        counts.append(np.asarray(cnt))
+        overflow += int(ov)
+    codes, scale, zp, counts = map(np.stack, (codes, scale, zp, counts))
+    outs, totals = [], []
+    for j in range(n):
+        deq = j_dequantize(jnp.asarray(codes[:, j]), jnp.asarray(scale[:, j]),
+                           jnp.asarray(zp[:, j]), codec)
+        out, total = j_compact(deq, jnp.asarray(np.minimum(counts[:, j],
+                                                           budget)), out_rows)
+        outs.append(np.asarray(out))
+        totals.append(int(total))
+    return np.stack(outs), np.array(totals), counts, overflow
+
+
+@pytest.mark.parametrize("name", ["int8", "int4:5", "fp16"])
+@pytest.mark.parametrize("case", ["uniform", "slack", "skew_overflow"])
+def test_ragged_exchange_quant_matches_emulated_reference(case, name):
+    rng = np.random.default_rng(len(case) + len(name))
+    n, m, E = 4, 8, 13
+    cap = dispatch_cap(m, n, 0.5 if case == "slack" else 0.0)
+    budget = m // n if case != "slack" else exchange_budget(cap, m)
+    out_rows = m if case != "slack" else n * budget
+    if case == "uniform":
+        assign = np.stack([rng.permutation(np.repeat(np.arange(n), m // n))
+                           for _ in range(n)])
+    elif case == "slack":       # uneven groups of at most cap = 3 rows
+        assign = np.stack([rng.permutation(np.repeat(np.arange(n),
+                                                     [3, 2, 1, 2]))
+                           for _ in range(n)])
+    else:                       # too many rows for worker 0: overflow
+        assign = rng.integers(0, n, (n, m))
+        assign[:, :5] = 0
+    assign = assign.astype(np.int32)
+    rows = np.stack([_rows(rng, k=m, E=E) for _ in range(n)])
+    want, totals, counts, overflow = _reference_exchange_quant(
+        rows, assign, n, budget, out_rows, J.get_codec(name))
+    out, total, recv_counts, ov = ragged_exchange_quant(
+        torch.from_numpy(rows), torch.from_numpy(assign), budget, name,
+        out_rows)
+    _bits_equal(out, want, f"{case} {name} exchanged rows")
+    np.testing.assert_array_equal(total.numpy(), totals)
+    np.testing.assert_array_equal(recv_counts.numpy(),
+                                  np.minimum(counts.T, budget))
+    assert int(ov) == overflow
+    assert (overflow > 0) == (case == "skew_overflow")
+    if case == "slack":         # PAD rows past each valid prefix: fill
+        for j in range(n):
+            assert (out[j, totals[j]:] == -1).all()
+
+
+def test_codec_route_quantizes_only_float_rows():
+    """Sample ids (int32) and labels (one float per sample) travel exact;
+    the dense features go through the quantized wire."""
+    rng = np.random.default_rng(5)
+    n, m = 4, 8
+    assign = torch.from_numpy(np.stack(
+        [rng.permutation(np.repeat(np.arange(n), m // n)) for _ in range(n)])
+        .astype(np.int32))
+    exact = make_esd_exchange("ragged", n, m)
+    quant = make_esd_exchange("ragged", n, m, codec="int8")
+    ids = torch.from_numpy(rng.integers(-1, 99, (n, m, 5)).astype(np.int32))
+    labels = torch.from_numpy((rng.random((n, m)) < 0.3).astype(np.float32))
+    dense = torch.from_numpy(rng.normal(size=(n, m, 13)).astype(np.float32))
+    for a in (ids, labels):
+        assert torch.equal(quant(a, assign)[0], exact(a, assign)[0])
+    got = quant(dense, assign)[0]
+    assert torch.equal(got, ragged_exchange_quant(dense, assign, m // n,
+                                                  "int8", m)[0])
+    assert not torch.equal(got, exact(dense, assign)[0])
+    assert torch.equal(ragged_exchange_quant(dense, assign, 2, None)[0],
+                       ragged_exchange(dense, assign, 2)[0])
+    with pytest.raises(ValueError, match="ragged"):
+        make_esd_exchange("padded", n, m, codec="int8")

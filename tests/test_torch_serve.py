@@ -80,8 +80,9 @@ def test_cost_matrix_and_decide_match_jax(alpha):
 def test_host_gaps_raise():
     with pytest.raises(NotImplementedError, match="host-simulator"):
         t_hybrid(np.zeros((4, 2)), 2, 1.0, opt="auction")
-    with pytest.raises(NotImplementedError, match="quantized-wire"):
-        tcost.transmission_time_codec(8, np.ones(2), np.array(["int8"] * 2))
+    # per-link codecs are priced now; a mismatched codec array still raises
+    with pytest.raises(ValueError, match="shape"):
+        tcost.transmission_time_codec(8, np.ones(2), np.array(["int8"] * 3))
 
 
 @pytest.mark.parametrize("arch", ["wdl-tiny", "dfm-tiny", "dcn-tiny"])

@@ -126,6 +126,21 @@ def test_run_serve_on_cpu():
     assert out["device"] == "cpu"
 
 
+@pytest.mark.parametrize("policy", ["uniform", "bandwidth"])
+def test_run_serve_with_codec_on_cpu(policy):
+    args = build_parser().parse_args(
+        ["--arch", "wdl-tiny", "--duration", "0.3", "--device", "cpu",
+         "--ttl-batches", "4", "--refresh-budget", "8", "--qps", "400",
+         "--codec", "int8", "--codec-policy", policy])
+    out = run_serve(args)
+    n_stream = len(tserve.request_arrivals(tserve.StreamConfig(
+        workload=WORKLOADS["tiny"], qps=400.0, duration_s=0.3, seed=0))[0])
+    assert out["codec"] == "int8"
+    assert out["n_requests"] == n_stream > 0
+    assert out["nonfinite_logits"] == 0
+    assert out["refresh_rows"] > 0
+
+
 def test_run_serve_refuses_missing_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -52,8 +52,7 @@ def test_runs_without_esd_and_with_other_paths(extra):
 @pytest.mark.parametrize("flags,item", [
     (["--pipeline-depth", "2"], "A8"), (["--stale-decide"], "A8"),
     (["--decide-ahead", "1"], "A8"), (["--lookahead", "4"], "A8"),
-    (["--prefetch", "8"], "A8"), (["--codec", "int8"], "A9"),
-    (["--codec-policy", "bandwidth"], "A9"),
+    (["--prefetch", "8"], "A8"),
     (["--fault-plan", "crash@1:0"], "A10"), (["--ckpt-dir", "x"], "A10"),
     (["--resume"], "A10"), (["--n-ps", "2"], "A2"), (["--ps-hetero"], "A2"),
     (["--esd-engine", "dense"], "A4"), (["--trace-out", "t.json"], "A15"),
@@ -64,6 +63,41 @@ def test_runs_without_esd_and_with_other_paths(extra):
 def test_unported_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         main(TINY + ["--esd-alpha", "1", "--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--codec", "int8"],
+    ["--esd-alpha", "1", "--exchange", "ragged", "--codec", "int4:4",
+     "--cap-slack", "0.5"],
+    ["--esd-alpha", "1", "--exchange", "ragged", "--codec", "fp16",
+     "--codec-policy", "bandwidth"]])
+def test_codec_runs_on_every_loop(extra):
+    out = run_dlrm(build_parser().parse_args(TINY + extra
+                                             + ["--device", "cpu"]))
+    assert out["steps"] == 3 and out["codec"] == extra[extra.index(
+        "--codec") + 1]
+    assert all(math.isfinite(r["loss"]) for r in out["metrics"])
+
+
+def test_codec_none_is_the_fp32_path():
+    base = TINY + ["--esd-alpha", "1", "--exchange", "ragged", "--device",
+                   "cpu"]
+    a = run_dlrm(build_parser().parse_args(base))
+    b = run_dlrm(build_parser().parse_args(base + ["--codec", "none"]))
+    assert a["codec"] == b["codec"] == "fp32"
+    for ra, rb in zip(a["metrics"], b["metrics"]):
+        for key in ("loss", "cost", "miss_pull", "update_push",
+                    "demand_miss_bytes"):
+            assert ra[key] == rb[key], key
+
+
+@pytest.mark.parametrize("flags,why", [
+    (["--esd-alpha", "1", "--codec", "int8"], "needs --exchange ragged"),
+    (["--codec-policy", "bandwidth"], "needs --codec")])
+def test_codec_flag_guards(flags, why):
+    with pytest.raises(SystemExit, match=why):
+        run_dlrm(build_parser().parse_args(TINY + flags + ["--device",
+                                                           "cpu"]))
 
 
 def test_lm_arch_raises():

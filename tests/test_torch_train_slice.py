@@ -11,8 +11,17 @@ initial weights, once through its own stages and once through its
 driver ``run_dlrm``: wdl-tiny, 4 workers, 8 samples each, 5 steps,
 ``--exchange ragged``, alpha = 1, with and without capacity slack.
 
-Assignments, exchanged ids, dense features and labels, and the cache
-counts are integers or copies: exact.  The loss is an f32 mean over
+The quantized wire (``--codec int8``, its links priced uniformly and by
+the bandwidth policy) is held the same way: the reference's stages with
+``codec=int8`` (the fused Pallas pack-quantize kernel in interpret
+mode) and the body of its driver's ``train_jit_q`` run unsharded under
+``jax.jit`` (``ste`` on the tables, ``quantize_with_feedback`` on their
+gradients, ``rowwise_adagrad``).
+
+Assignments, exchanged ids and labels, and the cache counts are
+integers or copies: exact.  The exchanged dense features are copies,
+or with the codec the dequantized wire values, which the port computes
+in the reference's jit forms: exact too.  The loss is an f32 mean over
 gradients taken in another order: rtol = 1e-5.
 """
 import os
@@ -26,6 +35,7 @@ import pytest
 import torch
 
 from repro_torch.configs import DLRM_CONFIGS
+from repro_torch.core.cost import transmission_time_codec
 from repro_torch.core.dispatch import esd_sparse_init
 from repro_torch.core.simulator import DEFAULT_BANDWIDTHS
 from repro_torch.data.synthetic import WORKLOADS
@@ -33,10 +43,12 @@ from repro_torch.launch.steps import make_dlrm_esd_stages
 from repro_torch.launch.train import build_parser, make_train_step, run_dlrm
 from repro_torch.models.dlrm import bce_loss, bce_loss_masked, params_from_jax
 from repro_torch.optim import rowwise_adagrad
+from repro_torch.quant.codecs import resolve_link_codecs, row_wire_bytes
 
 REPO = Path(__file__).resolve().parents[1]
 ARCH, N, M, STEPS, SEED, LR = "wdl-tiny", 4, 8, 5, 0, 1e-2
 SLACKS = (0.0, 0.5)
+POLICIES = ("uniform", "bandwidth")     # with --codec int8
 COUNTS = ("miss_pull", "update_push", "evict_push")
 
 REFERENCE = r"""
@@ -47,12 +59,15 @@ import jax
 import jax.numpy as jnp
 
 from repro.configs import DLRM_CONFIGS
+from repro.core.cost import transmission_time_codec
 from repro.core.dispatch_tpu import esd_sparse_init
 from repro.core.simulator import DEFAULT_BANDWIDTHS
 from repro.data.synthetic import WORKLOADS
 from repro.launch.steps import make_dlrm_esd_stages
 from repro.models import dlrm
 from repro.optim.optimizers import rowwise_adagrad
+from repro.quant.codecs import (get_codec, quantize_with_feedback,
+                                resolve_link_codecs, ste)
 
 out_dir = sys.argv[1]
 ARCH, N, M, STEPS, SEED, LR = "wdl-tiny", 4, 8, 5, 0, 1e-2
@@ -90,6 +105,52 @@ for slack in (0.0, 0.5):
                        ("l2", l2), ("loss", loss)] + list(counts.items()):
             rec[f"{key}_{i}"] = np.asarray(v)
     np.savez(os.path.join(out_dir, f"ref_{slack}.npz"), **rec)
+
+# the quantized wire: train_jit_q's body, unsharded
+codec = get_codec("int8")
+bw = DEFAULT_BANDWIDTHS(N)
+for policy in ("uniform", "bandwidth"):
+    t_q = jnp.asarray(transmission_time_codec(
+        cfg.embedding_dim, bw, resolve_link_codecs(policy, bw, codec)),
+        jnp.float32)
+    decide, advance, _, out_rows = make_dlrm_esd_stages(
+        mesh, N, M, V, t_q, 1.0, exchange="ragged", capacity=capacity,
+        use_pallas=True, codec=codec)
+    state = esd_sparse_init(N, V, capacity, max_ids=out_rows * wl.width)
+    params = params0
+    opt = rowwise_adagrad(LR)
+    opt_state = opt.init(params)
+    qres = {kk: jnp.zeros_like(params[kk]) for kk in ("embed", "wide")}
+
+    @jax.jit
+    def step_q(params, opt_state, qres, s, d, l):
+        def loss_q(p):
+            qp = dict(p)
+            for kk in qres:
+                qp[kk] = ste(p[kk], codec)
+            return dlrm.bce_loss(qp, cfg, s, d, l)
+
+        loss, grads = jax.value_and_grad(loss_q)(params)
+        grads, new_qres = dict(grads), {}
+        for kk in qres:
+            grads[kk], new_qres[kk] = quantize_with_feedback(
+                grads[kk], qres[kk], codec)
+        params, opt_state = opt.update(grads, opt_state, params)
+        return params, opt_state, new_qres, loss
+
+    stream = wl.stream(SEED + 1, N * M)
+    rec = {}
+    for i in range(STEPS):
+        s, d, l = map(jnp.asarray, next(stream))
+        assign, _ = decide(state, s)
+        (s2, d2, l2), state, counts = advance(state, s, d, l, assign)
+        state = jax.tree.map(lambda a: jnp.asarray(np.asarray(a)), state)
+        x = [jnp.asarray(np.asarray(a)) for a in (s2, d2, l2)]
+        params, opt_state, qres, loss = step_q(params, opt_state, qres, *x)
+        for key, v in [("assign", assign), ("s2", s2), ("d2", d2),
+                       ("l2", l2), ("loss", loss)] + list(counts.items()):
+            rec[f"{key}_{i}"] = np.asarray(v)
+    np.savez(os.path.join(out_dir, f"ref_int8_{policy}.npz"), **rec)
 p = jax.tree.map(np.asarray, params0)
 np.savez(os.path.join(out_dir, "params.npz"), embed=p["embed"],
          wide=p["wide"], **{f"bottom_{i}": lp["w"]
@@ -115,23 +176,32 @@ def reference(tmp_path_factory):
                   sum(key.startswith("bottom_") for key in p.files))],
               "top": [{"w": p[f"top_{i}"]} for i in range(
                   sum(key.startswith("top_") for key in p.files))]}
-    return params, {s: dict(np.load(out / f"ref_{s}.npz")) for s in SLACKS}
+    refs = {s: dict(np.load(out / f"ref_{s}.npz")) for s in SLACKS}
+    refs.update({p: dict(np.load(out / f"ref_int8_{p}.npz"))
+                 for p in POLICIES})
+    return params, refs
 
 
-def _stages_replay(params, slack):
+def _stages_replay(params, slack, codec=None, policy="uniform"):
     cfg = DLRM_CONFIGS[ARCH]
     wl = WORKLOADS[cfg.workload]
     V = wl.vocab
     capacity = int(0.2 * V)
-    t_tran = torch.tensor((cfg.embedding_dim * 4.0) / DEFAULT_BANDWIDTHS(N),
-                          dtype=torch.float32)
+    bw = DEFAULT_BANDWIDTHS(N)
+    if codec is None:
+        t_tran = torch.tensor((cfg.embedding_dim * 4.0) / bw,
+                              dtype=torch.float32)
+    else:
+        t_tran = torch.tensor(transmission_time_codec(
+            cfg.embedding_dim, bw, resolve_link_codecs(policy, bw, codec)),
+            dtype=torch.float32)
     decide, advance, _, out_rows = make_dlrm_esd_stages(
         N, M, t_tran, 1.0, exchange="ragged", cap_slack=slack,
-        capacity=capacity)
+        capacity=capacity, codec=codec)
     state = esd_sparse_init(N, V, capacity, max_ids=out_rows * wl.width)
     train = make_train_step(params_from_jax(params, cfg),
                             bce_loss_masked if slack > 0 else bce_loss,
-                            rowwise_adagrad(LR))
+                            rowwise_adagrad(LR), codec)
     stream = wl.stream(SEED + 1, N * M)
     rec = {}
     for i in range(STEPS):
@@ -189,3 +259,43 @@ def test_driver_matches_reference(reference, slack):
         assert rec["demand_miss_bytes"] == rec["miss_pull"] * 16 * 4
     for key in ("decide_ms_mean", "advance_ms_mean", "train_ms_mean"):
         assert out[key] > 0
+
+
+def _driver_args(extra):
+    return build_parser().parse_args(
+        ["--arch", ARCH, "--workers", str(N), "--batch-per-worker", str(M),
+         "--steps", str(STEPS), "--esd-alpha", "1", "--exchange", "ragged",
+         "--lr", str(LR), "--device", "cpu", "--seed", str(SEED)] + extra)
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_codec_stages_match_reference(reference, policy):
+    params, refs = reference
+    want = refs[policy]
+    got = _stages_replay(params, 0.0, codec="int8", policy=policy)
+    exact = refs[0.0]
+    for i in range(STEPS):
+        for key in ("assign", "s2", "d2", "l2", "exchange_overflow") + COUNTS:
+            np.testing.assert_array_equal(got[f"{key}_{i}"],
+                                          want[f"{key}_{i}"],
+                                          err_msg=f"{key} at step {i}")
+        np.testing.assert_allclose(got[f"loss_{i}"], want[f"loss_{i}"],
+                                   rtol=1e-5)
+    # the dense features did cross the quantized wire
+    assert not np.array_equal(want["d2_0"], exact["d2_0"])
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_codec_driver_matches_reference(reference, policy):
+    params, refs = reference
+    want = refs[policy]
+    out = run_dlrm(_driver_args(["--codec", "int8", "--codec-policy",
+                                 policy]),
+                   model=params_from_jax(params, DLRM_CONFIGS[ARCH]))
+    assert out["steps"] == STEPS and out["codec"] == "int8"
+    for i, rec in enumerate(out["metrics"]):
+        for key in COUNTS:
+            assert rec[key] == int(want[f"{key}_{i}"].sum()), (key, i)
+        np.testing.assert_allclose(rec["loss"], want[f"loss_{i}"], rtol=1e-5)
+        assert rec["demand_miss_bytes"] == rec["miss_pull"] * row_wire_bytes(
+            DLRM_CONFIGS[ARCH].embedding_dim, "int8")
