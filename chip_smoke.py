@@ -1,5 +1,6 @@
 """Drive the PyTorch port's serving path and training step, exact and
-over the quantized wire, on one CUDA card and check them.
+over the quantized wire, and the paper's simulator with its auction
+solver, on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -21,16 +22,30 @@ Phases, each printing its own lines:
    int32), dense features (13 f32) and labels (1 f32).  The quantized
    wire: the fused pack-quantize of 256 slots of dense features (fp16,
    int8, int4, int8:4; and int8 at 512 columns), and the pooled lookup
-   over the int8-quantized wdl-s1 table (256 x 74, E = 512 and E = 4);
+   over the int8-quantized wdl-s1 table (256 x 74, E = 512 and E = 4).
+   The auction's bids at Table 2's and the simulator's shapes (k = 256
+   and 8,192 rows of 8 workers, 1,024 of 16, 64 of 1; a random
+   unassigned mask), bit for bit;
 4. parity — the serve step and a TTL refresh, and 3 steps of the training
    stages, exact and with ``--codec int8``, on the card against the same
-   calls on the CPU at wdl-tiny;
+   calls on the CPU at wdl-tiny; the simulator with ``opt="auction"``
+   (tiny workload, 4 workers on distinct links, 4 iterations) and the
+   serving simulator (S1, 8 workers, 0.5 s) on the card against the CPU;
 5. serve — ``run_serve`` at wdl-s1 (4 workers, 2,000 QPS for 1 s), then
    for 0.5 s with ``--codec int8``;
 6. train — ``run_dlrm`` at wdl-s1 (4 workers x 256 samples, ESD alpha 1,
-   ragged exchange, 10 steps), then again with ``--codec int8``.
+   ragged exchange, 10 steps), then again with ``--codec int8``;
+7. table 2 — ``auction_dispatch(exact=False)`` on the draws of
+   ``benchmarks/table2.py`` (8 workers, 32 to 1,024 samples a worker):
+   rounds, ms per decision and bid-kernel launches, beside the paper's
+   CUDA-Hungarian ms; assignments and rounds equal to the CPU's;
+8. simulate — ``simulate`` at S1 (8 workers, 4 x 5 and 4 x 0.5 Gbps,
+   r = 0.08, E = 512, 32 samples a worker, 8 iterations, 2 of warm-up;
+   the paper's 60 iterations and 128 a worker cut): ESD alpha 1 with the
+   auction and with SSP, LAIA, HET, FAE and random; then the serving
+   simulator with the auction.
 
-Each run of phases 5 and 6 sets every kernel's launch counter to 0 just
+Each run of phases 5 to 8 sets every kernel's launch counter to 0 just
 before and reads the counters just after.  Then one JSON line of kernel
 records, after the script's wall time, and as the last line ``{"ok":
 true, "device": {...}}``.  Any failed check raises, so the script exits
@@ -61,13 +76,15 @@ SOURCES = {"pooled_lookup": CSRC + "emb_lookup.cu",
            "staged_gather": CSRC + "emb_lookup.cu",
            "pooled_lookup_staged": CSRC + "emb_lookup.cu",
            "gather_rows_quant": CSRC + "exchange_pack.cu",
-           "pooled_lookup_quant": CSRC + "emb_lookup.cu"}
+           "pooled_lookup_quant": CSRC + "emb_lookup.cu",
+           "auction_bids": CSRC + "auction.cu"}
 REPLACES = {"pooled_lookup": "src/repro/kernels/emb_lookup.py:88",
             "gather_rows": "src/repro/kernels/exchange_pack.py:34",
             "staged_gather": "src/repro/kernels/emb_lookup.py:174",
             "pooled_lookup_staged": "src/repro/kernels/emb_lookup.py:245",
             "gather_rows_quant": "src/repro/kernels/exchange_pack.py:108",
-            "pooled_lookup_quant": "src/repro/kernels/emb_lookup.py:337"}
+            "pooled_lookup_quant": "src/repro/kernels/emb_lookup.py:337",
+            "auction_bids": "src/repro/kernels/auction.py:51"}
 TRAIN_ARGV = ["--arch", "wdl-s1", "--workers", "4", "--batch-per-worker",
               "256", "--steps", "10", "--esd-alpha", "1", "--exchange",
               "ragged", "--capacity-ratio", "0.2", "--device", "cuda"]
@@ -134,7 +151,7 @@ def phase_device() -> str:
 def phase_build():
     from repro_torch.kernels import _build
 
-    names = ("emb_lookup", "exchange_pack")
+    names = ("emb_lookup", "exchange_pack", "auction")
     t = time.perf_counter()
     _build.load_libraries(*names)
     dt = time.perf_counter() - t
@@ -155,9 +172,9 @@ def phase_build():
 
 
 def _launch_counters():
-    from repro_torch.kernels import emb_lookup, exchange_pack
+    from repro_torch.kernels import auction, emb_lookup, exchange_pack
 
-    return (emb_lookup.LAUNCHES, exchange_pack.LAUNCHES)
+    return (emb_lookup.LAUNCHES, exchange_pack.LAUNCHES, auction.LAUNCHES)
 
 
 def _zero_launches():
@@ -636,6 +653,195 @@ def phase_train(seed: int, codec=None) -> dict:
     return launches
 
 
+def phase_auction_kernels(seed: int) -> dict:
+    """B7, the auction's bids, at Table 2's and the simulator's shapes."""
+    from repro_torch.kernels import auction as A
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 13)
+    rec = {}
+    for k, n in ((256, 8), (8192, 8), (1024, 16), (64, 1)):
+        cost = torch.as_tensor(rng.random((k, n), dtype=np.float32),
+                               device=dev)
+        # prices on a coarse grid, so that values tie inside rows
+        price = torch.as_tensor(
+            np.round(rng.random(n) * 4).astype(np.float32) / 8, device=dev)
+        unassigned = torch.as_tensor(rng.random(k) < 0.5, device=dev)
+        eps = torch.tensor([1.0 / (k + 1)], dtype=torch.float32, device=dev)
+        best_j, bid = A.auction_bids(cost, price, unassigned, eps)
+        ref_j, ref_bid = A.auction_bids_ref(cost, price, unassigned, eps[0])
+        torch.cuda.synchronize()
+        check(torch.equal(best_j, ref_j.to(torch.int32))
+              and torch.equal(bid.view(torch.int32), ref_bid.view(torch.int32)),
+              f"auction_bids k={k} n={n}: best_j and bid bitwise equal to "
+              f"plain")
+        err = float((bid - ref_bid).abs().max())
+        ms, call_ms = device_ms(
+            lambda: A.auction_bids(cost, price, unassigned, eps))
+        plain_ms, _ = device_ms(
+            lambda: A.auction_bids_ref(cost, price, unassigned, eps[0]))
+        # cost and prices read, mask read, best_j and bid written; a
+        # negate, a subtract and two compares per value
+        b_ms, b_by = bound(k * n * 4 + n * 4 + k + 2 * k * 4, 4 * k * n)
+        print(f"[kernel] auction_bids k={k} n={n} "
+              f"unassigned={int(unassigned.sum())}: bitwise, {ms:.4f} ms "
+              f"(call {call_ms:.4f}), plain {plain_ms:.4f} ms, library none,"
+              f" bound {b_ms:.6f} ms ({b_by})")
+        if (k, n) == (256, 8):
+            rec["auction_bids"] = dict(max_abs_err=err, ms=ms,
+                                       plain_ms=plain_ms, bound_ms=b_ms,
+                                       bound_by=b_by)
+    return rec
+
+
+def phase_sim_parity(seed: int):
+    """The simulator with the auction, and the serving simulator, on the
+    card against the CPU: every field but wall-clock time equal."""
+    from repro_torch.core.simulator import GBPS, SimConfig, simulate
+    from repro_torch.data.synthetic import WORKLOADS
+    from repro_torch.kernels import auction as A
+    from repro_torch.serve import ServeKnobs, simulate_serve
+
+    # 4 workers on distinct link speeds: a cold cache on two speed classes
+    # starts a price war of about a million rounds, too long for the CPU
+    base = dict(workload=WORKLOADS["tiny"], n_workers=4, batch_per_worker=8,
+                iters=4, warmup=1, alpha=1.0, opt="auction", seed=seed,
+                bandwidths=np.array([5.0, 2.0, 1.0, 0.5]) * GBPS)
+    n0 = A.LAUNCHES["auction_bids"]
+    card = simulate(SimConfig(device="cuda", **base))
+    rounds = A.LAUNCHES["auction_bids"] - n0
+    cpu = simulate(SimConfig(device="cpu", **base))
+    for f in ("per_iter_cost", "alg1_cost", "ingredient", "hit_ratio",
+              "cost"):
+        a, b = getattr(card, f), getattr(cpu, f)
+        same = (np.array_equal(a, b) if isinstance(a, np.ndarray) else a == b)
+        check(same, f"simulate(opt='auction') {f} equal on card and CPU")
+    check(rounds > 0, "the card's simulate launched the bid kernel")
+    print(f"[parity] simulate tiny, 4 workers x 8, opt auction, 4 "
+          f"iterations, card vs CPU: per_iter_cost, alg1_cost, ingredient, "
+          f"hit_ratio equal; cost {card.cost!r}; {rounds} rounds on the card")
+    knobs = ServeKnobs(qps=2000.0, duration_s=0.5)
+    scfg = dict(workload=WORKLOADS["S1"], n_workers=8, opt="auction",
+                seed=seed, serve=knobs)
+    card = simulate_serve(SimConfig(device="cuda", **scfg))
+    cpu = simulate_serve(SimConfig(device="cpu", **scfg))
+    for f in ("p50_s", "p99_s", "mean_s", "slo_violation_rate", "n_requests",
+              "n_batches", "pull_rows", "refresh_rows", "staleness_p99_s"):
+        check(getattr(card, f) == getattr(cpu, f),
+              f"simulate_serve {f} equal on card and CPU")
+    check(np.array_equal(card.qps_per_worker, cpu.qps_per_worker),
+          "simulate_serve qps_per_worker equal on card and CPU")
+    print(f"[parity] simulate_serve S1, 8 workers, 2,000 QPS for 0.5 s, opt "
+          f"auction, card vs CPU: all fields equal; p99 "
+          f"{card.p99_s * 1e3:.4f} ms, {card.n_batches} batches")
+
+
+# the paper's Table 2: CUDA-parallel Hungarian ms by samples per worker
+PAPER_TABLE2_MS = {32: 21, 64: 28, 128: 82, 256: 186, 512: 811, 1024: 1385}
+
+
+def phase_table2() -> dict:
+    """Table 2's solver sweep: ``auction_dispatch(exact=False)`` on the
+    draws of ``benchmarks/table2.py`` (``default_rng(0)``, 8 workers)."""
+    from repro_torch.core.auction import auction_dispatch
+
+    rng = np.random.default_rng(0)
+    costs = {bpw: rng.random((8 * bpw, 8)) for bpw in PAPER_TABLE2_MS}
+    # the CPU's answers first, outside the counted run
+    refs = {bpw: auction_dispatch(c, bpw, exact=False, device="cpu",
+                                  return_rounds=True)
+            for bpw, c in costs.items()}
+    _zero_launches()
+    total_rounds = 0
+    for bpw, cost in costs.items():
+        before = _read_launches()["auction_bids"]
+        assign, rounds = auction_dispatch(cost, bpw, exact=False,
+                                          device="cuda", return_rounds=True)
+        launched = _read_launches()["auction_bids"] - before
+        check(launched == rounds, f"table 2 bpw {bpw}: bid-kernel launches "
+                                  f"({launched}) equal rounds ({rounds})")
+        ref, ref_rounds = refs[bpw]
+        check(np.array_equal(assign, ref) and rounds == ref_rounds,
+              f"table 2 bpw {bpw}: assignment and rounds equal on card and "
+              f"CPU")
+        check(bool((np.bincount(assign, minlength=8) == bpw).all()),
+              f"table 2 bpw {bpw}: every worker takes its {bpw} samples")
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            auction_dispatch(cost, bpw, exact=False, device="cuda")
+            times.append((time.perf_counter() - t) * 1e3)
+        total_rounds += 4 * rounds
+        print(f"[table2] bpw {bpw} (k = {8 * bpw}, n = 8): {rounds} rounds, "
+              f"{statistics.median(times):.3f} ms per decision (median of "
+              f"3 after a warm call; {statistics.median(times) / rounds:.4f} "
+              f"ms a round), {launched} bid-kernel launches; paper's "
+              f"CUDA Hungarian {PAPER_TABLE2_MS[bpw]} ms")
+    launches = {k: v for k, v in _read_launches().items() if v}
+    check(launches.get("auction_bids") == total_rounds,
+          "table 2: bid-kernel launches equal the rounds of its calls")
+    return launches
+
+
+def phase_simulate(seed: int) -> dict:
+    """The paper's simulator at S1 on the card, each mechanism in turn."""
+    from repro_torch.core.simulator import SimConfig, simulate
+    from repro_torch.data.synthetic import WORKLOADS
+    from repro_torch.serve import ServeKnobs, simulate_serve
+
+    base = dict(workload=WORKLOADS["S1"], n_workers=8, batch_per_worker=32,
+                cache_ratio=0.08, embedding_dim=512, iters=8, warmup=2,
+                seed=seed, decision_model="measured", device="cuda")
+    launches: dict = {}
+    costs = {}
+    for name, kw in (("esd-auction", dict(mechanism="esd", opt="auction")),
+                     ("esd-ssp", dict(mechanism="esd", opt="ssp")),
+                     ("laia", dict(mechanism="laia")),
+                     ("het", dict(mechanism="het")),
+                     ("fae", dict(mechanism="fae")),
+                     ("random", dict(mechanism="random"))):
+        _zero_launches()
+        t = time.perf_counter()
+        res = simulate(SimConfig(**base, **kw))
+        wall = time.perf_counter() - t
+        run = {k: v for k, v in _read_launches().items() if v}
+        for k, v in run.items():
+            launches[k] = launches.get(k, 0) + v
+        bids = run.get("auction_bids", 0)
+        check(bool(np.isfinite(res.per_iter_cost).all())
+              and len(res.per_iter_cost) == 6 and 0 <= res.hit_ratio <= 1,
+              f"simulate {name}: six finite iteration costs, hit ratio in "
+              f"[0, 1]")
+        check((bids > 0) == (name == "esd-auction"),
+              f"simulate {name}: the bid kernel runs only for the auction")
+        costs[name] = res.cost
+        print(f"[simulate] S1 {name}: cost {res.cost!r} s, itps "
+              f"{res.itps!r}, hit ratio {res.hit_ratio!r}, decision "
+              f"{res.decision_time_mean * 1e3:.3f} ms (mean of iterations "
+              f"2-7), bid-kernel launches {bids} = rounds "
+              f"({bids / base['iters']:.1f} per decision), wall {wall:.1f} s")
+    check(costs["esd-auction"] < costs["random"],
+          "ESD with the auction moves less than random dispatch")
+    _zero_launches()
+    res = simulate_serve(SimConfig(
+        workload=WORKLOADS["S1"], n_workers=8, opt="auction", seed=seed,
+        device="cuda", serve=ServeKnobs(qps=2000.0, duration_s=0.5)))
+    run = {k: v for k, v in _read_launches().items() if v}
+    for k, v in run.items():
+        launches[k] = launches.get(k, 0) + v
+    check(run.get("auction_bids", 0) > 0 and res.n_requests > 0
+          and np.isfinite(res.p99_s),
+          "simulate_serve with the auction served the stream through the "
+          "bid kernel")
+    print(f"[simulate] serve S1, 8 workers, 2,000 QPS for 0.5 s, opt "
+          f"auction: p50 {res.p50_s * 1e3:.4f} ms, p99 "
+          f"{res.p99_s * 1e3:.4f} ms, slo_violation_rate "
+          f"{res.slo_violation_rate:.4f}, {res.n_requests} requests in "
+          f"{res.n_batches} batches, bid-kernel launches "
+          f"{run.get('auction_bids', 0)}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -649,17 +855,23 @@ def main(argv=None) -> int:
     rec = phase_kernels(args.seed)
     rec.update(phase_train_kernels(args.seed))
     rec.update(phase_quant_kernels(args.seed))
+    rec.update(phase_auction_kernels(args.seed))
     phase_parity(args.seed)
     phase_train_parity(args.seed)
     phase_train_parity(args.seed, codec="int8")
+    phase_sim_parity(args.seed)
     # launches on the main paths: each run counted from zero, then summed
     launches: dict = {}
     for run in (lambda: phase_serve(args.seed),
                 lambda: phase_serve(args.seed, codec="int8", duration=0.5),
                 lambda: phase_train(args.seed),
-                lambda: phase_train(args.seed, codec="int8")):
+                lambda: phase_train(args.seed, codec="int8"),
+                phase_table2,
+                lambda: phase_simulate(args.seed)):
+        t = time.perf_counter()
         for k, v in run().items():
             launches[k] = launches.get(k, 0) + v
+        print(f"[wall] phase took {time.perf_counter() - t:.1f} s")
     # B5 runs on no driver path (its phase 3 check holds it); every other
     # kernel must have launched on a main path
     for k in SOURCES:

@@ -1,9 +1,16 @@
 """Alg. 1 — the expected-cost module.
 
 Numpy (copied from the JAX package's ``core/cost.py``, bit for bit, so
-both packages price serving requests alike): per-link row transmission
-time, fp32 or under per-link wire codecs, and the pull-only cost column
-over a batch's unique ids.
+both packages price alike): per-link row transmission time, fp32 or
+under per-link wire codecs; the simulator's Alg. 1 — dense
+(:func:`cost_matrix_np`), touched-ids (:func:`cost_from_state_cols`,
+:func:`cost_matrix_sparse_np`) and multi-PS
+(:func:`cost_from_state_cols_ps`, :func:`cost_matrix_sparse_ps_np`) —
+and the serving path's pull-only cost column.  The reference names its
+numpy touched-ids functions ``cost_matrix_sparse`` and
+``cost_matrix_sparse_ps``; here they carry an ``_np`` suffix, because
+:func:`cost_matrix_sparse` is the PyTorch counterpart of the
+reference's ``cost_matrix_sparse_jnp``.
 
 PyTorch (the training step's decide stage): the per-sample id dedup, the
 per-id cost rows and the plain touched-ids Alg. 1, counterparts of the
@@ -19,7 +26,10 @@ import numpy as np
 import torch
 
 __all__ = ["PAD_ID", "transmission_time", "transmission_time_codec",
-           "dedup_mask_np", "batch_unique_np", "miss_time_from_state_cols",
+           "dedup_mask_np", "cost_matrix_np", "batch_unique_np",
+           "cost_from_state_cols", "cost_matrix_sparse_np",
+           "cost_from_state_cols_ps", "cost_matrix_sparse_ps_np",
+           "miss_time_from_state_cols",
            "dedup_mask", "unique_padded", "per_id_cost_rows",
            "cost_matrix_sparse"]
 
@@ -81,6 +91,53 @@ def dedup_mask_np(samples: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return ids, valid & dedup
 
 
+def _cost_from_gathers(latest_g: np.ndarray, dirty_g: np.ndarray,
+                       valid: np.ndarray, t_tran: np.ndarray) -> np.ndarray:
+    """Alg. 1 arithmetic on (n, k, F) gathered state.
+
+    Shared by the dense and sparse numpy paths — same operations in the
+    same order, so the two are *bitwise* equal (assignment tie-breaks
+    downstream see identical costs).
+    """
+    # miss pull
+    miss = (~latest_g) & valid[None, :, :]        # (n, k, F)
+    miss_cost = miss.sum(axis=2).T * t_tran[None, :]   # (k, n)
+
+    # update push: cost of other dirty holders pushing to the PS.
+    push_any = (dirty_g * t_tran[:, None, None]).sum(axis=0)   # (k, F) total push cost of all holders
+    push_any = np.where(valid, push_any, 0.0)
+    # subtract the self-term: if w_j itself is the dirty holder, no push.
+    self_push = dirty_g * t_tran[:, None, None]   # (n, k, F)
+    self_push = np.where(valid[None], self_push, 0.0)
+    push_cost = push_any.sum(axis=1)[:, None] - self_push.sum(axis=2).T  # (k, n)
+    return miss_cost + push_cost
+
+
+def cost_matrix_np(
+    samples: np.ndarray,
+    latest_in_cache: np.ndarray,
+    dirty: np.ndarray,
+    t_tran: np.ndarray,
+) -> np.ndarray:
+    """Paper Alg. 1, vectorized numpy.
+
+    Args:
+      samples: (k, F) int ids, PAD_ID-padded; duplicate ids inside one
+        sample count once per lookup (paper counts per-embedding ops, and a
+        worker pulls a missing embedding once per iteration — we deduplicate
+        per sample, matching the simulator's per-iteration set semantics).
+      latest_in_cache: (n, V) bool — latest version of x is in w_j's cache.
+      dirty: (n, V) bool — w_j holds an unsynced (trained-last-iter) copy.
+      t_tran: (n,) per-embedding transmission time of each worker.
+
+    Returns:
+      (k, n) float64 cost matrix.
+    """
+    ids, valid = dedup_mask_np(samples)
+    return _cost_from_gathers(latest_in_cache[:, ids], dirty[:, ids],
+                              valid, t_tran)
+
+
 def batch_unique_np(samples: np.ndarray):
     """(ids, mask, uids, inv): the batch's unique valid ids plus the
     compact index of every (sample, slot) into them.
@@ -99,6 +156,38 @@ def batch_unique_np(samples: np.ndarray):
     return ids, mask, uids, inv
 
 
+def cost_from_state_cols(inv: np.ndarray, mask: np.ndarray,
+                         lat_cols: np.ndarray, dirty_cols: np.ndarray,
+                         t_tran: np.ndarray) -> np.ndarray:
+    """(k, n) Alg. 1 from state gathered at the batch's unique ids only.
+
+    inv/mask come from :func:`batch_unique_np`; lat_cols/dirty_cols are
+    (n, U) — e.g. ``cache.state_columns(uids)``.  Expands the compact
+    columns through ``inv`` and runs the exact dense arithmetic, so the
+    result is bitwise-equal to :func:`cost_matrix_np` while never touching
+    more than the U <= k*F ids in flight.
+    """
+    n = lat_cols.shape[0]
+    if lat_cols.shape[1] == 0:
+        return np.zeros((inv.shape[0], n), np.float64)
+    return _cost_from_gathers(lat_cols[:, inv], dirty_cols[:, inv],
+                              mask, t_tran)
+
+
+def cost_matrix_sparse_np(
+    samples: np.ndarray,
+    latest_in_cache: np.ndarray,
+    dirty: np.ndarray,
+    t_tran: np.ndarray,
+) -> np.ndarray:
+    """Touched-ids Alg. 1 (numpy): gather state columns only for the
+    batch's unique ids, then pool.  Same contract as — and bitwise equal
+    to — :func:`cost_matrix_np`; O(k*F*n) with no O(V) term."""
+    ids, mask, uids, inv = batch_unique_np(samples)
+    return cost_from_state_cols(inv, mask, latest_in_cache[:, uids],
+                                dirty[:, uids], t_tran)
+
+
 def miss_time_from_state_cols(inv: np.ndarray, mask: np.ndarray,
                               lat_cols: np.ndarray,
                               t_cols: np.ndarray) -> np.ndarray:
@@ -114,6 +203,74 @@ def miss_time_from_state_cols(inv: np.ndarray, mask: np.ndarray,
         return np.zeros((inv.shape[0], n), np.float64)
     miss = (~lat_cols[:, inv]) & mask[None, :, :]          # (n, k, F)
     return (miss * t_cols[:, inv]).sum(axis=2).T           # (k, n)
+
+
+# --------------------------------------------------------------------------
+# multi-PS paths — per-(worker, shard) bandwidth, O(k*F*n) like the sparse
+# --------------------------------------------------------------------------
+def _cost_from_gathers_ps(latest_g: np.ndarray, dirty_g: np.ndarray,
+                          valid: np.ndarray, t_ps: np.ndarray,
+                          shard_g: np.ndarray) -> np.ndarray:
+    """Alg. 1 arithmetic with per-shard link costs.
+
+    latest_g/dirty_g: (n, k, F) gathered state; t_ps: (n, n_ps); shard_g:
+    (k, F) owning shard per slot.  The miss term counts misses per shard
+    (integer) before weighting, and the push term weights elementwise, so
+    with n_ps == 1 every float op matches :func:`_cost_from_gathers`
+    bitwise.
+    """
+    n_ps = t_ps.shape[1]
+    onehot = (shard_g[..., None] == np.arange(n_ps)).astype(np.int64)  # (k,F,p)
+    # miss pull: count per (worker, sample, shard), weight by the shard link
+    miss = ((~latest_g) & valid[None, :, :]).astype(np.int64)     # (n, k, F)
+    miss_ps = np.einsum("nkf,kfp->nkp", miss, onehot)
+    miss_cost = (miss_ps * t_ps[:, None, :]).sum(axis=2).T        # (k, n)
+
+    # update push: each dirty holder pushes over ITS link to the owning PS
+    t_g = t_ps[:, shard_g]                                        # (n, k, F)
+    push_any = (dirty_g * t_g).sum(axis=0)                        # (k, F)
+    push_any = np.where(valid, push_any, 0.0)
+    self_push = np.where(valid[None], dirty_g * t_g, 0.0)
+    push_cost = push_any.sum(axis=1)[:, None] - self_push.sum(axis=2).T
+    return miss_cost + push_cost
+
+
+def cost_from_state_cols_ps(inv: np.ndarray, mask: np.ndarray,
+                            lat_cols: np.ndarray, dirty_cols: np.ndarray,
+                            t_ps: np.ndarray,
+                            shard_cols: np.ndarray) -> np.ndarray:
+    """(k, n) multi-PS Alg. 1 from state gathered at the batch's unique ids.
+
+    Same contract as :func:`cost_from_state_cols` plus ``t_ps`` (n, n_ps)
+    and ``shard_cols`` (U,) — the owning shard of each unique id (from
+    ``PsPartition.shard_of`` / ``shard_of_linear``).
+    """
+    n = lat_cols.shape[0]
+    if lat_cols.shape[1] == 0:
+        return np.zeros((inv.shape[0], n), np.float64)
+    return _cost_from_gathers_ps(lat_cols[:, inv], dirty_cols[:, inv],
+                                 mask, t_ps, shard_cols[inv])
+
+
+def cost_matrix_sparse_ps_np(
+    samples: np.ndarray,
+    latest_in_cache: np.ndarray,
+    dirty: np.ndarray,
+    t_ps: np.ndarray,
+    part,
+    linear: bool = False,
+) -> np.ndarray:
+    """Touched-ids multi-PS Alg. 1 (numpy).
+
+    ``part`` is a :class:`repro_torch.ps.PsPartition`; ``linear=True`` means
+    samples (and the state-plane columns) are already PS-linearized.  With
+    ``part.n_ps == 1`` this is bitwise-equal to :func:`cost_matrix_sparse_np`
+    at ``t_ps[:, 0]``.
+    """
+    ids, mask, uids, inv = batch_unique_np(samples)
+    shard_u = (part.shard_of_linear(uids) if linear else part.shard_of(uids))
+    return cost_from_state_cols_ps(inv, mask, latest_in_cache[:, uids],
+                                   dirty[:, uids], t_ps, shard_u)
 
 
 # --------------------------------------------------------------------------

@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["hungarian", "expand_capacity", "hungarian_dispatch"]
+__all__ = ["hungarian", "expand_capacity", "hungarian_dispatch",
+           "assignment_cost"]
 
 
 def hungarian(cost: np.ndarray) -> np.ndarray:
@@ -94,3 +95,7 @@ def hungarian_dispatch(cost: np.ndarray, capacity: int) -> np.ndarray:
     expanded = expand_capacity(np.asarray(cost, np.float64), capacity)
     cols = hungarian(expanded)
     return (cols // capacity).astype(np.int64)
+
+
+def assignment_cost(cost: np.ndarray, col_of_row: np.ndarray) -> float:
+    return float(cost[np.arange(cost.shape[0]), col_of_row].sum())

@@ -2,9 +2,10 @@
 
 Rows of the cost matrix are sorted by ``min2 - min`` (the regret of a wrong
 greedy choice) in descending order; the top ``alpha`` fraction is solved by
-the optimal assignment solver (``Opt``), the remainder by the greedy
-``Heu``.  Each worker's capacity m is split: ``floor(m * alpha)`` slots
-for Opt, the rest for Heu.
+the optimal assignment solver (``Opt``: the Hungarian oracle, SSP, or
+the eps-scaled auction whose bids run in the bid kernel on ``device``),
+the remainder by the greedy ``Heu``.  Each worker's capacity m is split:
+``floor(m * alpha)`` slots for Opt, the rest for Heu.
 
 Feasibility note: Alg. 2 expands Opt's columns to ``floor(m*alpha)`` slots
 per worker, which caps Opt rows at ``n*floor(m*alpha)``; when
@@ -17,6 +18,7 @@ from typing import Callable, Literal
 
 import numpy as np
 
+from .auction import auction_dispatch
 from .heu import heu_dispatch, min2_minus_min
 from .hungarian import hungarian_dispatch
 from .ssp import ssp_dispatch
@@ -26,13 +28,13 @@ __all__ = ["hybrid_dispatch"]
 OptName = Literal["hungarian", "auction", "ssp"]
 
 
-def _opt_solver(name: OptName) -> Callable[[np.ndarray, int], np.ndarray]:
+def _opt_solver(name: OptName, device="cuda"
+                ) -> Callable[[np.ndarray, int], np.ndarray]:
     if name == "hungarian":
         return hungarian_dispatch
     if name == "auction":
-        raise NotImplementedError(
-            "the auction solver arrives with the host-simulator and "
-            "solvers slice of the port")
+        return lambda c, cap: auction_dispatch(c, cap, exact=True,
+                                               device=device)
     if name == "ssp":
         return ssp_dispatch
     raise ValueError(name)
@@ -44,13 +46,15 @@ def hybrid_dispatch(
     alpha: float,
     opt: OptName = "hungarian",
     variant: str = "paper",
+    device="cuda",
 ) -> np.ndarray:
     """Alg. 2.  Returns (k,) worker of each sample (original row order).
 
     ``variant="paper"`` reserves exactly ``floor(m*alpha)`` slots per worker
     for the Opt rows (Alg. 2 line 6).  ``variant="opt_first"`` lets Opt
     solve the same alpha-fraction of rows against FULL per-worker capacity
-    and Heu fill the remaining slots.
+    and Heu fill the remaining slots.  ``device`` is where the auction
+    runs (``opt="auction"`` only; the other solvers are numpy).
     """
     cost = np.asarray(cost, np.float64)
     k, n = cost.shape
@@ -77,7 +81,7 @@ def hybrid_dispatch(
 
     workload = np.zeros(n, dtype=np.int64)
     if opt_rows:
-        assign_opt = _opt_solver(opt)(cost[opt_idx], opt_cap)
+        assign_opt = _opt_solver(opt, device)(cost[opt_idx], opt_cap)
         out[opt_idx] = assign_opt
         workload += np.bincount(assign_opt, minlength=n)
 

@@ -43,6 +43,9 @@ SIGNATURES = {
         "gather_rows_quant_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _F, _F, _F, _P],
     },
+    "auction": {
+        "auction_bids_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -8,15 +8,23 @@ padding rows zero) and :func:`repro_torch.kernels.emb_lookup.
 pooled_lookup` pools it over the remapped ids, so the kernel never sees
 the vocabulary.  On CUDA tensors that is the B1 kernel; on CPU tensors
 its plain version, which sums in the same order.
+
+:func:`auction_solve_kernel` is the eps-scaled auction whose bid phase
+runs in the bid kernel (counterpart of the reference's
+``auction_solve_pallas``): the same solver as :func:`repro_torch.core.
+auction.auction_solve` with one terminal phase at the final eps, as the
+reference's has.
 """
 from __future__ import annotations
 
 import torch
 
+from ..core.auction import _solve
 from ..core.cost import dedup_mask, per_id_cost_rows, unique_padded
 from .emb_lookup import pooled_lookup
 
-__all__ = ["cost_table_sparse", "cost_matrix_sparse_kernel"]
+__all__ = ["cost_table_sparse", "cost_matrix_sparse_kernel",
+           "auction_solve_kernel"]
 
 
 def cost_table_sparse(samples: torch.Tensor, latest_in_cache: torch.Tensor,
@@ -46,3 +54,13 @@ def cost_matrix_sparse_kernel(samples: torch.Tensor,
     link times -> (k, n) f32 cost matrix."""
     return pooled_lookup(*cost_table_sparse(samples, latest_in_cache, dirty,
                                             t_tran))
+
+
+def auction_solve_kernel(cost: torch.Tensor, capacity: int,
+                         eps: float = 1e-3, max_rounds: int = 500_000,
+                         scaling: float = 6.0):
+    """Same contract as :func:`repro_torch.core.auction.auction_solve`,
+    with one phase at the final eps.  cost: (k, n) on the device to solve
+    on.  Returns (assign (k,) int32, rounds)."""
+    return _solve(cost.to(torch.float32), capacity, eps, max_rounds,
+                  scaling, n_final=1)

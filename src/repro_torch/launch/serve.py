@@ -41,6 +41,7 @@ from ..configs import DLRM_CONFIGS
 from ..core.cost import transmission_time_codec
 from ..core.simulator import DEFAULT_BANDWIDTHS
 from ..data.synthetic import WORKLOADS
+from ..device import resolve_device
 from ..models.dlrm import init_params
 from ..obs import MetricsRegistry, log_step
 from ..quant.codecs import codec_name, get_codec, resolve_link_codecs
@@ -80,14 +81,6 @@ def build_parser():
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cpu is for tests; cuda raises without a GPU")
     return ap
-
-
-def resolve_device(name: str) -> torch.device:
-    """The device to serve on; ``cuda`` without a GPU raises."""
-    if name == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda asked for, but no CUDA device is "
-                           "available (use --device cpu for a CPU run)")
-    return torch.device(name)
 
 
 def _sync(device: torch.device):

@@ -63,7 +63,7 @@ from ..optim import get_optimizer
 from ..pipeline.runner import PipelinedRunner
 from ..quant.codecs import (codec_name, get_codec, quantize_with_feedback,
                             resolve_link_codecs, row_wire_bytes, ste)
-from .serve import resolve_device
+from ..device import resolve_device
 from .steps import make_dlrm_esd_stages, raise_on_overflow
 
 __all__ = ["build_parser", "make_train_step", "run_dlrm", "main"]

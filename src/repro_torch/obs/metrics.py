@@ -1,6 +1,6 @@
 """Metrics registry: the subset of the JAX package's ``obs.metrics`` that
-the serving and training drivers use (counters, gauges, histograms with
-quantiles, and the training driver's per-step records)."""
+the drivers and the simulators use (counters, gauges, histograms with
+quantiles, snapshots, and the training driver's per-step records)."""
 from __future__ import annotations
 
 import math
@@ -22,6 +22,9 @@ class Counter:
         self.value += amount
         return self.value
 
+    def snapshot(self) -> dict:
+        return {"kind": self.kind, "value": self.value}
+
 
 class Gauge:
     __slots__ = ("name", "value")
@@ -34,6 +37,9 @@ class Gauge:
     def set(self, value):
         self.value = value
         return value
+
+    def snapshot(self) -> dict:
+        return {"kind": self.kind, "value": self.value}
 
 
 class Histogram:
@@ -86,6 +92,12 @@ class Histogram:
         hi = min(lo + 1, len(xs) - 1)
         frac = pos - lo
         return xs[lo] * (1.0 - frac) + xs[hi] * frac
+
+    def snapshot(self) -> dict:
+        return {"kind": self.kind, "count": self.count, "sum": self.sum,
+                "min": self.min if self.count else None,
+                "max": self.max if self.count else None,
+                "mean": self.mean if self.count else None}
 
 
 # Driver per-step record field -> namespaced cumulative metric folded by
@@ -152,3 +164,8 @@ class MetricsRegistry:
             else:
                 self.gauge(name).set(value)
         return rec
+
+    def snapshot(self) -> dict:
+        """All metrics as plain JSON-able dicts, sorted by name."""
+        return {name: self._metrics[name].snapshot()
+                for name in sorted(self._metrics)}

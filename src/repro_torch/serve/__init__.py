@@ -4,11 +4,15 @@
 * :mod:`.cost` — the latency-SLO cost column and Alg. 2 dispatch (numpy).
 * :mod:`.plane` — read-only per-worker cache planes with TTL refresh.
 * :mod:`.step` — the serve step: staged-plane lookup + dense forward.
+* :mod:`.sim` — the virtual-clock :func:`simulate_serve` behind
+  ``SimConfig.serve`` (p50/p99 latency, SLO-violation rate, QPS per
+  worker, plane staleness).
 
 The real-clock driver is ``python -m repro_torch.launch.serve``.
 """
 from .cost import serve_cost_matrix, serve_decide
 from .plane import plane_ages, refresh_plane, seed_plane
+from .sim import ServeKnobs, ServeResult, simulate_serve
 from .step import make_serve_step, staged_emb_all
 from .stream import MicroBatch, StreamConfig, micro_batches, request_arrivals
 
@@ -17,4 +21,5 @@ __all__ = [
     "serve_cost_matrix", "serve_decide",
     "seed_plane", "refresh_plane", "plane_ages",
     "make_serve_step", "staged_emb_all",
+    "ServeKnobs", "ServeResult", "simulate_serve",
 ]

@@ -10,11 +10,16 @@ version's order with the multiply and the add rounded apart and must be
 exact too; pooled_lookup_staged does the same and is held to rtol =
 atol = 1e-5 all the same.  gather_rows_quant and pooled_lookup_quant
 compute in their plain versions' forms and must match them bit for bit.
+auction_bids takes one subtraction per value, exact max/argmax and two
+rounded additions: best_j and bid bit for bit, and the auction solved
+with it on the card equals the auction solved on the CPU, rounds too.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import auction as ta
+from repro_torch.kernels import auction as tb
 from repro_torch.kernels import emb_lookup as tk
 from repro_torch.kernels import exchange_pack as tp
 from repro_torch.quant.codecs import quantize_rows
@@ -170,3 +175,36 @@ def test_pooled_lookup_quant_matches_plain(cuda, name, E):
         torch.cuda.synchronize()
         assert _same_bits(got, want)
     assert tk.LAUNCHES[kernel] == n0 + 2
+
+
+@pytest.mark.parametrize("k,n", [(16, 4), (100, 8), (257, 16), (64, 1),
+                                 (1000, 33), (5, 100), (8192, 8)])
+def test_auction_bids_matches_plain(cuda, k, n):
+    rng = np.random.default_rng(k + n)
+    cost = rng.random((k, n)).astype(np.float32)
+    cost[rng.random((k, n)) < 0.3] = 0.25               # ties in rows
+    price = np.round(rng.random(n) * 4).astype(np.float32) / 8
+    args = [torch.from_numpy(a).to(cuda)
+            for a in (cost, price, rng.random(k) < 0.5)]
+    n0 = tb.LAUNCHES["auction_bids"]
+    eps = torch.tensor([1.0 / 257], dtype=torch.float32, device=cuda)
+    got_j, got_bid = tb.auction_bids(*args, eps)
+    want_j, want_bid = tb.auction_bids_ref(*args, eps[0])
+    torch.cuda.synchronize()
+    assert tb.LAUNCHES["auction_bids"] == n0 + 1
+    assert torch.equal(got_j, want_j.to(torch.int32))
+    assert _same_bits(got_bid, want_bid)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_auction_on_card_equals_cpu(cuda, exact):
+    rng = np.random.default_rng(2)
+    C = np.repeat(rng.random((16, 8)), 4, axis=0) * 3.0     # tied rows
+    n0 = tb.LAUNCHES["auction_bids"]
+    got, rounds = ta.auction_dispatch(C, 8, exact=exact, device="cuda",
+                                      return_rounds=True)
+    want, want_rounds = ta.auction_dispatch(C, 8, exact=exact,
+                                            device="cpu", return_rounds=True)
+    np.testing.assert_array_equal(got, want)
+    assert rounds == want_rounds
+    assert tb.LAUNCHES["auction_bids"] == n0 + rounds

@@ -46,6 +46,11 @@ def test_port_imports_no_jax_and_no_reference():
     assert "repro_torch.launch.train" in out["modules"]
     assert "repro_torch.kernels.exchange_pack" in out["modules"]
     assert "repro_torch.quant.codecs" in out["modules"]
+    for name in ("kernels.auction", "core.auction", "core.simulator",
+                 "core.cache", "core.baselines", "ps.partition",
+                 "exchange.plan", "obs.trace", "pipeline.window",
+                 "serve.sim", "device"):
+        assert f"repro_torch.{name}" in out["modules"]
     assert out["device"] == "cuda"
     assert out["train_device"] == "cuda"
 

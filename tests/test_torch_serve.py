@@ -78,8 +78,12 @@ def test_cost_matrix_and_decide_match_jax(alpha):
 
 
 def test_host_gaps_raise():
-    with pytest.raises(NotImplementedError, match="host-simulator"):
-        t_hybrid(np.zeros((4, 2)), 2, 1.0, opt="auction")
+    # the auction Opt is ported: Alg. 2 with it matches the reference
+    C = np.random.default_rng(2).random((8, 2))
+    for cost in (np.zeros((4, 2)), C):
+        np.testing.assert_array_equal(
+            t_hybrid(cost, len(cost) // 2, 1.0, opt="auction", device="cpu"),
+            j_hybrid(cost, len(cost) // 2, 1.0, opt="auction"))
     # per-link codecs are priced now; a mismatched codec array still raises
     with pytest.raises(ValueError, match="shape"):
         tcost.transmission_time_codec(8, np.ones(2), np.array(["int8"] * 3))
