@@ -1,6 +1,7 @@
 """Drive the PyTorch port's serving path and training step, exact and
-over the quantized wire, and the paper's simulator with its auction
-solver, on one CUDA card and check them.
+over the quantized wire, the paper's simulator with its auction solver,
+and LM training with its flash-attention kernel, on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -25,12 +26,20 @@ Phases, each printing its own lines:
    over the int8-quantized wdl-s1 table (256 x 74, E = 512 and E = 4).
    The auction's bids at Table 2's and the simulator's shapes (k = 256
    and 8,192 rows of 8 workers, 1,024 of 16, 64 of 1; a random
-   unassigned mask), bit for bit;
+   unassigned mask), bit for bit.  The flash attention at the LM path's
+   shape (smollm-360m: B = 4, S = 2,048, 5 KV heads x 3, hd = 64,
+   causal) in bf16 (max abs err 1e-2: the outputs' bf16 rounding) and
+   f32 (2e-5), non-causal, at hd = 128, and the gradients of its
+   autograd Function against autograd of its plain version (1e-4), with
+   ``scaled_dot_product_attention`` timed as the library yardstick and
+   the bound at 989 TFLOP/s bf16 (67 f32);
 4. parity — the serve step and a TTL refresh, and 3 steps of the training
    stages, exact and with ``--codec int8``, on the card against the same
    calls on the CPU at wdl-tiny; the simulator with ``opt="auction"``
    (tiny workload, 4 workers on distinct links, 4 iterations) and the
    serving simulator (S1, 8 workers, 0.5 s) on the card against the CPU;
+   3 steps of ``run_lm`` at smollm-360m's smoke config with S = 2,048
+   (the flash route) on the card against the CPU, losses within 1e-4;
 5. serve — ``run_serve`` at wdl-s1 (4 workers, 2,000 QPS for 1 s), then
    for 0.5 s with ``--codec int8``;
 6. train — ``run_dlrm`` at wdl-s1 (4 workers x 256 samples, ESD alpha 1,
@@ -43,9 +52,13 @@ Phases, each printing its own lines:
    r = 0.08, E = 512, 32 samples a worker, 8 iterations, 2 of warm-up;
    the paper's 60 iterations and 128 a worker cut): ESD alpha 1 with the
    auction and with SSP, LAIA, HET, FAE and random; then the serving
-   simulator with the auction.
+   simulator with the auction;
+9. lm-train — ``run_lm`` at smollm-360m's full width and depth (32
+   layers, d = 960, vocab 49,152, bf16), B = 4, S = 2,048, 5 steps of
+   Adam: ms per step (mean of steps 1-4, each ended by a synchronise),
+   tokens/s, losses, peak memory, and 32 flash-kernel launches a step.
 
-Each run of phases 5 to 8 sets every kernel's launch counter to 0 just
+Each run of phases 5 to 9 sets every kernel's launch counter to 0 just
 before and reads the counters just after.  Then one JSON line of kernel
 records, after the script's wall time, and as the last line ``{"ok":
 true, "device": {...}}``.  Any failed check raises, so the script exits
@@ -58,6 +71,7 @@ import argparse
 import copy
 import itertools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -70,6 +84,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"pooled_lookup": CSRC + "emb_lookup.cu",
            "gather_rows": CSRC + "exchange_pack.cu",
@@ -77,14 +92,18 @@ SOURCES = {"pooled_lookup": CSRC + "emb_lookup.cu",
            "pooled_lookup_staged": CSRC + "emb_lookup.cu",
            "gather_rows_quant": CSRC + "exchange_pack.cu",
            "pooled_lookup_quant": CSRC + "emb_lookup.cu",
-           "auction_bids": CSRC + "auction.cu"}
+           "auction_bids": CSRC + "auction.cu",
+           "flash_attention": CSRC + "flash_attn.cu"}
 REPLACES = {"pooled_lookup": "src/repro/kernels/emb_lookup.py:88",
             "gather_rows": "src/repro/kernels/exchange_pack.py:34",
             "staged_gather": "src/repro/kernels/emb_lookup.py:174",
             "pooled_lookup_staged": "src/repro/kernels/emb_lookup.py:245",
             "gather_rows_quant": "src/repro/kernels/exchange_pack.py:108",
             "pooled_lookup_quant": "src/repro/kernels/emb_lookup.py:337",
-            "auction_bids": "src/repro/kernels/auction.py:51"}
+            "auction_bids": "src/repro/kernels/auction.py:51",
+            "flash_attention": "src/repro/kernels/flash_attn.py:66"}
+LM_ARGV = ["--arch", "smollm-360m", "--seq-len", "2048",
+           "--batch-per-worker", "4", "--steps", "5", "--device", "cuda"]
 TRAIN_ARGV = ["--arch", "wdl-s1", "--workers", "4", "--batch-per-worker",
               "256", "--steps", "10", "--esd-alpha", "1", "--exchange",
               "ragged", "--capacity-ratio", "0.2", "--device", "cuda"]
@@ -128,9 +147,10 @@ def device_ms(fn, reps: int = 50) -> tuple[float, float]:
     return statistics.median(dev), statistics.median(call)
 
 
-def bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_flops: float,
+          flops_per_s: float = F32_FLOPS_PER_S) -> tuple[float, str]:
     t_b = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_f = n_flops / F32_FLOPS_PER_S * 1e3
+    t_f = n_flops / flops_per_s * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -151,7 +171,7 @@ def phase_device() -> str:
 def phase_build():
     from repro_torch.kernels import _build
 
-    names = ("emb_lookup", "exchange_pack", "auction")
+    names = ("emb_lookup", "exchange_pack", "auction", "flash_attn")
     t = time.perf_counter()
     _build.load_libraries(*names)
     dt = time.perf_counter() - t
@@ -164,6 +184,10 @@ def phase_build():
             if "Compiling entry function" in ln:
                 kernel = next((k for k in SOURCES if f"{k}_kernel" in ln),
                               ln.split("'")[1] if "'" in ln else ln)
+                inst = re.search(r"kernelI(f|13__nv_bfloat16)Li(\d+)E", ln)
+                if inst:     # a template instance: element type, hd
+                    kernel += (f"<{'f32' if inst[1] == 'f' else 'bf16'}, "
+                               f"hd {inst[2]}>")
             elif "spill" in ln or "registers" in ln:
                 facts.append(ln.split(":", 1)[-1].strip())
                 if "registers" in ln:
@@ -172,9 +196,11 @@ def phase_build():
 
 
 def _launch_counters():
-    from repro_torch.kernels import auction, emb_lookup, exchange_pack
+    from repro_torch.kernels import (auction, emb_lookup, exchange_pack,
+                                     flash_attn)
 
-    return (emb_lookup.LAUNCHES, exchange_pack.LAUNCHES, auction.LAUNCHES)
+    return (emb_lookup.LAUNCHES, exchange_pack.LAUNCHES, auction.LAUNCHES,
+            flash_attn.LAUNCHES)
 
 
 def _zero_launches():
@@ -842,6 +868,150 @@ def phase_simulate(seed: int) -> dict:
     return launches
 
 
+def phase_flash_kernels(seed: int) -> dict:
+    """B8, the flash attention, at the LM path's shape and around it."""
+    from repro_torch.kernels import flash_attn as FA
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 17)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rec = {}
+
+    def qkv(B, S, KV, G, hd, dtype):
+        return (torch.randn((B, S, KV, G, hd), generator=g,
+                            device=dev).to(dtype),
+                torch.randn((B, S, KV, hd), generator=g, device=dev).to(dtype),
+                torch.randn((B, S, KV, hd), generator=g, device=dev).to(dtype))
+
+    for B, S, KV, G, hd, causal, dtype in (
+            (4, 2048, 5, 3, 64, True, torch.bfloat16),
+            (4, 2048, 5, 3, 64, True, torch.float32),
+            (2, 1024, 5, 3, 64, False, torch.bfloat16),
+            (2, 2048, 2, 4, 128, True, torch.bfloat16)):
+        q, k, v = qkv(B, S, KV, G, hd, dtype)
+        out, lse = FA.flash_attention(q, k, v, causal)
+        ref, ref_lse = FA.flash_attention_ref(q, k, v, causal)
+        torch.cuda.synchronize()
+        bf16 = dtype == torch.bfloat16
+        tol = 1e-2 if bf16 else 2e-5
+        err = float((out.float() - ref.float()).abs().max())
+        lse_err = float((lse - ref_lse).abs().max())
+        what = (f"B={B} S={S} KV={KV} G={G} hd={hd} "
+                f"{'causal' if causal else 'full'} "
+                f"{'bf16' if bf16 else 'f32'}")
+        check(err <= tol and lse_err <= 2e-5 and out.dtype == dtype,
+              f"flash_attention {what}: out within {tol} (max err {err}), "
+              f"lse within 2e-5 (max err {lse_err}) of plain")
+        ms, call_ms = device_ms(lambda: FA.flash_attention(q, k, v, causal))
+        plain_ms, _ = device_ms(
+            lambda: FA.flash_attention_ref(q, k, v, causal), reps=10)
+        # the library yardstick on the (B, H, S, hd) layout it takes
+        qs = q.reshape(B, S, KV * G, hd).transpose(1, 2).contiguous()
+        ks, vs = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        lib_ms, _ = device_ms(lambda: sdpa(qs, ks, vs, is_causal=causal,
+                                           enable_gqa=True))
+        # 4 hd operations per visible (query row, key) pair; q, k, v read
+        # once, out and lse written once
+        pairs = B * KV * G * (S * (S + 1) // 2 if causal else S * S)
+        n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
+            + lse.numel() * 4
+        b_ms, b_by = bound(n_bytes, 4 * hd * pairs,
+                           BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S)
+        print(f"[kernel] flash_attention {what}: max err {err:.3g} (lse "
+              f"{lse_err:.3g}), {ms:.4f} ms (call {call_ms:.4f}), plain "
+              f"{plain_ms:.4f} ms, scaled_dot_product_attention "
+              f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}), "
+              f"{4 * hd * pairs / ms / 1e9:.2f} TFLOP/s")
+        if (S, hd, causal, dtype) == (2048, 64, True, torch.bfloat16):
+            rec["flash_attention"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by)
+            dout = torch.randn(out.shape, generator=g, device=dev).to(dtype)
+            bwd_ms, _ = device_ms(lambda: FA.flash_attention_bwd(
+                q, k, v, out, lse, dout, causal), reps=5)
+            print(f"[kernel] flash_attention {what}: its backward (plain "
+                  f"PyTorch, key tiles of {FA.BLOCK}) {bwd_ms:.4f} ms")
+        del q, k, v, qs, ks, vs, out, ref
+
+    # gradients through the autograd Function against autograd of the
+    # plain version
+    worst = 0.0
+    for causal in (True, False):
+        leaves = [t.float() for t in qkv(2, 640, 5, 3, 64, torch.float32)]
+        w = torch.randn(leaves[0].shape, generator=g, device=dev)
+        grads = []
+        for fn in (lambda *a: FA.flash_attn(*a, causal),
+                   lambda *a: FA.flash_attention_ref(*a, causal)[0]):
+            ts = [t.clone().requires_grad_() for t in leaves]
+            grads.append(torch.autograd.grad((fn(*ts) * w).sum(), ts))
+        for a, b in zip(*grads):
+            err = float((a - b).abs().max())
+            check(err <= 1e-4, f"flash_attn gradient (causal {causal}) "
+                               f"within 1e-4 of plain (max err {err})")
+            worst = max(worst, err)
+    print(f"[kernel] flash_attn gradients, B=2 S=640 KV=5 G=3 hd=64 f32, "
+          f"causal and full: max abs err {worst:.3g} against autograd of "
+          f"the plain version (tolerance 1e-4)")
+    return rec
+
+
+def phase_lm_parity(seed: int):
+    """3 steps of ``run_lm`` at smollm-360m's smoke config with S = 2,048
+    (every layer on the flash route) on the card and on the CPU from the
+    same weights: losses within 1e-4 (f32 sums in another order, and Adam
+    at lr 1e-2 turns a rounding difference of a gradient near 0 into a
+    step of up to lr)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import build_parser, run_lm
+    from repro_torch.models import api
+
+    cfg = get_config("smollm-360m", smoke=True)
+    cpu = api.init_model(cfg, generator=torch.Generator().manual_seed(seed),
+                         device="cpu")
+    gpu = copy.deepcopy(cpu).to("cuda")
+    argv = ["--arch", "smollm-360m", "--smoke", "--seq-len", "2048",
+            "--batch-per-worker", "1", "--steps", "3", "--seed", str(seed)]
+    runs = {}
+    for dev, model in (("cpu", cpu), ("cuda", gpu)):
+        out = run_lm(build_parser().parse_args(argv + ["--device", dev]),
+                     model=model)
+        runs[dev] = [r["loss"] for r in out["metrics"]]
+    err = max(abs(a - b) for a, b in zip(runs["cpu"], runs["cuda"]))
+    check(all(np.isfinite(runs["cuda"])) and err <= 1e-4,
+          f"LM losses on card vs CPU within 1e-4 (max err {err})")
+    print(f"[parity] 3 LM steps, smollm-360m smoke (2 layers, d 256, 4 "
+          f"heads over 2, f32), B 1, S 2048, card vs CPU: losses "
+          f"{runs['cuda']} vs {runs['cpu']}, max abs err {err:.3g} "
+          f"(tolerance 1e-4)")
+
+
+def phase_lm_train(seed: int) -> dict:
+    """``run_lm`` at smollm-360m's full width and depth."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import build_parser, run_lm
+
+    args = build_parser().parse_args(LM_ARGV + ["--seed", str(seed)])
+    cfg = get_config(args.arch)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    out = run_lm(args)
+    launches = {k: v for k, v in _read_launches().items() if v}
+    recs = out["metrics"]
+    losses = [r["loss"] for r in recs]
+    print(f"[lm-train] {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads}, vocab {cfg.vocab}, "
+          f"{cfg.dtype}), B {out['batch']}, S {out['seq_len']}, "
+          f"{len(recs)} steps: {out['step_ms_mean']:.3f} ms per step (mean "
+          f"of steps 1..), {out['tokens_per_s']:.1f} tokens/s; losses "
+          f"{losses}; step s {[r['wall_s'] for r in recs]}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{launches}")
+    check(all(np.isfinite(losses)), "every LM loss finite")
+    check(launches.get("flash_attention") == cfg.n_layers * len(recs),
+          "the flash kernel launched once per layer and step")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -856,10 +1026,12 @@ def main(argv=None) -> int:
     rec.update(phase_train_kernels(args.seed))
     rec.update(phase_quant_kernels(args.seed))
     rec.update(phase_auction_kernels(args.seed))
+    rec.update(phase_flash_kernels(args.seed))
     phase_parity(args.seed)
     phase_train_parity(args.seed)
     phase_train_parity(args.seed, codec="int8")
     phase_sim_parity(args.seed)
+    phase_lm_parity(args.seed)
     # launches on the main paths: each run counted from zero, then summed
     launches: dict = {}
     for run in (lambda: phase_serve(args.seed),
@@ -867,7 +1039,8 @@ def main(argv=None) -> int:
                 lambda: phase_train(args.seed),
                 lambda: phase_train(args.seed, codec="int8"),
                 phase_table2,
-                lambda: phase_simulate(args.seed)):
+                lambda: phase_simulate(args.seed),
+                lambda: phase_lm_train(args.seed)):
         t = time.perf_counter()
         for k, v in run().items():
             launches[k] = launches.get(k, 0) + v

@@ -1,1 +1,2 @@
-"""Seeded synthetic CTR streams (:mod:`.synthetic`)."""
+"""Seeded synthetic CTR and LM token streams (:mod:`.synthetic`) and the
+prefetching loader (:mod:`.loader`)."""

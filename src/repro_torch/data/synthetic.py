@@ -1,4 +1,4 @@
-"""Synthetic CTR workload streams (Criteo/Avazu-shaped).
+"""Synthetic CTR workload streams (Criteo/Avazu-shaped) + LM token streams.
 
 No public datasets ship with the repository, so the paper's workloads
 S1 (WDL/Criteo-Kaggle), S2 (DFM/Avazu), S3 (DCN/Criteo-Sponsored) are
@@ -16,7 +16,7 @@ from typing import Iterator
 
 import numpy as np
 
-__all__ = ["CTRWorkload", "WORKLOADS", "zipf_ids"]
+__all__ = ["CTRWorkload", "WORKLOADS", "zipf_ids", "token_stream"]
 
 
 def zipf_ids(
@@ -140,3 +140,12 @@ WORKLOADS: dict[str, CTRWorkload] = {
     # small variant for tests
     "tiny": _mk("tiny", "wdl", big=2_000, small=100, n_big=2, n_small=4, a_big=1.1, a_small=1.05),
 }
+
+
+def token_stream(
+    seed: int, vocab: int, batch: int, seq_len: int, zipf_a: float = 1.1
+) -> Iterator[np.ndarray]:
+    """LM token batches (batch, seq_len) with Zipfian vocabulary reuse."""
+    rng = np.random.default_rng(seed)
+    while True:
+        yield zipf_ids(rng, zipf_a, batch * seq_len, vocab).reshape(batch, seq_len)

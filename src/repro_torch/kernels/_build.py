@@ -26,9 +26,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # C signature of every launcher: name -> argtypes (pointers and the stream
-# as c_void_p, so ctypes passes all 64 bits; ints as c_int, floats as
-# c_float)
+# as c_void_p, so ctypes passes all 64 bits; ints as c_int, strides as
+# c_longlong, floats as c_float)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 SIGNATURES = {
     "emb_lookup": {
         "pooled_lookup_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -45,6 +46,9 @@ SIGNATURES = {
     },
     "auction": {
         "auction_bids_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    },
+    "flash_attn": {
+        "flash_attention_launch": [_P] * 5 + [_I] * 8 + [_L] * 13 + [_P],
     },
 }
 

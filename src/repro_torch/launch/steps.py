@@ -1,8 +1,10 @@
-"""Stage builders of the DLRM ESD training step.
+"""Step builders: the LM train step and the stages of the DLRM ESD
+training step.
 
 The counterpart of the JAX package's ``launch/steps.py``
-(``make_esd_exchange``, ``raise_on_overflow``, ``make_dlrm_esd_stages``
-for the non-elastic, single-PS case).  The reference's stages run one
+(``make_train_step`` for the LM, and ``make_esd_exchange``,
+``raise_on_overflow``, ``make_dlrm_esd_stages`` for the non-elastic,
+single-PS case).  The reference's stages run one
 shard per device under ``shard_map``; here the ``n`` workers share one
 device and a stage's global ``(k, ...)`` batch is split by rows, worker
 ``i`` holding rows ``[i * m, (i + 1) * m)``.  ``lax.all_to_all`` becomes
@@ -17,9 +19,32 @@ from ..core.dispatch import (dispatch_cap, esd_cost_matrix, esd_decide,
                              esd_state_update_sparse, exchange_budget,
                              need_ids_list)
 from ..exchange.ragged import ragged_exchange, ragged_exchange_quant
+from ..models import api
 from ..quant.codecs import get_codec
 
-__all__ = ["make_esd_exchange", "raise_on_overflow", "make_dlrm_esd_stages"]
+__all__ = ["make_train_step", "make_esd_exchange", "raise_on_overflow",
+           "make_dlrm_esd_stages"]
+
+
+def make_train_step(cfg, model, optimizer):
+    """The LM train step (the reference's with ``remat=False``, as its LM
+    driver runs it): ``step(batch) -> loss`` takes the loss and its
+    gradients through ``api.train_loss`` and copies ``optimizer``'s new
+    values into ``model``'s parameters in place."""
+    params = list(model.parameters())
+    opt_state = optimizer.init(params)
+
+    def step(batch):
+        nonlocal opt_state
+        loss = api.train_loss(model, cfg, batch)
+        grads = torch.autograd.grad(loss, params)
+        new, opt_state = optimizer.update(list(grads), opt_state, params)
+        with torch.no_grad():
+            for p, q in zip(params, new):
+                p.copy_(q)
+        return loss.detach()
+
+    return step
 
 
 def make_esd_exchange(mode: str, n: int, m: int, budget: int | None = None,

@@ -1,7 +1,8 @@
-"""Training driver of the DLRM ESD step on PyTorch (CUDA by default).
+"""Training driver on PyTorch (CUDA by default): the DLRM ESD step, and
+next-token training of the dense LMs.
 
-The counterpart of the JAX package's ``launch/train.py`` for its DLRM
-mode.  ``--workers`` edge workers share one device, the worker being a
+The counterpart of the JAX package's ``launch/train.py``.  DLRM mode:
+``--workers`` edge workers share one device, the worker being a
 leading tensor dimension.  A seeded Zipf CTR stream (``--seed`` + 1)
 feeds, with ``--esd-alpha``, three stages per step
 (:func:`repro_torch.launch.steps.make_dlrm_esd_stages`, driven by
@@ -29,6 +30,16 @@ each stage, each read after a device synchronise, over the steps after
 the first (which builds the kernels and warms the allocator).  Model
 weights are random, drawn from ``--seed``.
 
+LM mode (any ``--arch`` that is not a DLRM config; ``--smoke`` takes
+the reduced variant): ``--batch-per-worker`` sequences of ``--seq-len``
+tokens on the one device, drawn from a seeded Zipf token stream
+(``--seed``, inputs ``[:, :-1]``, labels ``[:, 1:]``), trained by Adam
+through :func:`repro_torch.launch.steps.make_train_step`.  At
+``--seq-len`` 2048 and above (a multiple of 512) every layer's attention
+runs through the flash kernel B8.  Only the dense families run; the
+rest raise (ROADMAP A14).  Every step logs the loss and its wall time
+after a synchronise.
+
 Flags of the reference that this port does not carry yet raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 
@@ -42,6 +53,10 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch wdl-tiny \\
       --workers 4 --batch-per-worker 8 --steps 3 --esd-alpha 1 \\
       --exchange ragged --codec int8 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
+      --seq-len 2048 --batch-per-worker 4 --steps 5
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
+      --smoke --seq-len 2048 --batch-per-worker 1 --steps 3 --device cpu
 """
 from __future__ import annotations
 
@@ -52,11 +67,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..configs import DLRM_CONFIGS
+from ..configs import DLRM_CONFIGS, get_config
 from ..core.cost import transmission_time_codec
 from ..core.dispatch import esd_sparse_init
 from ..core.simulator import DEFAULT_BANDWIDTHS
-from ..data.synthetic import WORKLOADS
+from ..data.loader import PrefetchLoader
+from ..data.synthetic import WORKLOADS, token_stream
+from ..models import api
 from ..models.dlrm import bce_loss, bce_loss_masked, init_params
 from ..obs import MetricsRegistry, log_step
 from ..optim import get_optimizer
@@ -65,8 +82,9 @@ from ..quant.codecs import (codec_name, get_codec, quantize_with_feedback,
                             resolve_link_codecs, row_wire_bytes, ste)
 from ..device import resolve_device
 from .steps import make_dlrm_esd_stages, raise_on_overflow
+from .steps import make_train_step as make_lm_train_step
 
-__all__ = ["build_parser", "make_train_step", "run_dlrm", "main"]
+__all__ = ["build_parser", "make_train_step", "run_dlrm", "run_lm", "main"]
 
 
 def _unported(args) -> None:
@@ -93,6 +111,10 @@ def _unported(args) -> None:
         (args.smoke, "--smoke", "A14"),
         (args.seq_len != 64, "--seq-len", "A14"),
     ]
+    _raise_unported(todo)
+
+
+def _raise_unported(todo) -> None:
     for hit, flag, item in todo:
         if hit:
             raise NotImplementedError(
@@ -346,12 +368,54 @@ def build_parser():
     return ap
 
 
+def run_lm(args, model=None) -> dict:
+    """Next-token training of a dense LM for ``args.steps`` steps; returns
+    the summary: the per-step records (``metrics``: loss, wall_s), the
+    mean ms per step and tokens per second over the steps after the
+    first (which builds the kernel and warms the allocator).  ``model``
+    replaces the seeded random weights (tests pass the JAX package's)."""
+    device = resolve_device(args.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _raise_unported([(args.ckpt_dir is not None, "--ckpt-dir", "A10"),
+                     (args.resume, "--resume", "A10"),
+                     (args.trace_out is not None, "--trace-out", "A15"),
+                     (args.validate_timing, "--validate-timing", "A15")])
+    cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"--arch {args.arch}: the {cfg.family} family is not ported to "
+            f"repro_torch yet (ROADMAP A14)")
+    if model is None:
+        model = api.init_model(cfg, generator=torch.Generator(
+            device=device).manual_seed(args.seed), device=device)
+    step = make_lm_train_step(cfg, model, get_optimizer("adam", args.lr))
+    B, S = args.batch_per_worker, args.seq_len
+    stream = PrefetchLoader(token_stream(args.seed, cfg.vocab, B, S + 1),
+                            depth=2)
+    reg = MetricsRegistry()
+    for i in range(args.steps):
+        tok = next(stream)
+        t0 = time.perf_counter()
+        tok = torch.as_tensor(tok, device=device)
+        loss = float(step({"tokens": tok[:, :-1], "labels": tok[:, 1:]}))
+        rec = reg.record_step(i, {"loss": loss,
+                                  "wall_s": time.perf_counter() - t0})
+        if args.verbose and (i % args.log_every == 0 or i == args.steps - 1):
+            log_step(rec)
+    walls = [r["wall_s"] for r in reg.steps]
+    walls = walls[1:] or walls
+    step_ms = float(np.mean(walls)) * 1e3 if walls else None
+    return {"metrics": reg.steps, "device": str(device), "arch": cfg.name,
+            "batch": B, "seq_len": S, "steps": len(reg.steps),
+            "step_ms_mean": step_ms,
+            "tokens_per_s": B * S / (step_ms * 1e-3) if step_ms else None}
+
+
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     if args.arch not in DLRM_CONFIGS:
-        raise NotImplementedError(
-            f"--arch {args.arch}: LM training is not ported to repro_torch "
-            f"yet (ROADMAP A14)")
+        return run_lm(args)
     return run_dlrm(args)
 
 

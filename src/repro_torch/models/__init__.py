@@ -1,1 +1,1 @@
-"""The paper's DLRM models (WDL/DFM/DCN)."""
+"""The paper's DLRM models (WDL/DFM/DCN) and the dense LM backbone."""

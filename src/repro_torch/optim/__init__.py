@@ -1,4 +1,4 @@
 """Functional optimizers (:mod:`.optimizers`)."""
-from .optimizers import Optimizer, get_optimizer, rowwise_adagrad, sgd
+from .optimizers import Optimizer, adam, get_optimizer, rowwise_adagrad, sgd
 
-__all__ = ["Optimizer", "get_optimizer", "rowwise_adagrad", "sgd"]
+__all__ = ["Optimizer", "adam", "get_optimizer", "rowwise_adagrad", "sgd"]

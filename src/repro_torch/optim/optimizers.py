@@ -1,4 +1,4 @@
-"""Functional optimizers: SGD and row-wise Adagrad (the DLRM standard).
+"""Functional optimizers: SGD, Adam, row-wise Adagrad (the DLRM standard).
 
 The counterpart of the JAX package's ``optim/optimizers.py``: (init,
 update) pairs over a list of parameter tensors.  Row-wise Adagrad keeps
@@ -7,7 +7,8 @@ ONE accumulator per row of every parameter with two or more dimensions
 ``(V, E)`` rows and the MLP weights' ``din`` rows in the ``(din, dout)``
 layout) and one per element of a one-dimensional parameter.  ``update``
 returns new tensors and leaves its inputs alone; the training driver
-copies them into the model's parameters.  Adam comes with the LM side.
+copies them into the model's parameters.  Adam drives the LM, with
+f32 moments and f32 bias corrections, as the reference's.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from typing import Callable
 
 import torch
 
-__all__ = ["Optimizer", "sgd", "rowwise_adagrad", "get_optimizer"]
+__all__ = ["Optimizer", "sgd", "adam", "rowwise_adagrad", "get_optimizer"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +34,38 @@ def sgd(lr: float = 1e-2) -> Optimizer:
         new = [(p.float() - lr * g.float()).to(p.dtype)
                for p, g in zip(params, grads)]
         return new, state
+
+    return Optimizer(init, update)
+
+
+def adam(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
+         eps: float = 1e-8) -> Optimizer:
+    """Adam: ``mu`` and ``nu`` f32, the step count ``t`` int32, the bias
+    corrections ``1 - b**t`` computed in f32; a parameter updates in f32
+    and is cast back to its dtype."""
+
+    def init(params):
+        return {"mu": [torch.zeros(p.shape, dtype=torch.float32,
+                                   device=p.device) for p in params],
+                "nu": [torch.zeros(p.shape, dtype=torch.float32,
+                                   device=p.device) for p in params],
+                "t": torch.zeros((), dtype=torch.int32,
+                                 device=params[0].device if params else None)}
+
+    def update(grads, state, params):
+        t = state["t"] + 1
+        mu = [b1 * m + (1 - b1) * g.float()
+              for m, g in zip(state["mu"], grads)]
+        nu = [b2 * v + (1 - b2) * torch.square(g.float())
+              for v, g in zip(state["nu"], grads)]
+        tf = t.float()
+        c1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32,
+                                        device=tf.device), tf)
+        c2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
+                                        device=tf.device), tf)
+        new = [(p.float() - lr * ((m / c1) / (torch.sqrt(v / c2) + eps)))
+               .to(p.dtype) for p, m, v in zip(params, mu, nu)]
+        return new, {"mu": mu, "nu": nu, "t": t}
 
     return Optimizer(init, update)
 
@@ -63,7 +96,5 @@ def rowwise_adagrad(lr: float = 1e-2, eps: float = 1e-10) -> Optimizer:
 
 
 def get_optimizer(name: str, lr: float) -> Optimizer:
-    if name == "adam":
-        raise NotImplementedError("adam comes with the LM side of the port "
-                                  "(ROADMAP A14)")
-    return {"sgd": sgd, "rowwise_adagrad": rowwise_adagrad}[name](lr)
+    return {"sgd": sgd, "adam": adam,
+            "rowwise_adagrad": rowwise_adagrad}[name](lr)

@@ -13,6 +13,11 @@ compute in their plain versions' forms and must match them bit for bit.
 auction_bids takes one subtraction per value, exact max/argmax and two
 rounded additions: best_j and bid bit for bit, and the auction solved
 with it on the card equals the auction solved on the CPU, rounds too.
+flash_attention sums in f32 in another order and with exp2f: outputs
+within 2e-5 in f32 and within 1e-2 in bf16 (the outputs' own rounding,
+2**-7 relative at |out| ~ 1), lse within 2e-5; the gradients through
+its autograd Function within 1e-4 of autograd through plain softmax
+attention.
 """
 import numpy as np
 import pytest
@@ -22,6 +27,7 @@ from repro_torch.core import auction as ta
 from repro_torch.kernels import auction as tb
 from repro_torch.kernels import emb_lookup as tk
 from repro_torch.kernels import exchange_pack as tp
+from repro_torch.kernels import flash_attn as tf
 from repro_torch.quant.codecs import quantize_rows
 
 pytestmark = pytest.mark.cuda
@@ -208,3 +214,74 @@ def test_auction_on_card_equals_cpu(cuda, exact):
     np.testing.assert_array_equal(got, want)
     assert rounds == want_rounds
     assert tb.LAUNCHES["auction_bids"] == n0 + rounds
+
+
+@pytest.mark.parametrize("B,Sq,Sk,KV,G,hd,causal,dtype", [
+    (2, 512, 512, 5, 3, 64, True, torch.bfloat16),
+    (2, 512, 512, 5, 3, 64, True, torch.float32),
+    (1, 300, 300, 2, 2, 64, True, torch.float32),     # ragged tiles
+    (1, 128, 384, 1, 4, 32, False, torch.float32),
+    (2, 256, 256, 2, 4, 128, True, torch.bfloat16),
+    (1, 100, 40, 3, 1, 128, True, torch.float32),     # Sq > Sk
+])
+def test_flash_attention_matches_plain(cuda, B, Sq, Sk, KV, G, hd, causal,
+                                       dtype):
+    g = torch.Generator(device=cuda).manual_seed(Sq + hd)
+    q = torch.randn((B, Sq, KV, G, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, Sk, KV, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, Sk, KV, hd), generator=g, device=cuda).to(dtype)
+    n0 = tf.LAUNCHES["flash_attention"]
+    out, lse = tf.flash_attention(q, k, v, causal)
+    want, want_lse = tf.flash_attention_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert tf.LAUNCHES["flash_attention"] == n0 + 1
+    assert out.dtype == dtype and out.is_contiguous()
+    tol = 1e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=2e-5)
+
+
+def test_flash_attention_reads_strided_inputs(cuda):
+    """q, k and v as views of one fused (B, S, KV, G + 2, hd) projection:
+    the kernel reads them through their strides."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn((2, 256, 2, 5, 64), generator=g, device=cuda)
+    q, k, v = qkv[:, :, :, :3], qkv[:, :, :, 3], qkv[:, :, :, 4]
+    assert not (q.is_contiguous() or k.is_contiguous())
+    out, lse = tf.flash_attention(q, k, v, True)
+    want, want_lse = tf.flash_attention_ref(q.contiguous(), k.contiguous(),
+                                            v.contiguous(), True)
+    torch.testing.assert_close(out, want, rtol=0, atol=2e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=2e-5)
+
+
+def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros((1, 8, 1, 1, 48), device=cuda)
+    k = torch.zeros((1, 8, 1, 48), device=cuda)
+    with pytest.raises(ValueError, match="hd in"):
+        tf.flash_attention(q, k, k)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        tf.flash_attention(q[..., :32].half(), k[..., :32].half(),
+                           k[..., :32].half())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attn_gradients_on_card(cuda, causal):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    shapes = ((2, 640, 5, 3, 64), (2, 640, 5, 64), (2, 640, 5, 64))
+    leaves = [torch.randn(s, generator=g, device=cuda) for s in shapes]
+    w = torch.randn(shapes[0], generator=g, device=cuda)
+    grads = []
+    for plain in (False, True):
+        q, k, v = (t.clone().requires_grad_() for t in leaves)
+        if plain:
+            s = torch.einsum("bskgh,btkh->bkgst", q, k) / 8.0
+            if causal:
+                s = s.masked_fill(~torch.ones(640, 640, dtype=torch.bool,
+                                              device=cuda).tril(), -1e30)
+            out = torch.einsum("bkgst,btkh->bskgh", torch.softmax(s, -1), v)
+        else:
+            out = tf.flash_attn(q, k, v, causal)
+        grads.append(torch.autograd.grad((out * w).sum(), (q, k, v)))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)

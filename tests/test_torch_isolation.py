@@ -49,7 +49,10 @@ def test_port_imports_no_jax_and_no_reference():
     for name in ("kernels.auction", "core.auction", "core.simulator",
                  "core.cache", "core.baselines", "ps.partition",
                  "exchange.plan", "obs.trace", "pipeline.window",
-                 "serve.sim", "device"):
+                 "serve.sim", "device", "kernels.flash_attn",
+                 "models.layers", "models.backbone", "models.api",
+                 "optim.optimizers", "data.loader", "configs.base",
+                 "configs.smollm_360m"):
         assert f"repro_torch.{name}" in out["modules"]
     assert out["device"] == "cuda"
     assert out["train_device"] == "cuda"
