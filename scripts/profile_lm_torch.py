@@ -14,8 +14,9 @@ in which the device ran any of its kernels (the union of kernel
 intervals inside the phase's host span: each phase ends with a
 synchronise, and autograd launches the backward's kernels from a thread
 of its own, outside the range's device-side span); the same share over
-the whole profiled window; the device time of the flash kernel B8 and
-of the matrix products; and the kernels that took most device time.  Writes the table
+the whole profiled window; the device time a step of the flash kernel
+B8's forward, of its backward kernel beside it, and of the matrix
+products (cuBLAS's ``nvjet`` kernels among them); and the kernels that took most device time.  Writes the table
 to ``--out`` when given.  Needs a CUDA device; exits non-zero without
 one.
 """
@@ -139,10 +140,14 @@ def main(argv=None) -> int:
         k[1] += e.time_range.elapsed_us()
     total_us = max(sum(us for _, us in by_kernel.values()), 1e-9)
     for label, pick in (
-            ("flash kernel B8", lambda n: "flash_attention_kernel" in n),
-            ("matrix products", lambda n: any(
+            ("flash kernel B8 (forward)",
+             lambda n: "flash_attention_wgmma_kernel" in n
+             or "flash_attention_kernel" in n),
+            ("B8's backward kernel (D, dK/dV, dQ)",
+             lambda n: "flash_bwd_" in n),
+            ("matrix products", lambda n: "flash" not in n and any(
                 w in n.lower() for w in ("gemm", "cutlass", "xmma",
-                                         "sm90")))):
+                                         "sm90", "nvjet")))):
         us = sum(v[1] for n, v in by_kernel.items() if pick(n))
         cnt = sum(v[0] for n, v in by_kernel.items() if pick(n))
         lines.append(f"[profile] {label}: {us / 1e3 / n_prof:.3f} ms/step "

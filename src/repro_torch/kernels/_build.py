@@ -16,7 +16,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "load_library", "load_libraries", "build_log"]
+__all__ = ["BUILD_DIR", "load_library", "load_libraries", "build_log",
+           "library_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -48,11 +49,20 @@ SIGNATURES = {
         "auction_bids_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     },
     "flash_attn": {
-        "flash_attention_launch": [_P] * 5 + [_I] * 8 + [_L] * 13 + [_P],
+        "flash_attention_launch": [_P] * 5 + [_I] * 7 + [_L] * 13 + [_P],
+    },
+    "flash_attn_sm90": {
+        "flash_attention_sm90_launch": [_P] * 5 + [_I] * 7 + [_L] * 10
+                                       + [_P],
+    },
+    "flash_attn_bwd": {
+        "flash_attention_bwd_launch": [_P] * 10 + [_I] * 8 + [_L] * 14
+                                      + [_P],
     },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_paths: dict[str, Path] = {}
 _logs: dict[str, str] = {}
 
 
@@ -106,6 +116,7 @@ def load_libraries(*names: str) -> list[ctypes.CDLL]:
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         _loaded[name] = lib
+        _paths[name] = out
     return [_loaded[name] for name in names]
 
 
@@ -114,3 +125,9 @@ def build_log(name: str) -> str:
     (registers, shared memory and spills per kernel); empty when the
     library was already built."""
     return _logs.get(name, "")
+
+
+def library_path(name: str) -> Path:
+    """The shared library that :func:`load_libraries` loaded for
+    ``name`` in this process (for ``cuobjdump``)."""
+    return _paths[name]

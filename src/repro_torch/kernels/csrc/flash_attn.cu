@@ -8,7 +8,7 @@
 //     lse  = log sum_t exp(q . k_t / sqrt(hd))   (f32, kept for the backward)
 // by the online softmax: a running max m, a running sum l and an f32
 // accumulator, rescaled by exp(m_old - m_new) as keys stream past.  out is
-// written in the inputs' type (bf16 or f32), contiguous (B, Sq, KV, G, hd);
+// written in f32, contiguous (B, Sq, KV, G, hd);
 // lse contiguous (B, KV, G, Sq).  Inputs are read through their strides,
 // so the model's (B, S, KV, G, hd) projections need no transpose copy.
 //
@@ -16,9 +16,9 @@
 // 15 heads over 5 KV heads, hd = 64, causal) the forward needs 4 hd
 // operations per (query row, visible key) pair, 32.2 GFLOP, 33 us at the
 // tensor cores' 989 TFLOP/s in bf16; it moves 42 MB, 13 us at 3.35 TB/s.
-// So operations bound it.  This first version runs on the CUDA cores
-// (67 TFLOP/s in f32, 0.48 ms for the same work), simple and right first;
-// wgmma tiles fed by TMA are the redesign (ROADMAP).
+// So operations bound it.  This kernel runs on the CUDA cores (67 TFLOP/s
+// in f32, 0.48 ms for the same work) and takes f32 inputs; bf16 inputs go
+// to the tensor-core kernel of flash_attn_sm90.cu (wgmma fed by TMA).
 //
 // Design: a block takes 64 consecutive rows of the flattened (s, g) axis
 // of one (b, kv) pair, so all G query heads of a position share each K/V
@@ -37,7 +37,6 @@
 //
 // The launcher runs on the caller's stream, allocates nothing and returns
 // cudaGetLastError() so that a refused launch surfaces in the wrapper.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -51,18 +50,11 @@ constexpr unsigned kFullMask = 0xffffffffu;
 constexpr float kLn2 = 0.69314718055994530942f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
 }
 
 struct Args {
@@ -228,18 +220,17 @@ int dispatch_hd(const Args& a, int hd, cudaStream_t stream) {
 
 }  // namespace
 
-// q, k, v: device pointers of one type (bf16 if is_bf16, else f32); out
+// q, k, v: f32 device pointers; out
 // contiguous (B, Sq, KV, G, hd) of that type; lse contiguous f32
 // (B, KV, G, Sq).  Strides in elements.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, float* lse,
-    int B, int Sq, int Sk, int KV, int G, int hd, int is_bf16, int causal,
+    int B, int Sq, int Sk, int KV, int G, int hd, int causal,
     long long qb, long long qs, long long qk, long long qg, long long qd,
     long long kb, long long ks, long long kk, long long kd, long long vb,
     long long vs, long long vk, long long vd, cudaStream_t stream) {
   Args a{q, k, v, out, lse, B, Sq, Sk, KV, G, causal,
          static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(hd))),
          qb, qs, qk, qg, qd, kb, ks, kk, kd, vb, vs, vk, vd};
-  return is_bf16 ? dispatch_hd<__nv_bfloat16>(a, hd, stream)
-                 : dispatch_hd<float>(a, hd, stream);
+  return dispatch_hd<float>(a, hd, stream);
 }

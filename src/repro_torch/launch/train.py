@@ -368,12 +368,14 @@ def build_parser():
     return ap
 
 
-def run_lm(args, model=None) -> dict:
+def run_lm(args, model=None, cfg=None) -> dict:
     """Next-token training of a dense LM for ``args.steps`` steps; returns
     the summary: the per-step records (``metrics``: loss, wall_s), the
     mean ms per step and tokens per second over the steps after the
     first (which builds the kernel and warms the allocator).  ``model``
-    replaces the seeded random weights (tests pass the JAX package's)."""
+    replaces the seeded random weights (tests pass the JAX package's),
+    ``cfg`` the config of ``--arch`` (a variant of it, such as another
+    dtype)."""
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -381,7 +383,8 @@ def run_lm(args, model=None) -> dict:
                      (args.resume, "--resume", "A10"),
                      (args.trace_out is not None, "--trace-out", "A15"),
                      (args.validate_timing, "--validate-timing", "A15")])
-    cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg is None:
+        cfg = get_config(args.arch, smoke=args.smoke)
     if cfg.family != "dense":
         raise NotImplementedError(
             f"--arch {args.arch}: the {cfg.family} family is not ported to "
