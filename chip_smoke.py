@@ -29,7 +29,12 @@ Phases, each printing its own lines:
    over the int8-quantized wdl-s1 table (256 x 74, E = 512 and E = 4).
    The auction's bids at Table 2's and the simulator's shapes (k = 256
    and 8,192 rows of 8 workers, 1,024 of 16, 64 of 1; a random
-   unassigned mask), bit for bit.  The flash attention at the LM path's
+   unassigned mask), bit for bit; and the fused whole-solve auction
+   kernel at the training step's decide (4 auctions of 256 x 4), the
+   simulator's S1 decisions (an exact grid, and a price war cut at 6,000
+   rounds) and Table 2's largest, bit for bit in assignment, slot prices
+   and owners and rounds, with its ms a solve and us a round.  The flash
+   attention at the LM path's
    shape (smollm-360m: B = 4, S = 2,048, 5 KV heads x 3, hd = 64,
    causal) and around it (non-causal, hd 128, hd 32): bf16 on the
    ``wgmma`` kernel (max abs err 1e-2, or up to 2e-2 where it is within
@@ -54,16 +59,19 @@ Phases, each printing its own lines:
 5. serve — ``run_serve`` at wdl-s1 (4 workers, 2,000 QPS for 1 s), then
    for 0.5 s with ``--codec int8``;
 6. train — ``run_dlrm`` at wdl-s1 (4 workers x 256 samples, ESD alpha 1,
-   ragged exchange, 10 steps), then again with ``--codec int8``;
+   ragged exchange, 10 steps), then again with ``--codec int8``: one
+   launch of the fused auction kernel a step, its rounds per step equal
+   to the CPU's;
 7. table 2 — ``auction_dispatch(exact=False)`` on the draws of
    ``benchmarks/table2.py`` (8 workers, 32 to 1,024 samples a worker):
-   rounds, ms per decision and bid-kernel launches, beside the paper's
-   CUDA-Hungarian ms; assignments and rounds equal to the CPU's;
+   rounds, ms per decision and one auction_solve launch each, beside the
+   paper's CUDA-Hungarian ms; assignments and rounds equal to the CPU's;
 8. simulate — ``simulate`` at S1 (8 workers, 4 x 5 and 4 x 0.5 Gbps,
    r = 0.08, E = 512, 32 samples a worker, 8 iterations, 2 of warm-up;
    the paper's 60 iterations and 128 a worker cut): ESD alpha 1 with the
-   auction and with SSP, LAIA, HET, FAE and random; then the serving
-   simulator with the auction;
+   auction (calibrated decisions: rounds, cost, ItpS and hit ratio equal
+   to the CPU's) and with SSP, LAIA, HET, FAE and random; then the
+   serving simulator with the auction;
 9. lm-train — ``run_lm`` at smollm-360m's full width and depth (32
    layers, d = 960, vocab 49,152, bf16), B = 4, S = 2,048, 5 steps of
    Adam: ms per step (mean of steps 1-4, each ended by a synchronise),
@@ -107,6 +115,7 @@ SOURCES = {"pooled_lookup": CSRC + "emb_lookup.cu",
            "gather_rows_quant": CSRC + "exchange_pack.cu",
            "pooled_lookup_quant": CSRC + "emb_lookup.cu",
            "auction_bids": CSRC + "auction.cu",
+           "auction_solve": CSRC + "auction.cu",
            "flash_attention": CSRC + "flash_attn_sm90.cu",
            "flash_attention_bwd": CSRC + "flash_attn_bwd.cu"}
 REPLACES = {"pooled_lookup": "src/repro/kernels/emb_lookup.py:88",
@@ -116,6 +125,12 @@ REPLACES = {"pooled_lookup": "src/repro/kernels/emb_lookup.py:88",
             "gather_rows_quant": "src/repro/kernels/exchange_pack.py:108",
             "pooled_lookup_quant": "src/repro/kernels/emb_lookup.py:337",
             "auction_bids": "src/repro/kernels/auction.py:51",
+            "auction_solve": "src/repro/kernels/auction.py:51 with the "
+                             "loops around it: src/repro/core/auction.py:34 "
+                             "(_round_body), :95 (_auction_phase); "
+                             "src/repro/kernels/ops.py:70 (_resolve), :100 "
+                             "(_phase); src/repro/core/dispatch_tpu.py:158 "
+                             "(auction_fixed)",
             "flash_attention": "src/repro/kernels/flash_attn.py:66",
             "flash_attention_bwd": "the gradient of src/repro/kernels/"
                                    "flash_attn.py:66 (JAX differentiates "
@@ -125,6 +140,18 @@ LM_ARGV = ["--arch", "smollm-360m", "--seq-len", "2048",
 TRAIN_ARGV = ["--arch", "wdl-s1", "--workers", "4", "--batch-per-worker",
               "256", "--steps", "10", "--esd-alpha", "1", "--exchange",
               "ragged", "--capacity-ratio", "0.2", "--device", "cuda"]
+# the training auction's rounds per step and worker at TRAIN_ARGV, seed 0,
+# from the plain version on the CPU (scripts/train_auction_rounds.py
+# --device cpu, and --codec int8): step 0 meets a cold cache
+TRAIN_ROUNDS = {
+    None: [[10390, 10256, 10547, 10663], [2016, 2752, 446, 58],
+           [43, 1013, 50, 89], [73, 61, 32, 66], [53, 48, 49, 106],
+           [45, 41, 34, 47], [40, 32, 40, 34], [35, 50, 48, 63],
+           [63, 62, 64, 52], [53, 234, 31, 44]],
+    "int8": [[9951, 10267, 10571, 10633], [48, 50, 2022, 587],
+             [45, 79, 737, 44], [101, 41, 57, 99], [45, 36, 46, 56],
+             [49, 45, 63, 41], [48, 38, 47, 34], [50, 38, 53, 38],
+             [27, 2216, 38, 43], [68, 40, 25, 49]]}
 
 
 def check(cond: bool, what: str):
@@ -670,6 +697,7 @@ def phase_serve(seed: int, codec=None, duration: float = 1.0) -> dict:
 
 
 def phase_train(seed: int, codec=None) -> dict:
+    from repro_torch.kernels import auction as A
     from repro_torch.launch.train import build_parser, run_dlrm
 
     argv = TRAIN_ARGV + ["--seed", str(seed)]
@@ -677,9 +705,13 @@ def phase_train(seed: int, codec=None) -> dict:
         argv += ["--codec", codec]
     args = build_parser().parse_args(argv)
     torch.cuda.reset_peak_memory_stats()
+    A.ROUNDS_LOG = []
     _zero_launches()
-    out = run_dlrm(args)    # raises if a step's exchange overflowed
-    launches = {k: v for k, v in _read_launches().items() if v}
+    try:
+        out = run_dlrm(args)    # raises if a step's exchange overflowed
+    finally:
+        launches = {k: v for k, v in _read_launches().items() if v}
+        solves, A.ROUNDS_LOG = A.ROUNDS_LOG, None
     recs = out["metrics"]
     per_step = {k: round(v / len(recs), 3) for k, v in launches.items()}
     losses = [r["loss"] for r in recs]
@@ -697,8 +729,17 @@ def phase_train(seed: int, codec=None) -> dict:
     print("[train] step ms (decide, advance, train) per step: " + str([
         tuple(round(x * 1e3, 2) for x in t) for t in zip(
             *(out["stage_s"][s] for s in ("decide", "advance", "train")))]))
+    rounds = [r.sum(dim=1).tolist() for r in solves]
+    print(f"[train] auction rounds per step, per worker: {rounds}")
     check(per_step.get("pooled_lookup") == 4.0,
           "pooled_lookup launched once per worker and step (decide)")
+    check(per_step.get("auction_solve") == 1.0 and len(solves) == len(recs)
+          and "auction_bids" not in launches,
+          "the training auction ran as one auction_solve launch a step, "
+          "never on the bid kernel")
+    check(args.seed != 0 or rounds == TRAIN_ROUNDS[codec][:len(rounds)],
+          "the training auction's rounds equal the CPU's "
+          "(scripts/train_auction_rounds.py --device cpu)")
     if codec is None:
         check(per_step.get("gather_rows") == 12.0,
               "gather_rows packs ids, dense features and labels per worker")
@@ -750,7 +791,92 @@ def phase_auction_kernels(seed: int) -> dict:
             rec["auction_bids"] = dict(max_abs_err=err, ms=ms,
                                        plain_ms=plain_ms, bound_ms=b_ms,
                                        bound_by=b_by)
+    rec["auction_solve"] = phase_solve_kernel(seed)
     return rec
+
+
+def phase_solve_kernel(seed: int) -> dict:
+    """B7's fused whole-solve kernel against its plain version on the
+    card, bit for bit in assignment, slot prices, slot owners and rounds,
+    at the training step's decide (4 auctions of 256 x 4, capacity 64,
+    ``auction_fixed``'s nine phases), the S1 simulator's decisions (256 x
+    8, capacity 32, exact grid, ``_solve``'s phases; and a price war of
+    tied columns, its phases cut at 3,000 rounds) and Table 2's largest
+    (8,192 x 8, capacity 1,024).  Its time a solve and a round (over the
+    longest of the batch's auctions), and a bound from the bytes the
+    rounds' bid passes read (each bidder's cost row, in every round it
+    bids) plus the eps table and the outputs."""
+    from repro_torch.core.auction import phase_eps
+    from repro_torch.core.dispatch import _eps
+    from repro_torch.kernels import auction as A
+
+    def span(C):
+        return float(np.float32(C.max()) - np.float32(C.min()))
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 19)
+    grid = np.round(rng.random((4, 256, 4)) * 4e3).astype(np.float32)
+    decide = grid / np.float32(4e3) * np.float32(1e-3)
+    s1 = np.round(rng.random((1, 256, 8)) * 10_000).astype(np.float32)
+    war = np.round(rng.random((1, 256, 8)) * 10_000).astype(np.float32)
+    war[:, :, 4:] = war[:, :, :4]                 # tied columns
+    t2 = rng.random((1, 8192, 8)).astype(np.float32)
+    spans = (decide.max(axis=(1, 2)) - decide.min(axis=(1, 2))).clip(1e-6)
+    fixed_eps = torch.stack([_eps(torch.as_tensor(spans), min(p, 6))
+                             for p in range(9)], dim=1)
+    cases = (("decide", decide, 64, fixed_eps, 2000),
+             ("s1", s1, 32, [phase_eps(span(s1), 1 / 257)], 200_000),
+             ("s1-war", war, 32, [[1 / 257] * 2], 3000),
+             ("table2", t2, 1024, [phase_eps(span(t2), span(t2) * 1e-3)],
+              200_000))
+    out = {}
+    for what, C, cap, eps, max_rounds in cases:
+        cost = torch.as_tensor(C, device=dev)
+        eps = torch.as_tensor(np.asarray(eps, np.float32), device=dev)
+        got = A.auction_solve(cost, cap, eps, max_rounds)
+        # the plain version on the same card tensors, counting each
+        # round's bidders
+        bidders = [0]
+        body = A._round_body
+
+        def counted(c, e, state):
+            bidders[0] += int((state[0] < 0).sum())
+            return body(c, e, state)
+
+        A._round_body = counted
+        try:
+            t = time.perf_counter()
+            want = A.auction_solve_ref(cost, cap, eps, max_rounds)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t) * 1e3
+        finally:
+            A._round_body = body
+        same = [torch.equal(a.view(torch.int32), b.view(torch.int32))
+                for a, b in zip(got, want)]
+        check(all(same), f"auction_solve {what}: assignment, slot prices, "
+                         f"slot owners and rounds bitwise equal to plain "
+                         f"({same})")
+        B, k, n = C.shape
+        rounds = got[3].sum(dim=1)
+        longest = int(rounds.max())
+        ms, call_ms = device_ms(
+            lambda: A.auction_solve(cost, cap, eps, max_rounds),
+            reps=10 if what in ("s1-war", "table2") else 30)
+        n_bytes = (bidders[0] * n * 4 + eps.numel() * 4
+                   + B * (k * 4 + 2 * n * cap * 4) + got[3].numel() * 4)
+        b_ms, b_by = bound(n_bytes, 4 * bidders[0] * n)
+        smem = A.solve_smem_bytes(k, n, cap, True)
+        print(f"[kernel] auction_solve {what} B={B} k={k} n={n} c={cap} "
+              f"(cost in {'shared memory' if smem <= A.SMEM_MAX else 'L2'}):"
+              f" bitwise, rounds {rounds.tolist()} ({bidders[0]} bids), "
+              f"{ms:.4f} ms a solve (call {call_ms:.4f}), "
+              f"{ms / max(longest, 1) * 1e3:.3f} us a round; plain "
+              f"{plain_ms:.1f} ms (one run, host clock), library none, bound"
+              f" {b_ms:.6f} ms ({b_by})")
+        if what == "decide":
+            out = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by)
+    return out
 
 
 def phase_sim_parity(seed: int):
@@ -766,19 +892,30 @@ def phase_sim_parity(seed: int):
     base = dict(workload=WORKLOADS["tiny"], n_workers=4, batch_per_worker=8,
                 iters=4, warmup=1, alpha=1.0, opt="auction", seed=seed,
                 bandwidths=np.array([5.0, 2.0, 1.0, 0.5]) * GBPS)
-    n0 = A.LAUNCHES["auction_bids"]
-    card = simulate(SimConfig(device="cuda", **base))
-    rounds = A.LAUNCHES["auction_bids"] - n0
-    cpu = simulate(SimConfig(device="cpu", **base))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        A.ROUNDS_LOG = []
+        n0 = A.LAUNCHES["auction_solve"]
+        try:
+            res = simulate(SimConfig(device=dev, **base))
+        finally:
+            log, A.ROUNDS_LOG = A.ROUNDS_LOG, None
+        runs[dev] = (res, [int(r.sum()) for r in log],
+                     A.LAUNCHES["auction_solve"] - n0)
+    (card, card_rounds, launched), (cpu, cpu_rounds, _) = (runs["cuda"],
+                                                           runs["cpu"])
     for f in ("per_iter_cost", "alg1_cost", "ingredient", "hit_ratio",
               "cost"):
         a, b = getattr(card, f), getattr(cpu, f)
         same = (np.array_equal(a, b) if isinstance(a, np.ndarray) else a == b)
         check(same, f"simulate(opt='auction') {f} equal on card and CPU")
-    check(rounds > 0, "the card's simulate launched the bid kernel")
+    check(card_rounds == cpu_rounds and launched == len(card_rounds) > 0,
+          "the card's simulate solved each decision in one auction_solve "
+          "launch, in the CPU's rounds")
     print(f"[parity] simulate tiny, 4 workers x 8, opt auction, 4 "
           f"iterations, card vs CPU: per_iter_cost, alg1_cost, ingredient, "
-          f"hit_ratio equal; cost {card.cost!r}; {rounds} rounds on the card")
+          f"hit_ratio equal; cost {card.cost!r}; rounds a decision "
+          f"{card_rounds} on both; {launched} auction_solve launches")
     knobs = ServeKnobs(qps=2000.0, duration_s=0.5)
     scfg = dict(workload=WORKLOADS["S1"], n_workers=8, opt="auction",
                 seed=seed, serve=knobs)
@@ -794,6 +931,12 @@ def phase_sim_parity(seed: int):
           f"auction, card vs CPU: all fields equal; p99 "
           f"{card.p99_s * 1e3:.4f} ms, {card.n_batches} batches")
 
+
+# simulate() at S1 with ESD and the auction (phase 8's configuration,
+# calibrated decisions, seed 0) on the CPU: scripts/auction_rounds.py
+# --device cpu
+S1_AUCTION_CPU = dict(rounds=1_045_650, cost=0.8131805183999999,
+                      itps=23.408870950827136, hit_ratio=0.268820068282525)
 
 # the paper's Table 2: CUDA-parallel Hungarian ms by samples per worker
 PAPER_TABLE2_MS = {32: 21, 64: 28, 128: 82, 256: 186, 512: 811, 1024: 1385}
@@ -811,14 +954,14 @@ def phase_table2() -> dict:
                                   return_rounds=True)
             for bpw, c in costs.items()}
     _zero_launches()
-    total_rounds = 0
+    solves = 0
     for bpw, cost in costs.items():
-        before = _read_launches()["auction_bids"]
+        before = _read_launches()["auction_solve"]
         assign, rounds = auction_dispatch(cost, bpw, exact=False,
                                           device="cuda", return_rounds=True)
-        launched = _read_launches()["auction_bids"] - before
-        check(launched == rounds, f"table 2 bpw {bpw}: bid-kernel launches "
-                                  f"({launched}) equal rounds ({rounds})")
+        launched = _read_launches()["auction_solve"] - before
+        check(launched == 1, f"table 2 bpw {bpw}: one auction_solve launch "
+                             f"a decision ({launched})")
         ref, ref_rounds = refs[bpw]
         check(np.array_equal(assign, ref) and rounds == ref_rounds,
               f"table 2 bpw {bpw}: assignment and rounds equal on card and "
@@ -830,22 +973,28 @@ def phase_table2() -> dict:
             t = time.perf_counter()
             auction_dispatch(cost, bpw, exact=False, device="cuda")
             times.append((time.perf_counter() - t) * 1e3)
-        total_rounds += 4 * rounds
+        solves += 4
         print(f"[table2] bpw {bpw} (k = {8 * bpw}, n = 8): {rounds} rounds, "
               f"{statistics.median(times):.3f} ms per decision (median of "
-              f"3 after a warm call; {statistics.median(times) / rounds:.4f} "
-              f"ms a round), {launched} bid-kernel launches; paper's "
-              f"CUDA Hungarian {PAPER_TABLE2_MS[bpw]} ms")
+              f"3 after a warm call, host clock; "
+              f"{statistics.median(times) / rounds * 1e3:.3f} us a round), "
+              f"{launched} auction_solve launch; paper's CUDA Hungarian "
+              f"{PAPER_TABLE2_MS[bpw]} ms")
     launches = {k: v for k, v in _read_launches().items() if v}
-    check(launches.get("auction_bids") == total_rounds,
-          "table 2: bid-kernel launches equal the rounds of its calls")
+    check(launches == {"auction_solve": solves},
+          "table 2: one auction_solve launch a decision, nothing else")
     return launches
 
 
 def phase_simulate(seed: int) -> dict:
-    """The paper's simulator at S1 on the card, each mechanism in turn."""
+    """The paper's simulator at S1 on the card, each mechanism in turn.
+    ESD with the auction runs the calibrated decision model, so that its
+    cost, ItpS and hit ratio do not hold the host's wall time and equal
+    the CPU's (``S1_AUCTION_CPU``) at seed 0; the others measure their
+    decisions."""
     from repro_torch.core.simulator import SimConfig, simulate
     from repro_torch.data.synthetic import WORKLOADS
+    from repro_torch.kernels import auction as A
     from repro_torch.serve import ServeKnobs, simulate_serve
 
     base = dict(workload=WORKLOADS["S1"], n_workers=8, batch_per_worker=32,
@@ -853,51 +1002,73 @@ def phase_simulate(seed: int) -> dict:
                 seed=seed, decision_model="measured", device="cuda")
     launches: dict = {}
     costs = {}
-    for name, kw in (("esd-auction", dict(mechanism="esd", opt="auction")),
+    for name, kw in (("esd-auction", dict(mechanism="esd", opt="auction",
+                                          decision_model="calibrated")),
                      ("esd-ssp", dict(mechanism="esd", opt="ssp")),
                      ("laia", dict(mechanism="laia")),
                      ("het", dict(mechanism="het")),
                      ("fae", dict(mechanism="fae")),
                      ("random", dict(mechanism="random"))):
+        A.ROUNDS_LOG = []
         _zero_launches()
         t = time.perf_counter()
-        res = simulate(SimConfig(**base, **kw))
-        wall = time.perf_counter() - t
-        run = {k: v for k, v in _read_launches().items() if v}
+        try:
+            res = simulate(SimConfig(**{**base, **kw}))
+        finally:
+            wall = time.perf_counter() - t
+            run = {k: v for k, v in _read_launches().items() if v}
+            log, A.ROUNDS_LOG = A.ROUNDS_LOG, None
         for k, v in run.items():
             launches[k] = launches.get(k, 0) + v
-        bids = run.get("auction_bids", 0)
+        rounds = [int(r.sum()) for r in log]
+        solves = run.get("auction_solve", 0)
         check(bool(np.isfinite(res.per_iter_cost).all())
               and len(res.per_iter_cost) == 6 and 0 <= res.hit_ratio <= 1,
               f"simulate {name}: six finite iteration costs, hit ratio in "
               f"[0, 1]")
-        check((bids > 0) == (name == "esd-auction"),
-              f"simulate {name}: the bid kernel runs only for the auction")
+        check(solves == len(rounds) and (solves > 0) == (name == "esd-auction")
+              and "auction_bids" not in run,
+              f"simulate {name}: the auction runs only for ESD with the "
+              f"auction, one auction_solve launch a decision")
+        if name == "esd-auction" and seed == 0:
+            got = dict(rounds=sum(rounds), cost=res.cost, itps=res.itps,
+                       hit_ratio=res.hit_ratio)
+            check(got == S1_AUCTION_CPU, f"simulate esd-auction: rounds, "
+                  f"cost, ItpS and hit ratio equal the CPU's ({got} against"
+                  f" {S1_AUCTION_CPU})")
         costs[name] = res.cost
+        extra = (f", auction_solve launches {solves}, rounds {sum(rounds)} "
+                 f"{rounds} ({wall / max(sum(rounds), 1) * 1e6:.3f} us a "
+                 f"round of the wall)" if solves else "")
         print(f"[simulate] S1 {name}: cost {res.cost!r} s, itps "
               f"{res.itps!r}, hit ratio {res.hit_ratio!r}, decision "
               f"{res.decision_time_mean * 1e3:.3f} ms (mean of iterations "
-              f"2-7), bid-kernel launches {bids} = rounds "
-              f"({bids / base['iters']:.1f} per decision), wall {wall:.1f} s")
+              f"2-7{', calibrated' if solves else ''}){extra}, wall "
+              f"{wall:.1f} s")
     check(costs["esd-auction"] < costs["random"],
           "ESD with the auction moves less than random dispatch")
+    A.ROUNDS_LOG = []
     _zero_launches()
-    res = simulate_serve(SimConfig(
-        workload=WORKLOADS["S1"], n_workers=8, opt="auction", seed=seed,
-        device="cuda", serve=ServeKnobs(qps=2000.0, duration_s=0.5)))
-    run = {k: v for k, v in _read_launches().items() if v}
+    try:
+        res = simulate_serve(SimConfig(
+            workload=WORKLOADS["S1"], n_workers=8, opt="auction", seed=seed,
+            device="cuda", serve=ServeKnobs(qps=2000.0, duration_s=0.5)))
+    finally:
+        run = {k: v for k, v in _read_launches().items() if v}
+        log, A.ROUNDS_LOG = A.ROUNDS_LOG, None
     for k, v in run.items():
         launches[k] = launches.get(k, 0) + v
-    check(run.get("auction_bids", 0) > 0 and res.n_requests > 0
+    solves = run.get("auction_solve", 0)
+    check(solves == len(log) > 0 and res.n_requests > 0
           and np.isfinite(res.p99_s),
-          "simulate_serve with the auction served the stream through the "
-          "bid kernel")
+          "simulate_serve with the auction served the stream, one "
+          "auction_solve launch a decision")
     print(f"[simulate] serve S1, 8 workers, 2,000 QPS for 0.5 s, opt "
           f"auction: p50 {res.p50_s * 1e3:.4f} ms, p99 "
           f"{res.p99_s * 1e3:.4f} ms, slo_violation_rate "
           f"{res.slo_violation_rate:.4f}, {res.n_requests} requests in "
-          f"{res.n_batches} batches, bid-kernel launches "
-          f"{run.get('auction_bids', 0)}")
+          f"{res.n_batches} batches, auction_solve launches {solves}, "
+          f"rounds {sum(int(r.sum()) for r in log)}")
     return launches
 
 
@@ -1179,11 +1350,11 @@ def main(argv=None) -> int:
         for k, v in run().items():
             launches[k] = launches.get(k, 0) + v
         print(f"[wall] phase took {time.perf_counter() - t:.1f} s")
-    # B5 runs on no driver path (its phase 3 check holds it); every other
-    # kernel must have launched on a main path
+    # B5 and the standalone bid kernel run on no driver path (phase 3
+    # holds them); every other kernel must have launched on a main path
     for k in SOURCES:
-        check(k == "pooled_lookup_quant" or launches.get(k, 0) > 0,
-              f"{k} launched on a main path")
+        check(k in ("pooled_lookup_quant", "auction_bids")
+              or launches.get(k, 0) > 0, f"{k} launched on a main path")
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=REPLACES[k], launches=launches.get(k, 0),
                     **{"library_ms": None, **rec[k]})

@@ -5,16 +5,23 @@
 
 Runs ``repro_torch.core.simulator.simulate`` with ESD alpha 1 and
 ``opt="auction"`` (the paper's 4 x 5 and 4 x 0.5 Gbps links, r = 0.08,
-E = 512) and prints, for every iteration's decision, the rounds the
+E = 512, the calibrated decision model, the first two iterations
+warm-up) and prints, for every iteration's decision, the rounds the
 eps-scaled auction took and its wall time on the host clock (the solver
-returns numpy, so the time includes the device's work).  Round counts
-are the same on every device; a time is a device time only from a run
-on the card.  The first decision meets a cold cache, whose tied rows and
+returns numpy, so the time includes the device's work); then the run's
+cost, ItpS and hit ratio.
+Rounds, cost, ItpS and hit ratio are the same on every device (the
+defaults are ``chip_smoke.py`` phase 8's S1 run); a time is a device
+time only from a run on the card.  On the CPU, where the rounds run in
+the plain version, each decision's line also gives the share of its
+rounds by their number of bidders (unassigned rows), the most common
+first.  The first decision meets a cold cache, whose tied rows and
 tied columns start a price war (ROADMAP § C).
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import sys
 import time
 from pathlib import Path
@@ -34,32 +41,46 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from repro_torch.core import auction, hybrid
+    from repro_torch.kernels import auction as plain
     from repro_torch.core.simulator import SimConfig, simulate
     from repro_torch.data.synthetic import WORKLOADS
 
     decisions = []
+    bidders = collections.Counter()     # rounds by bidders, plain version
+    round_body = plain._round_body
+
+    def counted_round(cost, eps, state):
+        bidders[int((state[0] < 0).sum())] += 1
+        return round_body(cost, eps, state)
 
     def timed_dispatch(cost, capacity, **kw):
+        bidders.clear()
         t = time.perf_counter()
         out, rounds = auction.auction_dispatch(cost, capacity,
                                                return_rounds=True, **kw)
         decisions.append((rounds, time.perf_counter() - t))
+        shares = ", ".join(f"{b}: {v / rounds:.1%}"
+                           for b, v in bidders.most_common(4))
         print(f"decision {len(decisions) - 1}: k = {cost.shape[0]}, "
               f"n = {cost.shape[1]}, {rounds} rounds, "
-              f"{decisions[-1][1] * 1e3:.1f} ms", flush=True)
+              f"{decisions[-1][1] * 1e3:.1f} ms"
+              + (f"; rounds by bidders {shares}" if bidders else ""),
+              flush=True)
         return out
 
+    plain._round_body = counted_round
     hybrid.auction_dispatch = timed_dispatch
     res = simulate(SimConfig(
         workload=WORKLOADS[args.workload], n_workers=args.workers,
-        batch_per_worker=args.bpw, iters=args.iters, warmup=0,
+        batch_per_worker=args.bpw, iters=args.iters, warmup=2,
         opt="auction", seed=args.seed, device=args.device))
     rounds = sum(r for r, _ in decisions)
     secs = sum(s for _, s in decisions)
     print(f"{args.workload}, {args.workers} workers x {args.bpw}, "
           f"{args.iters} iterations on {args.device}: {rounds} rounds in "
           f"{len(decisions)} decisions, {secs:.2f} s, "
-          f"{secs / max(rounds, 1) * 1e3:.4f} ms a round; cost {res.cost!r}")
+          f"{secs / max(rounds, 1) * 1e3:.4f} ms a round; cost {res.cost!r}, "
+          f"itps {res.itps!r}, hit ratio {res.hit_ratio!r}")
     return 0
 
 

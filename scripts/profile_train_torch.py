@@ -11,9 +11,10 @@ runs ``--warm`` steps unprofiled, then profiles the rest with
 ``record_function`` range.  Prints, per stage, the host time (after a
 synchronise) and the time in which the device ran any of its kernels
 (the union of kernel intervals inside the stage's span); the same share
-over the whole profiled window; the auction rounds per
-step; and the kernels that took most device time.  Writes the table to
-``--out`` when given.  Needs a CUDA device; exits non-zero without one.
+over the whole profiled window; the auction rounds per step (of the
+longest of the workers' auctions); and the kernels that took most device
+time.  Writes the table to ``--out`` when given.  Needs a CUDA device;
+exits non-zero without one.
 """
 from __future__ import annotations
 
@@ -61,6 +62,7 @@ def main(argv=None) -> int:
     from repro_torch.core.cost import transmission_time_codec
     from repro_torch.core.simulator import DEFAULT_BANDWIDTHS
     from repro_torch.data.synthetic import WORKLOADS
+    from repro_torch.kernels import auction as A
     from repro_torch.launch.steps import make_dlrm_esd_stages
     from repro_torch.launch.train import make_train_step
     from repro_torch.models.dlrm import bce_loss, init_params
@@ -89,14 +91,6 @@ def main(argv=None) -> int:
                         .manual_seed(args.seed), dev)
     train = make_train_step(model, bce_loss, rowwise_adagrad(1e-2), codec)
 
-    rounds = [0]
-    body = D._round_body
-
-    def counted(*a):
-        rounds[0] += 1
-        return body(*a)
-
-    D._round_body = counted
     stream = wl.stream(args.seed + 1, n * m)
     host = {s: [] for s in ("decide", "advance", "train")}
     per_step_rounds = []
@@ -106,7 +100,7 @@ def main(argv=None) -> int:
         s, d, l = next(stream)
         s = torch.as_tensor(s.astype(np.int32), device=dev)
         d, l = torch.as_tensor(d, device=dev), torch.as_tensor(l, device=dev)
-        rounds[0] = 0
+        A.ROUNDS_LOG = []
         for name in ("decide", "advance", "train"):
             t0 = time.perf_counter()
             with torch.profiler.record_function(name):
@@ -119,7 +113,10 @@ def main(argv=None) -> int:
                 torch.cuda.synchronize()
             if prof_on:
                 host[name].append(time.perf_counter() - t0)
-        per_step_rounds.append(rounds[0])
+        # the longest of the workers' auctions, in rounds
+        per_step_rounds.append(max(int(r.sum(dim=1).max())
+                                   for r in A.ROUNDS_LOG))
+        A.ROUNDS_LOG = None
 
     for i in range(args.warm):
         step(i, False)

@@ -2,7 +2,7 @@
 
 Host-side numpy copied from the JAX package (the simulator, its cache
 engines and baselines, the greedy and exact solvers), the eps-scaled
-auction with its bids in a CUDA kernel, and the training step's decide
+auction solved whole in a CUDA kernel, and the training step's decide
 stage and cache state in PyTorch (:mod:`.dispatch`).
 
 Exports what the reference's ``core`` exports, under the port's names

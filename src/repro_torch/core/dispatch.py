@@ -12,8 +12,9 @@ worker's decision stays independent of the others', as under
     lookup (:func:`repro_torch.kernels.ops.cost_matrix_sparse_kernel`),
     so card and CPU sum in one order;
   * Alg. 2 (:func:`hybrid_dispatch`): the top ``floor(k * alpha)``
-    regret rows go to the eps-scaled auction (:func:`auction_fixed`,
-    every worker's auction batched into one), the rest to the greedy
+    regret rows go to the eps-scaled auction (:func:`auction_fixed`:
+    every worker's auction in one launch of the fused auction kernel,
+    a block each), the rest to the greedy
     :func:`heu_dispatch`.  The greedy scans and the auction's straggler
     placement are sequential over samples; they run on the host over
     small integer arrays, in the reference's order;
@@ -32,8 +33,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..kernels import auction as KA
 from ..kernels.ops import cost_matrix_sparse_kernel
-from .auction import _repair, _round_body
 from .cost import unique_padded
 
 __all__ = ["heu_dispatch", "auction_fixed", "hybrid_dispatch",
@@ -94,37 +95,21 @@ def auction_fixed(C: torch.Tensor, capacity: int, n_phases: int = 7,
                   rounds_per_phase: int = 2000) -> torch.Tensor:
     """eps-scaled auction with a fixed phase schedule (reference
     ``auction_fixed``).  C: (k, n), or (B, k, n) for B independent
-    auctions run together -> (k,) / (B, k) int32, -1 where a row stayed
-    unassigned.
+    auctions -> (k,) / (B, k) int32, -1 where a row stayed unassigned.
 
-    The reference loops while any row is unassigned, at most
-    ``rounds_per_phase`` rounds a phase.  A round with no unassigned row
-    changes nothing (every bid is NEG, so nothing matches), so the loop
-    here tests for unassigned rows only after 1, 2, 4, ... 32 rounds,
-    which costs one host sync per test and gives the same state; it never
-    runs more than ``rounds_per_phase`` rounds in a phase.
+    The eps table of the ``n_phases + 2`` phases (the two extra terminal
+    phases rerun repair and re-bid at the final eps) is built here; the
+    B auctions then run in one launch of the fused auction kernel, a
+    block each, every phase's rounds tested for an unassigned row before
+    each round on the device, at most ``rounds_per_phase`` a phase.
     """
     single = C.dim() == 2
-    C = (C[None] if single else C).to(torch.float32)
-    B, k, n = C.shape
+    C = (C[None] if single else C).to(torch.float32).contiguous()
     span = (C.amax(dim=(1, 2)) - C.amin(dim=(1, 2))).clamp(min=1e-6)
-    state = (torch.full((B, k), -1, dtype=torch.int32, device=C.device),
-             torch.zeros((B, n, capacity), dtype=torch.float32,
-                         device=C.device),
-             torch.full((B, n, capacity), -1, dtype=torch.int32,
-                        device=C.device))
-    for p in range(n_phases + 2):
-        # extra terminal phases rerun repair + rebid at the final eps
-        eps = _eps(span, min(p, n_phases - 1))
-        if p > 0:
-            state = _repair(C, eps, state)
-        it, chunk = 0, 1
-        while it < rounds_per_phase and bool((state[0] < 0).any()):
-            for _ in range(min(chunk, rounds_per_phase - it)):
-                state = _round_body(C, eps, state)
-            it += min(chunk, rounds_per_phase - it)
-            chunk = min(2 * chunk, 32)
-    return state[0][0] if single else state[0]
+    eps = torch.stack([_eps(span, min(p, n_phases - 1))
+                       for p in range(n_phases + 2)], dim=1)
+    assign = KA.auction_solve(C, capacity, eps, rounds_per_phase)[0]
+    return assign[0] if single else assign
 
 
 def hybrid_dispatch(C: torch.Tensor, m: int, alpha: float,

@@ -3,7 +3,7 @@
 Rows of the cost matrix are sorted by ``min2 - min`` (the regret of a wrong
 greedy choice) in descending order; the top ``alpha`` fraction is solved by
 the optimal assignment solver (``Opt``: the Hungarian oracle, SSP, or
-the eps-scaled auction whose bids run in the bid kernel on ``device``),
+the eps-scaled auction, solved in the fused auction kernel on ``device``),
 the remainder by the greedy ``Heu``.  Each worker's capacity m is split:
 ``floor(m * alpha)`` slots for Opt, the rest for Heu.
 

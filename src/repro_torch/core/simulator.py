@@ -78,8 +78,8 @@ The port: the host-side numpy is the JAX package's, line for line, so
 both packages give the same results from one seed.  ``SimConfig.device``
 (``"cuda"`` unless the caller asks for the CPU; resolved once when
 :func:`simulate` starts, raising without a card) is where
-``opt="auction"`` runs: the eps-scaled auction with its bids in the CUDA
-kernel :func:`repro_torch.kernels.auction.auction_bids`.  Elastic
+``opt="auction"`` runs: the eps-scaled auction, each decision one launch
+of the CUDA kernel :func:`repro_torch.kernels.auction.auction_solve`.  Elastic
 operation (``SimConfig.faults``, ROADMAP A10) is not ported yet.
 """
 from __future__ import annotations

@@ -47,6 +47,7 @@ SIGNATURES = {
     },
     "auction": {
         "auction_bids_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+        "auction_solve_launch": [_P] * 6 + [_I] * 7 + [_L, _P],
     },
     "flash_attn": {
         "flash_attention_launch": [_P] * 5 + [_I] * 7 + [_L] * 13 + [_P],

@@ -4,19 +4,30 @@
 // pooled_lookup_launch replaces the Pallas TPU kernel
 // src/repro/kernels/emb_lookup.py:pooled_lookup (_kernel, _kernel_blocked):
 //     out[b] = sum_f w[b,f] * table[ids[b,f]]
-// The wrapper has already clamped PAD ids to row 0 with weight 0.  On the
-// training step it prices Alg. 1: a compact (U, n) per-id cost table, n = 4
-// columns wide, pooled over 256 bags of 74 ids.  Two flops per element
-// read, so bytes bound it (the distinct rows read, the ids and weights,
-// the (B, E) output); at E = 4 it is really bound by the latency of the
-// F dependent-free loads per output.  Design for narrow rows: one thread
-// per (bag, column), 256 threads to a block, so a block holds 64 bags at
-// E = 4 (B6's one-block-per-bag layout would leave 127 of 128 threads
-// idle) and half a bag at E = 512.  Each thread walks f = 0..F-1 in order
-// and accumulates in an f32 register, multiply and add rounded apart
-// (__fmul_rn, __fadd_rn: no FMA contraction), so the plain PyTorch
+// A PAD id (< 0) reads row 0 with weight 0 and null weights are all ones,
+// as the plain version's wrapper sets them up, here inside the kernel, so
+// a call is one launch.  On the training step it prices Alg. 1: a compact
+// (U, n) per-id cost table, n = 4 columns wide, pooled over 256 bags of
+// 74 ids.  Two flops per element read, so bytes bound it (the distinct
+// rows read, the ids and weights, the (B, E) output: 0.075 us at the
+// decide shape); at E = 4 latency bounds it.  The sum runs over f in order, multiply and add rounded
+// apart (__fmul_rn, __fadd_rn: no FMA contraction), so the plain PyTorch
 // version (out = out + table[ids[:, f]] * w[:, f]) is matched bit for
-// bit.  No lookup is skipped: a zero weight adds what the plain sum adds.
+// bit; no lookup is skipped: a zero weight adds what the plain sum adds.
+// Two layouts, by row width:
+//   - E <= 32 (the decide stage's E = 4): one warp per bag, two bags to a
+//     block, so 256 bags make 128 blocks over the 132 SMs.  The lanes load
+//     the bag's ids and weights and then its rows in parallel, a lookup a
+//     lane (a row of E = 4 is one 16-byte load), and stage the products
+//     in shared memory, up to 1,024 of them a pass; then E lanes add them
+//     in f order.  Each lookup's two dependent loads overlap the others',
+//     where a thread per (bag, column) walked its F id -> row loads one
+//     after another (24.9 us at the decide shape, with the PAD rule then
+//     applied by the wrapper in separate launches).
+//   - wider rows: one thread per (bag, column), 256 threads to a block
+//     (half a bag at E = 512), each walking f = 0..F-1 in order with its
+//     sum in an f32 register; neighbouring threads read neighbouring
+//     columns of a row.
 //
 // staged_gather_launch replaces the Pallas TPU kernel
 // src/repro/kernels/emb_lookup.py:staged_gather (_kernel_staged):
@@ -54,12 +65,12 @@
 // exists.  The wrapper has already clamped PAD ids to row 0 with weight 0.
 // It reads the distinct rows' codes (E f32-valued integers) and their G
 // scale/zero-point pairs, three flops per element read: bytes bound it.
-// Design: B1's, one thread per (bag, column), 256 threads to a block,
-// walking f = 0..F-1 in order.  The dequant is one fused multiply-add
-// (__fmaf_rn), the form the JAX reference takes under jit; the weight
-// multiply and the accumulate are rounded apart (__fmul_rn, __fadd_rn), as
-// in B1, so the plain PyTorch version (the dequant in f64, rounded once;
-// then out = out + row * w[:, f]) is matched bit for bit.
+// Design: B1's wide-row layout, one thread per (bag, column), 256 threads
+// to a block, walking f = 0..F-1 in order.  The dequant is one fused
+// multiply-add (__fmaf_rn), the form the JAX reference takes under jit;
+// the weight multiply and the accumulate are rounded apart (__fmul_rn,
+// __fadd_rn), as in B1, so the plain PyTorch version (the dequant in f64,
+// rounded once; then out = out + row * w[:, f]) is matched bit for bit.
 //
 // All launchers run on the caller's stream, allocate nothing and return
 // cudaGetLastError() so a refused launch surfaces in the Python wrapper.
@@ -75,6 +86,61 @@ constexpr int kPoolThreads = 128;
 constexpr int kPoolCols = 4;          // columns per thread
 constexpr int kPoolChunk = kPoolThreads * kPoolCols;
 constexpr int kLookupThreads = 256;   // (bag, column) pairs per block
+constexpr int kNarrowE = 32;          // widest row of the warp-per-bag layout
+
+// B1's PAD rule, as its plain version applies it: a PAD id (< 0) reads
+// row 0 with weight 0, no weights are all ones
+__device__ __forceinline__ float pad_weight(int id,
+                                            const float* __restrict__ weights,
+                                            int64_t at) {
+  return id < 0 ? 0.f : (weights != nullptr ? weights[at] : 1.f);
+}
+constexpr int kNarrowWarps = 2;       // bags per block
+constexpr int kNarrowBuf = 1024;      // products a warp stages a pass
+
+template <bool kVec4>
+__global__ void pooled_lookup_narrow_kernel(const float* __restrict__ table,
+                                            const int* __restrict__ ids,
+                                            const float* __restrict__ weights,
+                                            float* __restrict__ out,
+                                            int B, int F, int E, int V) {
+  __shared__ __align__(16) float prod[kNarrowWarps][kNarrowBuf];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kNarrowWarps + warp;
+  if (b >= B) return;                    // whole warps leave together
+  const int* bag = ids + b * F;
+  float* buf = prod[warp];
+  const int chunk = kNarrowBuf / E;      // lookups a pass, >= 32
+  float acc = 0.f;
+  for (int f0 = 0; f0 < F; f0 += chunk) {
+    const int nf = min(chunk, F - f0);
+#pragma unroll 4
+    for (int f = lane; f < nf; f += 32) {
+      const int raw = bag[f0 + f];
+      const float wf = pad_weight(raw, weights, b * F + f0 + f);
+      const float* row =
+          table + static_cast<int64_t>(min(max(raw, 0), V - 1)) * E;
+      float* dst = buf + f * E;
+      if (kVec4) {
+        for (int e = 0; e < E; e += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(row + e);
+          *reinterpret_cast<float4*>(dst + e) =
+              make_float4(__fmul_rn(v.x, wf), __fmul_rn(v.y, wf),
+                          __fmul_rn(v.z, wf), __fmul_rn(v.w, wf));
+        }
+      } else {
+        for (int e = 0; e < E; ++e) dst[e] = __fmul_rn(row[e], wf);
+      }
+    }
+    __syncwarp();
+    if (lane < E) {
+#pragma unroll 8
+      for (int f = 0; f < nf; ++f) acc = __fadd_rn(acc, buf[f * E + lane]);
+    }
+    __syncwarp();
+  }
+  if (lane < E) out[b * E + lane] = acc;
+}
 
 __global__ void pooled_lookup_kernel(const float* __restrict__ table,
                                      const int* __restrict__ ids,
@@ -87,13 +153,13 @@ __global__ void pooled_lookup_kernel(const float* __restrict__ table,
   const int64_t b = t / E;
   const int e = static_cast<int>(t - b * E);
   const int* bag = ids + b * F;
-  const float* w = weights + b * F;
   float acc = 0.f;
 #pragma unroll 4
   for (int f = 0; f < F; ++f) {
-    const int id = min(max(bag[f], 0), V - 1);
+    const int raw = bag[f];
+    const int id = min(max(raw, 0), V - 1);
     acc = __fadd_rn(acc, __fmul_rn(table[static_cast<int64_t>(id) * E + e],
-                                   w[f]));
+                                   pad_weight(raw, weights, b * F + f)));
   }
   out[t] = acc;
 }
@@ -218,14 +284,27 @@ extern "C" int pooled_lookup_launch(const void* table, const void* ids,
                                     const void* weights, void* out, int B,
                                     int F, int E, int V, void* stream) {
   if (B == 0 || E == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* t = static_cast<const float*>(table);
+  const int* i = static_cast<const int*>(ids);
+  const float* w = static_cast<const float*>(weights);
+  float* o = static_cast<float*>(out);
+  if (E <= kNarrowE) {
+    const unsigned blocks = static_cast<unsigned>(
+        (static_cast<int64_t>(B) + kNarrowWarps - 1) / kNarrowWarps);
+    if (E % 4 == 0 && reinterpret_cast<uintptr_t>(t) % 16 == 0)
+      pooled_lookup_narrow_kernel<true>
+          <<<blocks, kNarrowWarps * 32, 0, st>>>(t, i, w, o, B, F, E, V);
+    else
+      pooled_lookup_narrow_kernel<false>
+          <<<blocks, kNarrowWarps * 32, 0, st>>>(t, i, w, o, B, F, E, V);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int64_t threads = static_cast<int64_t>(B) * E;
   const unsigned blocks =
       static_cast<unsigned>((threads + kLookupThreads - 1) / kLookupThreads);
-  pooled_lookup_kernel<<<blocks, kLookupThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(table), static_cast<const int*>(ids),
-      static_cast<const float*>(weights), static_cast<float*>(out), B, F, E,
-      V);
+  pooled_lookup_kernel<<<blocks, kLookupThreads, 0, st>>>(t, i, w, o, B, F,
+                                                          E, V);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -128,10 +128,11 @@ def pooled_lookup(table: torch.Tensor, ids: torch.Tensor,
     from ._build import load_library
 
     lib = load_library("emb_lookup")
-    ids_c, w = _pad_rule(ids, weights)
     out = torch.empty((B, E), dtype=torch.float32, device=table.device)
+    # the kernel applies the PAD rule itself: one launch a call
     rc = lib.pooled_lookup_launch(
-        table.data_ptr(), ids_c.data_ptr(), w.data_ptr(), out.data_ptr(),
+        table.data_ptr(), ids.data_ptr(),
+        None if weights is None else weights.data_ptr(), out.data_ptr(),
         B, F, E, V, torch.cuda.current_stream(table.device).cuda_stream)
     _raise_on(rc, "pooled_lookup")
     LAUNCHES["pooled_lookup"] += 1

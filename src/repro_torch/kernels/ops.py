@@ -9,10 +9,10 @@ pooled_lookup` pools it over the remapped ids, so the kernel never sees
 the vocabulary.  On CUDA tensors that is the B1 kernel; on CPU tensors
 its plain version, which sums in the same order.
 
-:func:`auction_solve_kernel` is the eps-scaled auction whose bid phase
-runs in the bid kernel (counterpart of the reference's
-``auction_solve_pallas``): the same solver as :func:`repro_torch.core.
-auction.auction_solve` with one terminal phase at the final eps, as the
+:func:`auction_solve_kernel` is the counterpart of the reference's
+``auction_solve_pallas`` (whose bid phase runs in the Pallas kernel): the
+same solver as :func:`repro_torch.core.auction.auction_solve`, on the
+fused auction kernel, with one terminal phase at the final eps, as the
 reference's has.
 """
 from __future__ import annotations

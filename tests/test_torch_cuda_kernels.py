@@ -11,8 +11,10 @@ exact too; pooled_lookup_staged does the same and is held to rtol =
 atol = 1e-5 all the same.  gather_rows_quant and pooled_lookup_quant
 compute in their plain versions' forms and must match them bit for bit.
 auction_bids takes one subtraction per value, exact max/argmax and two
-rounded additions: best_j and bid bit for bit, and the auction solved
-with it on the card equals the auction solved on the CPU, rounds too.
+rounded additions: best_j and bid bit for bit.  auction_solve, the whole
+eps-scaled auction in one launch, shares that arithmetic and compares
+and subtracts nothing else: assignment, slot prices, slot owners and
+each phase's rounds bit for bit, and the solvers on it equal the CPU's.
 flash_attention sums in f32 in another order and with exp2f: outputs
 within 2e-5 in f32 and within 1e-2 in bf16 (the outputs' own rounding,
 2**-7 relative at |out| ~ 1), lse within 2e-5; the gradients through
@@ -219,14 +221,91 @@ def test_auction_bids_matches_plain(cuda, k, n):
 def test_auction_on_card_equals_cpu(cuda, exact):
     rng = np.random.default_rng(2)
     C = np.repeat(rng.random((16, 8)), 4, axis=0) * 3.0     # tied rows
-    n0 = tb.LAUNCHES["auction_bids"]
+    n0 = dict(tb.LAUNCHES)
     got, rounds = ta.auction_dispatch(C, 8, exact=exact, device="cuda",
                                       return_rounds=True)
     want, want_rounds = ta.auction_dispatch(C, 8, exact=exact,
                                             device="cpu", return_rounds=True)
     np.testing.assert_array_equal(got, want)
     assert rounds == want_rounds
-    assert tb.LAUNCHES["auction_bids"] == n0 + rounds
+    # the whole solve is one launch; the bid kernel runs on no solver path
+    assert tb.LAUNCHES == {**n0, "auction_solve": n0["auction_solve"] + 1}
+
+
+def _solve_case(name, rng):
+    """(cost (B, k, n) f32, capacity, eps (B, P), max_rounds) as the
+    callers build them: auction_fixed's nine phases at the training
+    step's decide, _solve's phase list for the simulator and Table 2."""
+    from repro_torch.core.dispatch import _eps
+
+    def phases(C, eps):
+        return [ta.phase_eps(float(C.max() - C.min()), eps)]
+
+    if name == "decide":
+        C = (np.round(rng.random((4, 256, 4)) * 4e3).astype(np.float32)
+             / np.float32(4e3) * np.float32(1e-3))
+        span = torch.from_numpy(C.max(axis=(1, 2)) - C.min(axis=(1, 2)))
+        eps = torch.stack([_eps(span.clamp(min=1e-6), min(p, 6))
+                           for p in range(9)], dim=1).numpy()
+        return C, 64, eps, 2000
+    if name == "s1":
+        C = np.round(rng.random((1, 256, 8)) * 10_000).astype(np.float32)
+        return C, 32, phases(C, 1 / 257), 200_000
+    if name == "table2":
+        C = rng.random((1, 1024, 8)).astype(np.float32)
+        eps = float(C.max() - C.min()) * 1e-3
+        return C, 128, phases(C, eps), 200_000
+    if name == "one-worker":
+        C = rng.random((2, 40, 1)).astype(np.float32)
+        return C, 64, [[0.1] * 3] * 2, 50
+    # a phase that runs out of rounds
+    C = np.repeat(rng.integers(0, 3, (2, 16, 8)), 4, axis=1).astype(np.float32)
+    return C, 8, [[1e-5, 5e-6, 1e-6]] * 2, 7
+
+
+@pytest.mark.parametrize("name", ["decide", "s1", "table2", "one-worker",
+                                  "runs-out"])
+def test_auction_solve_matches_plain(cuda, name):
+    C, cap, eps, max_rounds = _solve_case(name, np.random.default_rng(3))
+    cost = torch.from_numpy(C).to(cuda)
+    eps = torch.as_tensor(np.asarray(eps, np.float32), device=cuda)
+    n0 = tb.LAUNCHES["auction_solve"]
+    got = tb.auction_solve(cost, cap, eps, max_rounds)
+    torch.cuda.synchronize()
+    assert tb.LAUNCHES["auction_solve"] == n0 + 1
+    want = tb.auction_solve_ref(cost, cap, eps, max_rounds)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and _same_bits(a, b)
+    if name == "runs-out":
+        assert int(got[3].max()) == max_rounds
+
+
+def test_training_auction_runs_the_kernel_on_card(cuda, monkeypatch):
+    from repro_torch.core import dispatch as td
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain auction ran on the card")
+
+    monkeypatch.setattr(tb, "auction_solve_ref", refuse)
+    monkeypatch.setattr(tb, "auction_bids_ref", refuse)
+    C, cap, _, _ = _solve_case("decide", np.random.default_rng(5))
+    n0 = dict(tb.LAUNCHES)
+    got = td.hybrid_dispatch(torch.from_numpy(C).to(cuda), 256, 1.0)
+    assert tb.LAUNCHES == {**n0, "auction_solve": n0["auction_solve"] + 1}
+    monkeypatch.undo()
+    want = td.hybrid_dispatch(torch.from_numpy(C), 256, 1.0)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("E", [1, 4, 8, 32, 512])
+@pytest.mark.parametrize("F", [1, 74, 100])
+def test_pooled_lookup_narrow_and_wide_rows_match_plain(cuda, E, F):
+    rng = np.random.default_rng(E * 1000 + F)
+    x = _inputs(rng, V=300, C=4, E=E, B=37, F=F, device=cuda)
+    for w in (None, x["w"]):
+        got = tk.pooled_lookup(x["table"], x["ids"], w)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tk.pooled_lookup_ref(x["table"], x["ids"], w))
 
 
 @pytest.mark.parametrize("B,Sq,Sk,KV,G,hd,causal,dtype", [
