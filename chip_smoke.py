@@ -18,12 +18,18 @@ Phases, each printing its own lines:
    its path's shapes, with its median time, the plain version's, one
    PyTorch library call's where one computes the same function, and the
    least time the card could take (bytes over 3.35 TB/s, or operations
-   over 67 TFLOP/s f32).  Serving (wdl-s1: V = 502,000, E = 512): the
-   hot-set plane of C rows, bags of the stream's 48 history slots.
-   Training: the decide stage's per-id cost table (U, 4) pooled over one
-   S1 batch of 256 x 74 (and the pooled lookup again at E = 512 on the
-   wdl-s1 table), and the exchange's packs of 256 slots of ids (74
-   int32), dense features (13 f32) and labels (1 f32).  The quantized
+   over 67 TFLOP/s f32), beside the launch floor (an empty kernel's
+   device and call ms).  Serving (wdl-s1: V = 502,000, E = 512): the
+   hot-set plane of C rows, bags of the stream's 48 history slots, B =
+   16 and 4,096, bit for bit (and with an all-PAD bag, weights, and at
+   E = 510).  Training: the decide stage's per-id cost table (U, 4)
+   pooled over one S1 batch of 256 x 74 (and the pooled lookup again at
+   E = 512 on the wdl-s1 table), the row pack alone on 256 slots of ids
+   (74 int32), dense features (13 f32) and labels (1 f32), and the
+   exchange's one-launch pack of all three for 4 workers of 256, bit for
+   bit against its per-worker plain version (balanced, with overflow,
+   with an empty destination, on a relaxed budget), timed beside the 12
+   row packs it replaces and beside those with their slot maps.  The quantized
    wire: the fused pack-quantize of 256 slots of dense features (fp16,
    int8, int4, int8:4; and int8 at 512 columns), and the pooled lookup
    over the int8-quantized wdl-s1 table (256 x 74, E = 512 and E = 4).
@@ -61,7 +67,8 @@ Phases, each printing its own lines:
 6. train — ``run_dlrm`` at wdl-s1 (4 workers x 256 samples, ESD alpha 1,
    ragged exchange, 10 steps), then again with ``--codec int8``: one
    launch of the fused auction kernel a step, its rounds per step equal
-   to the CPU's;
+   to the CPU's; one launch of the exchange's pack a step (and, with the
+   codec, 4 of the pack-quantize), the row pack alone never;
 7. table 2 — ``auction_dispatch(exact=False)`` on the draws of
    ``benchmarks/table2.py`` (8 workers, 32 to 1,024 samples a worker):
    rounds, ms per decision and one auction_solve launch each, beside the
@@ -92,6 +99,7 @@ import copy
 import dataclasses
 import itertools
 import json
+import math
 import re
 import shutil
 import statistics
@@ -109,6 +117,7 @@ F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"pooled_lookup": CSRC + "emb_lookup.cu",
+           "pack_send_all": CSRC + "exchange_pack.cu",
            "gather_rows": CSRC + "exchange_pack.cu",
            "staged_gather": CSRC + "emb_lookup.cu",
            "pooled_lookup_staged": CSRC + "emb_lookup.cu",
@@ -119,6 +128,9 @@ SOURCES = {"pooled_lookup": CSRC + "emb_lookup.cu",
            "flash_attention": CSRC + "flash_attn_sm90.cu",
            "flash_attention_bwd": CSRC + "flash_attn_bwd.cu"}
 REPLACES = {"pooled_lookup": "src/repro/kernels/emb_lookup.py:88",
+            "pack_send_all": "src/repro/kernels/exchange_pack.py:34 with "
+                             "the slot map around it: "
+                             "src/repro/exchange/ragged.py:36 (pack_send)",
             "gather_rows": "src/repro/kernels/exchange_pack.py:34",
             "staged_gather": "src/repro/kernels/emb_lookup.py:174",
             "pooled_lookup_staged": "src/repro/kernels/emb_lookup.py:245",
@@ -274,7 +286,8 @@ def _read_launches() -> dict:
 
 
 def phase_train_kernels(seed: int) -> dict:
-    """B1 and B2 at the training step's shapes."""
+    """B1, B2 and the exchange's one-launch pack at the training step's
+    shapes."""
     from repro_torch.core.simulator import DEFAULT_BANDWIDTHS
     from repro_torch.data.synthetic import WORKLOADS
     from repro_torch.kernels import emb_lookup as K
@@ -363,7 +376,89 @@ def phase_train_kernels(seed: int) -> dict:
             rec["gather_rows"] = dict(max_abs_err=0.0, ms=ms,
                                       plain_ms=plain_ms, library_ms=lib_ms,
                                       bound_ms=b_ms, bound_by=b_by)
+    rec["pack_send_all"] = phase_pack(rng, wl, n, m, dev)
     return rec
+
+
+def phase_pack(rng, wl, n: int, m: int, dev) -> dict:
+    """The exchange's one-launch pack at the training step's shapes (4
+    workers of 256: ids 74 int32, dense 13 f32, labels f32) against its
+    plain version, which packs worker by worker; timed beside the 12
+    row packs it replaces (given their slot maps) and beside those packs
+    with the 12 slot maps the advance built before them."""
+    from repro_torch.core.dispatch import dispatch_cap, exchange_budget
+    from repro_torch.kernels import exchange_pack as P
+
+    payloads = [
+        torch.as_tensor(np.stack([wl.sample_batch(rng, m)
+                                  for _ in range(n)]).astype(np.int32),
+                        device=dev),
+        torch.as_tensor(np.stack([wl.dense_batch(rng, m) for _ in range(n)]),
+                        device=dev),
+        torch.as_tensor(np.stack([wl.label_batch(rng, m) for _ in range(n)]),
+                        device=dev)]
+    balanced = np.stack([rng.permutation(np.repeat(np.arange(n), m // n))
+                         for _ in range(n)])
+    skew = rng.integers(0, n, (n, m))
+    skew[:, : m // 2] = 0                  # worker 0 over its budget
+    empty = rng.integers(0, n - 1, (n, m))     # nobody sends to the last
+    # --cap-slack 0.5: groups of up to 96 rows on blocks of 128
+    slack = exchange_budget(dispatch_cap(m, n, 0.5), m)
+    uneven = np.stack([rng.permutation(np.repeat(
+        np.arange(n), [m * 3 // 8, m // 4, m // 4, m // 8]))
+        for _ in range(n)])
+    cases = (("train", balanced, m // n), ("overflow", skew, m // n),
+             ("empty destination", empty, slack),
+             (f"relaxed budget {slack}", uneven, slack))
+    for what, a_np, budget in cases:
+        assign = torch.as_tensor(a_np.astype(np.int32), device=dev)
+        got = P.pack_send_all(assign, payloads, n, budget)
+        want = P.pack_send_all_ref(assign, payloads, n, budget)
+        torch.cuda.synchronize()
+        for x, y in zip(got[0] + list(got[1:]), want[0] + list(want[1:])):
+            check(x.dtype == y.dtype and torch.equal(x, y),
+                  f"pack_send_all {what} is bitwise equal to plain")
+        ov = int(got[3])
+        print(f"[kernel] pack_send_all {what}: n={n} m={m} budget={budget}"
+              f" overflow={ov}: exact")
+        check((ov > 0) == (what == "overflow"),
+              f"pack_send_all {what}: overflow only where the budget is "
+              f"short")
+    assign = torch.as_tensor(balanced.astype(np.int32), device=dev)
+    budget = m // n
+    ms, call_ms = device_ms(lambda: P.pack_send_all(assign, payloads, n,
+                                                    budget))
+    plain_ms, plain_call = device_ms(
+        lambda: P.pack_send_all_ref(assign, payloads, n, budget), reps=20)
+    maps = [P.slot_map_ref(assign[i], n, budget)[0] for i in range(n)]
+
+    def packs():
+        for rows in payloads:
+            for i in range(n):
+                P.gather_rows(rows[i].reshape(m, -1), maps[i])
+
+    def packs_and_maps():
+        for rows in payloads:
+            for i in range(n):
+                P.gather_rows(rows[i].reshape(m, -1),
+                              P.slot_map_ref(assign[i], n, budget)[0])
+
+    was_ms, was_call = device_ms(packs)
+    old_ms, old_call = device_ms(packs_and_maps, reps=20)
+    S = n * budget
+    words = sum(math.prod(r.shape[2:]) for r in payloads)
+    # bytes: assign read, each sent row read once, every slot of every
+    # payload written, with slot_to_row and the counts
+    b_ms, b_by = bound(n * m * 4 + n * m * words * 4 + n * S * words * 4
+                       + n * S * 4 + n * n * 4 + 4, 0)
+    print(f"[kernel] pack_send_all train (ids 74 int32, dense 13 f32, "
+          f"labels f32): {ms:.4f} ms (call {call_ms:.4f}), plain "
+          f"{plain_ms:.4f} ms (call {plain_call:.4f}); the 12 gather_rows "
+          f"it replaces {was_ms:.4f} ms (call {was_call:.4f}); with their 12"
+          f" slot maps {old_ms:.4f} ms (call {old_call:.4f}); bound "
+          f"{b_ms:.6f} ms ({b_by})")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by)
 
 
 def phase_quant_kernels(seed: int) -> dict:
@@ -501,6 +596,15 @@ def phase_kernels(seed: int) -> dict:
           f" exact, {ms:.4f} ms (call {call_ms:.4f}), plain {plain_ms:.4f} ms"
           f" (call {plain_call:.4f}), bound {b_ms:.4f} ms ({b_by})")
 
+    # the launch floor: an empty kernel through the same ctypes path
+    from repro_torch.kernels._build import load_library
+
+    lib = load_library("emb_lookup")
+    floor_ms, floor_call = device_ms(lambda: lib.empty_launch(
+        torch.cuda.current_stream().cuda_stream))
+    print(f"[kernel] launch floor (an empty kernel): {floor_ms:.4f} ms "
+          f"(call {floor_call:.4f})")
+
     # pooled_lookup_staged: history bags of the synthetic stream against
     # the hot-set plane, at the serving micro-batch and at a large batch
     plane = PrefetchPlane(ids=torch.as_tensor(hot.astype(np.int32),
@@ -509,35 +613,58 @@ def phase_kernels(seed: int) -> dict:
                           expiry=torch.full((C,), 1, dtype=torch.int32,
                                             device=dev))
     smap = slot_map(plane, V, 0)
-    for B in (16, 4096):
+
+    def bags(B):
         hist = wl.sample_batch(rng, B)[:, F:]
         ids = torch.as_tensor(hist.astype(np.int32), device=dev)
-        slots = torch.where(ids >= 0, smap[ids.long().clamp(min=0)], -1)
-        out = K.pooled_lookup_staged(plane_rows, table, slots, ids)
-        ref = K.pooled_lookup_staged_ref(plane_rows, table, slots, ids)
+        return ids, torch.where(ids >= 0, smap[ids.long().clamp(min=0)], -1)
+
+    def staged_exact(what, plane_rows, table, slots, ids, w=None):
+        out = K.pooled_lookup_staged(plane_rows, table, slots, ids, w)
+        ref = K.pooled_lookup_staged_ref(plane_rows, table, slots, ids, w)
         torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        check(torch.allclose(out, ref, rtol=1e-5, atol=1e-5),
-              f"pooled_lookup_staged B={B} within 1e-5 (max err {err})")
+        check(torch.equal(out, ref),
+              f"pooled_lookup_staged {what} is bitwise equal to plain")
+        return out
+
+    for B in (16, 4096):
+        ids, slots = bags(B)
+        staged_exact(f"B={B}", plane_rows, table, slots, ids)
         ms, call_ms = device_ms(
             lambda: K.pooled_lookup_staged(plane_rows, table, slots, ids))
         plain_ms, plain_call = device_ms(
             lambda: K.pooled_lookup_staged_ref(plane_rows, table, slots,
                                                ids), reps=20)
+        hist, s_np = ids.cpu().numpy(), slots.cpu().numpy()
         valid = hist >= 0
-        s_np = slots.cpu().numpy()
         n_rows = (len(np.unique(s_np[valid & (s_np >= 0)]))
                   + len(np.unique(hist[valid & (s_np < 0)])))
         n_bytes = (n_rows + B) * E * 4 + 2 * B * hist.shape[1] * 4
         b_ms, b_by = bound(n_bytes, 2 * int(valid.sum()) * E)
         print(f"[kernel] pooled_lookup_staged B={B} F={hist.shape[1]} E={E}"
-              f" valid={int(valid.sum())} rows={n_rows}: max err {err:.3g},"
-              f" {ms:.4f} ms (call {call_ms:.4f}), plain {plain_ms:.4f} ms"
+              f" valid={int(valid.sum())} rows={n_rows}: exact,"
+              f" {ms:.4f} ms (call {call_ms:.4f}; launch floor "
+              f"{floor_ms:.4f}), plain {plain_ms:.4f} ms"
               f" (call {plain_call:.4f}), bound {b_ms:.6f} ms ({b_by})")
         if B == 16:
             rec["pooled_lookup_staged"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by)
+    # around the path: an all-PAD bag, weights, and rows of E = 510 (the
+    # scalar layout)
+    ids, slots = bags(16)
+    ids[3], slots[3] = -1, -1
+    w = torch.rand(ids.shape, generator=g, device=dev)
+    out = staged_exact("B=16 with an all-PAD bag and weights", plane_rows,
+                       table, slots, ids, w)
+    check(not out[3].any(), "an all-PAD bag pools to zeros")
+    V_odd = 50_000
+    odd = torch.randn((V_odd, 510), generator=g, device=dev)
+    ids_odd = torch.where(ids >= 0, ids % V_odd, -1)
+    staged_exact("E=510 (scalar layout)", odd[:C].contiguous(), odd,
+                 slots.clamp(max=C - 1), ids_odd, w)
+    print("[kernel] pooled_lookup_staged: exact with an all-PAD bag "
+          "(zeros), with weights, and at E = 510")
     return rec
 
 
@@ -740,14 +867,14 @@ def phase_train(seed: int, codec=None) -> dict:
     check(args.seed != 0 or rounds == TRAIN_ROUNDS[codec][:len(rounds)],
           "the training auction's rounds equal the CPU's "
           "(scripts/train_auction_rounds.py --device cpu)")
-    if codec is None:
-        check(per_step.get("gather_rows") == 12.0,
-              "gather_rows packs ids, dense features and labels per worker")
-    else:
-        check(per_step.get("gather_rows") == 8.0,
-              "gather_rows packs ids and labels per worker and step")
-        check(per_step.get("gather_rows_quant") == 4.0,
-              "gather_rows_quant packs the dense features per worker")
+    check(per_step.get("pack_send_all") == 1.0
+          and "gather_rows" not in launches,
+          "one pack_send_all launch a step packs the exchange, for every "
+          "worker and payload; gather_rows never runs on the step")
+    check(per_step.get("gather_rows_quant") == (None if codec is None
+                                                else 4.0),
+          "gather_rows_quant packs the dense features per worker with "
+          "the codec, and never without it")
     check(all(np.isfinite(losses)), "every training loss finite")
     check(all(r["miss_pull"] > 0 for r in recs), "miss_pull > 0 each step")
     return launches
@@ -1350,10 +1477,11 @@ def main(argv=None) -> int:
         for k, v in run().items():
             launches[k] = launches.get(k, 0) + v
         print(f"[wall] phase took {time.perf_counter() - t:.1f} s")
-    # B5 and the standalone bid kernel run on no driver path (phase 3
-    # holds them); every other kernel must have launched on a main path
+    # B5, the row pack alone and the standalone bid kernel run on no
+    # driver path (phase 3 holds them); every other kernel must have
+    # launched on a main path
     for k in SOURCES:
-        check(k in ("pooled_lookup_quant", "auction_bids")
+        check(k in ("pooled_lookup_quant", "auction_bids", "gather_rows")
               or launches.get(k, 0) > 0, f"{k} launched on a main path")
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=REPLACES[k], launches=launches.get(k, 0),

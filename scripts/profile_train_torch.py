@@ -8,12 +8,19 @@ Builds the training step as ``repro_torch.launch.train.run_dlrm`` does
 with ``--codec``, over the quantized wire, the links priced uniformly),
 runs ``--warm`` steps unprofiled, then profiles the rest with
 ``torch.profiler`` (CPU and CUDA activity), each stage inside a
-``record_function`` range.  Prints, per stage, the host time (after a
-synchronise) and the time in which the device ran any of its kernels
-(the union of kernel intervals inside the stage's span); the same share
-over the whole profiled window; the auction rounds per step (of the
-longest of the workers' auctions); and the kernels that took most device
-time.  Writes the table to ``--out`` when given.  Needs a CUDA device;
+``record_function`` range.  The advance stage is also split into its
+parts, each a range wrapped around the functions that do it: the
+exchange's packs (``advance.pack``: the slot maps and the row-pack
+kernels), the whole exchange (``advance.exchange``: beyond the packs,
+the transpose and the compaction) and the cache-state update
+(``advance.state``: ``need_ids_list`` and ``esd_state_update_sparse``).
+Prints, for each stage and part, its host ms a step (a stage's ends in
+a synchronise; a part holds none, so its host time is the time to
+enqueue its work), its launches a step and the time in which the
+device ran any of the kernels it launched; the device's busy share of
+the whole profiled window; the auction rounds per step (of the longest
+of the workers' auctions); and the kernels that took most device time.
+Writes the table to ``--out`` when given.  Needs a CUDA device;
 exits non-zero without one.
 """
 from __future__ import annotations
@@ -31,16 +38,51 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 
-def _union_us(intervals) -> float:
-    total, end = 0.0, -1.0
+def _merged(intervals) -> list:
+    out = []
     for s, e in sorted(intervals):
-        if s > end:
-            total += e - s
-            end = e
-        elif e > end:
-            total += e - end
-            end = e
-    return total
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def _union_us(intervals) -> float:
+    return sum(e - s for s, e in _merged(intervals))
+
+
+# advance's parts: (module, function, range); a function the checkout
+# does not have is skipped, so the script splits the stage both before
+# and after the one-launch pack
+PARTS = (("repro_torch.launch.steps", "need_ids_list", "advance.state"),
+         ("repro_torch.launch.steps", "esd_state_update_sparse",
+          "advance.state"),
+         ("repro_torch.launch.steps", "ragged_exchange", "advance.exchange"),
+         ("repro_torch.launch.steps", "ragged_exchange_quant",
+          "advance.exchange"),
+         ("repro_torch.launch.steps", "ragged_exchange_many",
+          "advance.exchange"),
+         ("repro_torch.exchange.ragged", "pack_send", "advance.pack"),
+         ("repro_torch.exchange.ragged", "_slots", "advance.pack"),
+         ("repro_torch.exchange.ragged", "gather_rows_quant", "advance.pack"),
+         ("repro_torch.exchange.ragged", "pack_send_all", "advance.pack"))
+
+
+def _wrap_parts():
+    import importlib
+
+    def ranged(name, fn):
+        def run(*a, **k):
+            with torch.profiler.record_function(name):
+                return fn(*a, **k)
+        return run
+
+    for mod, fn, name in PARTS:
+        module = importlib.import_module(mod)
+        if hasattr(module, fn):
+            setattr(module, fn, ranged(name, getattr(module, fn)))
+    return sorted({name for *_, name in PARTS})
 
 
 def main(argv=None) -> int:
@@ -70,6 +112,7 @@ def main(argv=None) -> int:
     from repro_torch.quant.codecs import (codec_name, get_codec,
                                           resolve_link_codecs)
 
+    parts = _wrap_parts()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
@@ -133,23 +176,39 @@ def main(argv=None) -> int:
              f"{n} workers x {m}, steps "
              f"{args.warm}..{args.steps - 1} profiled, auction rounds per "
              f"step {per_step_rounds}"]
-    # the device timeline holds each record_function range as an event
-    # of its own (the stage's device span) beside the kernels
+    # each stage and part by the launches made inside its range on the
+    # host: a kernel and its launch share a correlation id (a range's own
+    # device span is not used, as the profiler drops it for a range that
+    # holds another); nested calls of one range count once
     stages = ("decide", "advance", "train")
+    ranges = stages + tuple(parts)
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
-    spans = {st: [(e.time_range.start, e.time_range.end) for e in events
-                  if e.name == st] for st in stages}
-    kernels = [e for e in events if e.name not in stages]
+    kernels = [e for e in events if e.name not in ranges]
     iv = [(e.time_range.start, e.time_range.end) for e in kernels]
     n_prof = args.steps - args.warm
-    for name in stages:
-        clipped = [(max(a, s0), min(b, s1)) for s0, s1 in spans[name]
-                   for a, b in iv if a < s1 and b > s0]
-        dev_ms = _union_us(clipped) / 1e3 / n_prof
-        host_ms = float(np.mean(host[name])) * 1e3
-        lines.append(f"[profile] {name}: host {host_ms:.3f} ms/step, device "
-                     f"busy {dev_ms:.3f} ms/step ({dev_ms / host_ms:.1%})")
+    cpu = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CPU]
+    launched = {e.id: e.time_range.start for e in cpu
+                if e.name.startswith("cu") and any(
+                    w in e.name for w in ("Launch", "Memcpy", "Memset"))}
+    for name in ranges:
+        host_iv = _merged([(e.time_range.start, e.time_range.end)
+                           for e in cpu if e.name == name])
+
+        def inside(t):
+            return any(s0 <= t < s1 for s0, s1 in host_iv)
+
+        # a stage's host time ends in its synchronise
+        host_ms = (float(np.mean(host[name])) * 1e3 if name in stages
+                   else _union_us(host_iv) / 1e3 / n_prof)
+        n_launch = sum(1 for t in launched.values() if inside(t))
+        dev_ms = _union_us([(e.time_range.start, e.time_range.end)
+                            for e in kernels if e.id in launched
+                            and inside(launched[e.id])]) / 1e3 / n_prof
+        lines.append(f"[profile] {name}: host {host_ms:.3f} ms/step, "
+                     f"{n_launch / n_prof:.1f} launches/step, device busy "
+                     f"{dev_ms:.3f} ms/step ({dev_ms / host_ms:.1%})")
     busy = _union_us(iv)
     lines.append(f"[profile] window {wall_us / 1e3:.1f} ms, device busy "
                  f"{busy / 1e3:.1f} ms ({busy / wall_us:.1%}), idle "

@@ -3,61 +3,45 @@
 The counterpart of the JAX package's ``exchange/ragged.py``.  Where the
 reference runs inside ``shard_map`` with a ``lax.all_to_all``, the port
 holds every worker's rows in one tensor with the worker as the leading
-dimension, so the collective is a transpose of the stacked
+dimension, so the collective is a change of index into the stacked
 ``(n_src, n_dst, budget, ...)`` send blocks.  Three stages:
 
-  pack_send     one worker's rows + assignment -> (n, budget, ...) send
-                blocks in stable source order, built by the row-pack
-                kernel (:func:`repro_torch.kernels.exchange_pack.
-                gather_rows`), + per-destination counts + overflow;
-  all_to_all    ``send.transpose(0, 1)`` of the stacked blocks, and the
-                (src, dst) count matrix;
-  compact_recv  mask each (src -> me) block to its valid prefix and
-                compact the payload rows to the front of the output.
+  pack          every worker's rows + assignment -> (n_src, n_dst,
+                budget, ...) send blocks in stable source order, for
+                every payload at once, + the (src, dst) count matrix +
+                overflow: one launch of the pack kernel
+                (:func:`repro_torch.kernels.exchange_pack.pack_send_all`);
+  all_to_all    destination j's block i is source i's block j;
+  compaction    each destination's valid prefixes, compacted to the
+                front of its output: one gather over all destinations
+                (:func:`_recv_index`, then :func:`_compact` a payload).
 
 Wire order: a destination's batch is the concatenation over ascending
-source of each source's rows in their original local order.  Every pack
-goes through the kernel: 1-D rows (labels) pack as (m, 1), where the
-reference scatters them.
+source of each source's rows in their original local order.  1-D rows
+(labels) pack as (m, 1), where the reference scatters them.
 
-:func:`ragged_exchange_quant` is the quantized wire for float rows: the
-pack quantizes each send slot's row (kernel :func:`repro_torch.kernels.
-exchange_pack.gather_rows_quant`), codes, scales and zero-points cross
-the transpose, and each receiver dequantizes before it compacts.
+:func:`ragged_exchange_many` moves several payloads over one assignment,
+as the training step's advance moves ids, dense features and labels:
+one pack launch for them all.  With a codec the float (n, m, E)
+payloads take the quantized wire: each source quantizes its send slots
+in the pack (kernel :func:`repro_torch.kernels.exchange_pack.
+gather_rows_quant`, on the slot maps the one pack launch built), codes,
+scales and zero-points cross, and the receivers dequantize before they
+compact.  :func:`ragged_exchange` and :func:`ragged_exchange_quant` are
+its one-payload forms, :func:`pack_send` and :func:`compact_recv` its
+stages for one worker.
 """
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
-from ..kernels.exchange_pack import gather_rows, gather_rows_quant
+from ..kernels.exchange_pack import gather_rows_quant, pack_send_all
 from ..quant.codecs import dequantize_rows, get_codec
 
 __all__ = ["pack_send", "compact_recv", "ragged_exchange",
-           "ragged_exchange_quant"]
-
-
-def _slots(assign: torch.Tensor, n: int, budget: int):
-    """One worker's wire layout: ``slot_to_row`` ((n * budget,) int32,
-    -1 = PAD slot), counts (n,) int32 and overflow () int32."""
-    m = assign.shape[0]
-    dev = assign.device
-    a = assign.long()
-    counts = torch.zeros((n,), dtype=torch.int64, device=dev)
-    counts.scatter_add_(0, a, torch.ones_like(a))
-    starts = torch.cumsum(counts, 0) - counts
-    # stable rank of each row within its destination group
-    order = torch.argsort(a, stable=True)
-    rank = torch.empty_like(a).scatter_(
-        0, order, torch.arange(m, device=dev))
-    pos = rank - starts[a]
-    overflow = (pos >= budget).sum().to(torch.int32)
-    # overflow rows route to a scratch slot past the buffer and drop
-    slot = torch.where(pos < budget, a * budget + pos, n * budget)
-    slot_to_row = torch.full((n * budget + 1,), -1, dtype=torch.int32,
-                             device=dev)
-    slot_to_row.scatter_(0, slot, torch.arange(m, dtype=torch.int32,
-                                               device=dev))
-    return slot_to_row[:n * budget], counts.to(torch.int32), overflow
+           "ragged_exchange_many", "ragged_exchange_quant"]
 
 
 def pack_send(rows: torch.Tensor, assign: torch.Tensor, n: int, budget: int,
@@ -70,9 +54,47 @@ def pack_send(rows: torch.Tensor, assign: torch.Tensor, n: int, budget: int,
     rows beyond ``budget`` for a destination are dropped from the wire
     and counted in ``overflow`` (the driver raises on it).
     """
-    slot_to_row, counts, overflow = _slots(assign, n, budget)
-    send = gather_rows(rows.reshape(rows.shape[0], -1), slot_to_row, fill)
-    return send.reshape((n, budget) + rows.shape[1:]), counts, overflow
+    (send,), _, counts, overflow = pack_send_all(
+        assign[None], [rows[None]], n, budget, fill)
+    return send[0], counts[0], overflow
+
+
+def _recv_index(counts: torch.Tensor, budget: int, out_rows: int):
+    """Where each destination's output rows come from.
+
+    counts: (n_src, n_dst) rows each source sent each destination.
+    Returns (at (n_dst, out_rows) int64, the row of the flattened
+    (n_src, n_dst, budget) send blocks that lands at each output row;
+    ok (n_dst, out_rows), False past the destination's valid rows;
+    total (n_dst,) int32 valid rows received; recv_counts (n_dst, n_src)
+    int32, the counts clamped to the block an overflowing sender
+    shipped).
+    """
+    n_src, n_dst = counts.shape
+    dev = counts.device
+    recv_counts = counts.T.clamp(max=budget).contiguous()
+    ends = torch.cumsum(recv_counts, dim=1)
+    o = torch.arange(out_rows, device=dev)
+    # the source block holding output row o: the first whose end is past o
+    src = torch.searchsorted(ends, o.expand(n_dst, out_rows).contiguous(),
+                             right=True).clamp_(max=n_src - 1)
+    row = o[None, :] - (ends - recv_counts).gather(1, src)
+    ok = o[None, :] < ends[:, -1:]
+    dst = torch.arange(n_dst, device=dev)[:, None]
+    at = torch.where(ok, (src * n_dst + dst) * budget + row, 0)
+    return at, ok, ends[:, -1].to(torch.int32), recv_counts
+
+
+def _compact(blocks: torch.Tensor, at: torch.Tensor, ok: torch.Tensor,
+             fill: int) -> torch.Tensor:
+    """(n_src, n_dst, budget, ...) send blocks -> (n_dst, out_rows, ...)
+    compacted outputs, ``fill`` past each destination's valid rows."""
+    tail = blocks.shape[3:]
+    if blocks.shape[2] == 0:            # no budget: nothing on the wire
+        return torch.full(at.shape + tail, fill, dtype=blocks.dtype,
+                          device=blocks.device)
+    got = blocks.reshape((-1,) + tail)[at]
+    return torch.where(ok.reshape(ok.shape + (1,) * len(tail)), got, fill)
 
 
 def compact_recv(recv: torch.Tensor, recv_counts: torch.Tensor,
@@ -83,18 +105,53 @@ def compact_recv(recv: torch.Tensor, recv_counts: torch.Tensor,
     (n,) valid rows per block.  Returns (out (out_rows, ...) with the
     payload rows first and ``fill`` after, total () int32).
     """
-    n, budget = recv.shape[:2]
-    tail = recv.shape[2:]
-    valid = (torch.arange(budget, device=recv.device)[None, :]
-             < recv_counts[:, None])
-    vflat = valid.reshape(-1)
-    flat = recv.reshape((n * budget,) + tail)
-    dest = torch.cumsum(vflat, 0) - 1
-    idx = torch.where(vflat & (dest < out_rows), dest, out_rows)
-    out = torch.full((out_rows + 1,) + tail, fill, dtype=recv.dtype,
-                     device=recv.device)
-    out.index_copy_(0, idx, flat)
-    return out[:out_rows], vflat.sum().to(torch.int32)
+    at, ok, total, _ = _recv_index(recv_counts[:, None], recv.shape[1],
+                                   out_rows)
+    return _compact(recv[:, None], at, ok, fill)[0], total[0]
+
+
+def _quant_blocks(rows: torch.Tensor, slot_to_row: torch.Tensor, codec,
+                  budget: int, fill: int) -> torch.Tensor:
+    """Each source's send slots quantized in the pack (kernel B4, one
+    launch a source), then dequantized as their receivers do."""
+    n, _, E = rows.shape
+    wire = [gather_rows_quant(rows[i], slot_to_row[i], codec, fill)
+            for i in range(n)]
+    codes, scale, zp = (torch.stack(t) for t in zip(*wire))
+    return dequantize_rows(codes, scale, zp, codec).reshape(n, n, budget, E)
+
+
+def ragged_exchange_many(payloads: Sequence[torch.Tensor],
+                         assign: torch.Tensor, budget: int,
+                         out_rows: int | None = None, fill: int = -1,
+                         codec=None):
+    """One ragged all-to-all step for several payloads over one
+    assignment.
+
+    payloads: (n, m, ...) int32 or f32 tensors, every worker's local
+    rows; assign: (n, m) destination workers.  ``budget`` is the static
+    per-link block (>= the dispatch capacity); ``out_rows`` sizes each
+    worker's compacted output (default n * budget).  ``codec`` sends the
+    float (n, m, E) payloads over the quantized wire; the others travel
+    exact.  Returns (outs, one (n, out_rows, ...) per payload; total (n,)
+    valid rows per worker; recv_counts (n_dst, n_src) rows received per
+    link; overflow () int32 rows the cluster could not fit on the wire).
+    """
+    n = assign.shape[0]
+    c = get_codec(codec)
+    quant = [c is not None and a.dim() == 3 and a.is_floating_point()
+             for a in payloads]
+    sends, slot_to_row, counts, overflow = pack_send_all(
+        assign, [a for a, q in zip(payloads, quant) if not q], n, budget,
+        fill)
+    if out_rows is None:
+        out_rows = n * budget
+    at, ok, total, recv_counts = _recv_index(counts, budget, out_rows)
+    exact = iter(sends)
+    outs = [_compact(_quant_blocks(a, slot_to_row, c, budget, fill) if q
+                     else next(exact), at, ok, fill)
+            for a, q in zip(payloads, quant)]
+    return outs, total, recv_counts, overflow
 
 
 def ragged_exchange(rows: torch.Tensor, assign: torch.Tensor, budget: int,
@@ -109,21 +166,9 @@ def ragged_exchange(rows: torch.Tensor, assign: torch.Tensor, budget: int,
     per link, overflow () int32 rows the cluster could not fit on the
     wire).
     """
-    n = rows.shape[0]
-    packed = [pack_send(rows[i], assign[i], n, budget, fill=fill)
-              for i in range(n)]
-    send = torch.stack([p[0] for p in packed])       # (src, dst, budget, ...)
-    counts_mat = torch.stack([p[1] for p in packed])           # (src, dst)
-    overflow = torch.stack([p[2] for p in packed]).sum().to(torch.int32)
-    recv = send.transpose(0, 1)                      # (dst, src, budget, ...)
-    # receivers must not read past the block an overflowing sender shipped
-    recv_counts = counts_mat.T.clamp(max=budget)
-    if out_rows is None:
-        out_rows = n * budget
-    outs = [compact_recv(recv[j], recv_counts[j], out_rows, fill=fill)
-            for j in range(n)]
-    return (torch.stack([o[0] for o in outs]),
-            torch.stack([o[1] for o in outs]), recv_counts, overflow)
+    (out,), total, recv_counts, overflow = ragged_exchange_many(
+        [rows], assign, budget, out_rows, fill)
+    return out, total, recv_counts, overflow
 
 
 def ragged_exchange_quant(rows: torch.Tensor, assign: torch.Tensor,
@@ -133,37 +178,16 @@ def ragged_exchange_quant(rows: torch.Tensor, assign: torch.Tensor,
     rows.
 
     Each source packs and quantizes its send slots in one pass (kernel
-    :func:`repro_torch.kernels.exchange_pack.gather_rows_quant`), the
-    codes and the per-group scale and zero-point cross the transpose as
-    separate tensors (the values of the reference's concatenated block),
-    and each destination dequantizes its blocks before compacting them.
-    PAD fill rows are constant and come back bitwise ``fill``.
-    ``codec=None`` is the exact fp32 path.  Returns (out, total,
-    recv_counts, overflow) like :func:`ragged_exchange`.
+    :func:`repro_torch.kernels.exchange_pack.gather_rows_quant`, on the
+    slot maps of the pack kernel), the codes and the per-group scale and
+    zero-point cross as separate tensors (the values of the reference's
+    concatenated block), and each destination dequantizes its blocks
+    before compacting them.  PAD fill rows are constant and come back
+    bitwise ``fill``.  ``codec=None`` is the exact fp32 path.  Returns
+    (out, total, recv_counts, overflow) like :func:`ragged_exchange`.
     """
-    c = get_codec(codec)
-    if c is None:
-        return ragged_exchange(rows, assign, budget, out_rows=out_rows,
-                               fill=fill)
-    if rows.dim() != 3:
+    if get_codec(codec) is not None and rows.dim() != 3:
         raise ValueError("ragged_exchange_quant packs (n, m, E) float rows")
-    n, _, E = rows.shape
-    wire, counts, overflow = [], [], []
-    for i in range(n):
-        slot_to_row, cnt, ov = _slots(assign[i], n, budget)
-        wire.append(gather_rows_quant(rows[i], slot_to_row, c, fill))
-        counts.append(cnt)
-        overflow.append(ov)
-    # (src, dst * budget, ...) -> (dst, src, budget, ...)
-    codes, scale, zp = (
-        torch.stack(t).reshape((n, n, budget, -1)).transpose(0, 1)
-        for t in zip(*wire))
-    recv_counts = torch.stack(counts).T.clamp(max=budget)
-    if out_rows is None:
-        out_rows = n * budget
-    outs = [compact_recv(dequantize_rows(codes[j], scale[j], zp[j], c),
-                         recv_counts[j], out_rows, fill=fill)
-            for j in range(n)]
-    return (torch.stack([o[0] for o in outs]),
-            torch.stack([o[1] for o in outs]), recv_counts,
-            torch.stack(overflow).sum().to(torch.int32))
+    (out,), total, recv_counts, overflow = ragged_exchange_many(
+        [rows], assign, budget, out_rows, fill, codec)
+    return out, total, recv_counts, overflow

@@ -39,11 +39,14 @@ SIGNATURES = {
                                         _I, _I, _I, _I, _I, _I, _P],
         "pooled_lookup_quant_launch": [_P, _P, _P, _P, _P, _P,
                                        _I, _I, _I, _I, _I, _I, _P],
+        "empty_launch": [_P],
     },
     "exchange_pack": {
         "gather_rows_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
         "gather_rows_quant_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _F, _F, _F, _P],
+        "pack_send_all_launch": [_P] * 5 + [_I] + [_P] * 3 + [_I] * 4
+                                + [_P],
     },
     "auction": {
         "auction_bids_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],

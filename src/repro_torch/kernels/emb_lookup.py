@@ -9,8 +9,9 @@
   plane[s]``: the TTL refresh pull and merge into a cache plane.  Replaces
   the Pallas TPU kernel ``repro/kernels/emb_lookup.py:staged_gather``.
 * :func:`pooled_lookup_staged` — the pooled history bag read from the
-  plane where a live slot holds the id and from the table elsewhere.
-  Replaces ``repro/kernels/emb_lookup.py:pooled_lookup_staged``.
+  plane where a live slot holds the id and from the table elsewhere, a
+  warp per (bag, 128 columns) with its row loads in flight.  Replaces
+  ``repro/kernels/emb_lookup.py:pooled_lookup_staged``.
 * :func:`pooled_lookup_quant` — the pooled bag over a quantized table,
   ``out[b] = sum_f w[b, f] * (codes[id] * scale[id, g] + zp[id, g])``,
   the dequant fused into the accumulate.  Replaces
@@ -39,7 +40,7 @@ __all__ = ["LAUNCHES", "pooled_lookup", "pooled_lookup_ref",
 LAUNCHES = {"pooled_lookup": 0, "staged_gather": 0,
             "pooled_lookup_staged": 0, "pooled_lookup_quant": 0}
 
-_MAX_F = 4096   # the bag's row pointers and weights stage in shared memory
+_MAX_F = 4096   # the longest bag pooled_lookup_staged takes
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple):

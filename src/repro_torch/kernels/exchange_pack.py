@@ -1,9 +1,16 @@
 """The ragged exchange's row packs: wrappers and plain versions.
 
+* :func:`pack_send_all` — the exchange's whole pack in one launch: every
+  source worker's slot map (each row's destination block and stable rank
+  in it; rows past the budget off the wire) and its send blocks for
+  every payload (ids, dense features, labels), with the count matrix
+  and the overflow (:mod:`repro_torch.exchange.ragged`).  Replaces the
+  Pallas TPU kernel ``repro/kernels/exchange_pack.py:
+  gather_rows_pallas`` and the slot-map code around it in
+  ``repro/exchange/ragged.py:pack_send``.
 * :func:`gather_rows` — ``out[s] = rows[slot_to_row[s]]`` where the
-  index is >= 0, else a fill row — builds one worker's per-destination
-  send blocks (:func:`repro_torch.exchange.ragged.pack_send`).  Replaces
-  the Pallas TPU kernel ``repro/kernels/exchange_pack.py:
+  index is >= 0, else a fill row: the row pack alone, given a slot map
+  (the fp16 codec's pack).  Replaces ``repro/kernels/exchange_pack.py:
   gather_rows_pallas``.
 * :func:`gather_rows_quant` — the same gather fused with the per-group
   affine quantize of :func:`repro_torch.quant.codecs.quantize_rows`: the
@@ -22,17 +29,141 @@ counts kernel launches; nothing else adds to it.
 """
 from __future__ import annotations
 
+import ctypes
+import math
+from typing import Sequence
+
 import torch
 
 from ..quant.codecs import get_codec, group_size, inv_levels, quantize_rows
 from .emb_lookup import _check, _on_cuda, _raise_on
 
-__all__ = ["LAUNCHES", "gather_rows", "gather_rows_ref", "gather_rows_quant",
-           "gather_rows_quant_ref"]
+__all__ = ["LAUNCHES", "slot_map_ref", "pack_send_all",
+           "pack_send_all_ref", "gather_rows", "gather_rows_ref",
+           "gather_rows_quant", "gather_rows_quant_ref"]
 
-LAUNCHES = {"gather_rows": 0, "gather_rows_quant": 0}
+LAUNCHES = {"pack_send_all": 0, "gather_rows": 0, "gather_rows_quant": 0}
 
 _DTYPES = (torch.int32, torch.float32)
+# pack_send_all's limits (csrc/exchange_pack.cu): workers on either side,
+# rows a source, payloads a launch
+MAX_WORKERS, MAX_ROWS, MAX_PAYLOADS = 32, 65536, 4
+
+
+def _fill_word(fill: int, dtype: torch.dtype) -> int:
+    """The fill's 32-bit pattern in ``dtype``: -1.0f for f32 rows."""
+    return int(torch.tensor([fill], dtype=dtype).view(torch.int32)[0])
+
+
+# --------------------------------------------------------------------------
+# pack_send_all
+# --------------------------------------------------------------------------
+def slot_map_ref(assign: torch.Tensor, n: int, budget: int):
+    """One source worker's wire layout: ``slot_to_row`` ((n * budget,)
+    int32, -1 = PAD slot), counts (n,) int32 and overflow () int32.  Rows
+    keep their order within each destination block; rows past ``budget``
+    route to a scratch slot past the buffer and drop."""
+    m = assign.shape[0]
+    dev = assign.device
+    a = assign.long()
+    counts = torch.zeros((n,), dtype=torch.int64, device=dev)
+    counts.scatter_add_(0, a, torch.ones_like(a))
+    starts = torch.cumsum(counts, 0) - counts
+    # stable rank of each row within its destination group
+    order = torch.argsort(a, stable=True)
+    rank = torch.empty_like(a).scatter_(
+        0, order, torch.arange(m, device=dev))
+    pos = rank - starts[a]
+    overflow = (pos >= budget).sum().to(torch.int32)
+    slot = torch.where(pos < budget, a * budget + pos, n * budget)
+    slot_to_row = torch.full((n * budget + 1,), -1, dtype=torch.int32,
+                             device=dev)
+    slot_to_row.scatter_(0, slot, torch.arange(m, dtype=torch.int32,
+                                               device=dev))
+    return slot_to_row[:n * budget], counts.to(torch.int32), overflow
+
+
+def pack_send_all_ref(assign: torch.Tensor, payloads: Sequence[torch.Tensor],
+                      n: int, budget: int, fill: int = -1):
+    """Plain PyTorch version of :func:`pack_send_all`: each source's
+    :func:`slot_map_ref` and a :func:`gather_rows_ref` per payload."""
+    n_src, m = assign.shape
+    maps, counts, overflow = [], [], []
+    for i in range(n_src):
+        stm, cnt, ov = slot_map_ref(assign[i], n, budget)
+        maps.append(stm)
+        counts.append(cnt)
+        overflow.append(ov)
+    sends = [torch.stack([gather_rows_ref(
+                 rows[i].reshape(m, math.prod(rows.shape[2:])), stm, fill)
+                 for i, stm in enumerate(maps)])
+             .reshape((n_src, n, budget) + rows.shape[2:])
+             for rows in payloads]
+    return (sends, torch.stack(maps), torch.stack(counts),
+            torch.stack(overflow).sum().to(torch.int32))
+
+
+def pack_send_all(assign: torch.Tensor, payloads: Sequence[torch.Tensor],
+                  n: int, budget: int, fill: int = -1):
+    """Pack every source worker's rows into per-destination send blocks,
+    for several payloads over one assignment, in one launch.
+
+    assign: (n_src, m) int32, each row's destination in [0, n);
+    payloads: up to 4 (n_src, m, ...) int32 or f32 tensors (labels as
+    (n_src, m)).  Returns (sends, one (n_src, n, budget, ...) per payload
+    with PAD slots ``fill`` in the payload's dtype; slot_to_row (n_src,
+    n * budget) int32, -1 = PAD; counts (n_src, n) int32; overflow ()
+    int32, the rows past a destination's budget, left off the wire).
+    Rows keep their local order within each destination block.  With no
+    payloads it builds the slot maps alone.
+    """
+    _check("assign", assign, torch.int32, (None, None))
+    n_src, m = assign.shape
+    for q, rows in enumerate(payloads):
+        if not isinstance(rows, torch.Tensor) or rows.dtype not in _DTYPES:
+            raise TypeError(f"payload {q} must be an int32 or float32 "
+                            f"tensor")
+        if rows.dim() < 2 or tuple(rows.shape[:2]) != (n_src, m):
+            raise ValueError(f"payload {q} has shape {tuple(rows.shape)}, "
+                             f"expected ({n_src}, {m}, ...)")
+        if not rows.is_contiguous():
+            raise ValueError(f"payload {q} must be contiguous")
+    if n < 1 or budget < 0:
+        raise ValueError(f"pack_send_all needs n >= 1 and budget >= 0, got "
+                         f"n={n}, budget={budget}")
+    if not _on_cuda(assign, *payloads):
+        return pack_send_all_ref(assign, payloads, n, budget, fill)
+    if (n_src > MAX_WORKERS or n > MAX_WORKERS or m > MAX_ROWS
+            or len(payloads) > MAX_PAYLOADS):
+        raise ValueError(
+            f"pack_send_all takes at most {MAX_WORKERS} workers on either "
+            f"side, {MAX_ROWS} rows a source and {MAX_PAYLOADS} payloads, "
+            f"got {n_src} -> {n}, m={m}, {len(payloads)} payloads")
+    from ._build import load_library
+
+    lib = load_library("exchange_pack")
+    dev = assign.device
+    sends = [torch.empty((n_src, n, budget) + rows.shape[2:],
+                         dtype=rows.dtype, device=dev) for rows in payloads]
+    slot_to_row = torch.empty((n_src, n * budget), dtype=torch.int32,
+                              device=dev)
+    counts = torch.empty((n_src, n), dtype=torch.int32, device=dev)
+    overflow = torch.empty((), dtype=torch.int32, device=dev)
+    # the launcher reads the payloads' pointers, widths and fill words
+    # from host arrays
+    ptrs, ints = ctypes.c_void_p * MAX_PAYLOADS, ctypes.c_int * MAX_PAYLOADS
+    ins = ptrs(*[r.data_ptr() for r in payloads])
+    outs = ptrs(*[s.data_ptr() for s in sends])
+    widths = ints(*[math.prod(r.shape[2:]) for r in payloads])
+    fills = ints(*[_fill_word(fill, r.dtype) for r in payloads])
+    rc = lib.pack_send_all_launch(
+        assign.data_ptr(), ctypes.addressof(ins), ctypes.addressof(outs),
+        ctypes.addressof(widths), ctypes.addressof(fills), len(payloads),
+        slot_to_row.data_ptr(), counts.data_ptr(), overflow.data_ptr(),
+        n_src, n, m, budget, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "pack_send_all")
+    LAUNCHES["pack_send_all"] += 1
+    return sends, slot_to_row, counts, overflow
 
 
 def gather_rows_ref(rows: torch.Tensor, slot_to_row: torch.Tensor,
@@ -66,12 +197,11 @@ def gather_rows(rows: torch.Tensor, slot_to_row: torch.Tensor,
 
     lib = load_library("exchange_pack")
     S = slot_to_row.shape[0]
-    # the fill's 32-bit pattern in the rows' dtype: -1.0f for f32 rows
-    word = int(torch.tensor([fill], dtype=rows.dtype).view(torch.int32)[0])
     out = torch.empty((S, F), dtype=rows.dtype, device=rows.device)
     rc = lib.gather_rows_launch(
         rows.data_ptr(), slot_to_row.data_ptr(), out.data_ptr(), S, F, m,
-        word, torch.cuda.current_stream(rows.device).cuda_stream)
+        _fill_word(fill, rows.dtype),
+        torch.cuda.current_stream(rows.device).cuda_stream)
     _raise_on(rc, "gather_rows")
     LAUNCHES["gather_rows"] += 1
     return out

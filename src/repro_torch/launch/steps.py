@@ -18,7 +18,7 @@ import torch
 from ..core.dispatch import (dispatch_cap, esd_cost_matrix, esd_decide,
                              esd_state_update_sparse, exchange_budget,
                              need_ids_list)
-from ..exchange.ragged import ragged_exchange, ragged_exchange_quant
+from ..exchange.ragged import ragged_exchange_many
 from ..models import api
 from ..quant.codecs import get_codec
 
@@ -52,18 +52,20 @@ def make_esd_exchange(mode: str, n: int, m: int, budget: int | None = None,
     """Row-exchange function for the ESD step: ``route(a, assign)`` moves
     every worker's (n, m, ...) rows (sample ids, dense features, labels)
     to the worker each sample was assigned to (assign: (n, m)) and
-    returns ``(out (n, out_rows, ...), overflow)``.
+    returns ``(out (n, out_rows, ...), overflow)``.  Given a tuple of
+    such arrays it moves them all over the one assignment and returns
+    ``(outs, overflow)``.
 
     ``mode="padded"`` is the fixed m/n all-to-all baseline (no kernel);
-    ``mode="ragged"`` is the budgeted executor, whose packs run the
-    row-pack kernel.  With the default ``budget = m // n`` and
-    ``out_rows = m`` the two agree exactly; a relaxed capacity passes
-    ``exchange_budget`` and ``out_rows = n * budget``, and the rows past
-    each worker's valid prefix come back as -1.
+    ``mode="ragged"`` is the budgeted executor, whose pack of all the
+    arrays is one launch of the pack kernel.  With the default ``budget
+    = m // n`` and ``out_rows = m`` the two agree exactly; a relaxed
+    capacity passes ``exchange_budget`` and ``out_rows = n * budget``,
+    and the rows past each worker's valid prefix come back as -1.
 
     ``codec`` (ragged only) quantizes the float (n, m, F) payload, the
     dense features, on the wire
-    (:func:`repro_torch.exchange.ragged.ragged_exchange_quant`); sample
+    (:func:`repro_torch.exchange.ragged.ragged_exchange_many`); sample
     ids and labels always travel exact.
     """
     if mode not in ("padded", "ragged"):
@@ -76,29 +78,31 @@ def make_esd_exchange(mode: str, n: int, m: int, budget: int | None = None,
             raise ValueError("padded exchange is fixed-shape: budget/out_rows "
                              "cannot deviate from m/n and m")
 
-        def route(a, assign):
+        def route_all(arrays, assign):
             order = torch.argsort(assign, dim=1, stable=True)      # (n, m)
-            idx = order.reshape(order.shape + (1,) * (a.dim() - 2))
-            routed = torch.gather(a, 1, idx.expand(a.shape))
-            blocks = routed.reshape((n, n, m // n) + a.shape[2:])
-            out = blocks.transpose(0, 1).reshape(a.shape)
-            return out, torch.zeros((), dtype=torch.int32, device=a.device)
+            outs = []
+            for a in arrays:
+                idx = order.reshape(order.shape + (1,) * (a.dim() - 2))
+                routed = torch.gather(a, 1, idx.expand(a.shape))
+                blocks = routed.reshape((n, n, m // n) + a.shape[2:])
+                outs.append(blocks.transpose(0, 1).reshape(a.shape))
+            return outs, torch.zeros((), dtype=torch.int32,
+                                     device=assign.device)
     else:
         budget = m // n if budget is None else budget
         out_rows = m if out_rows is None else out_rows
 
-        def route(a, assign):
-            if a.dim() == 2:       # labels pack as (m, 1) rows
-                out, _, _, overflow = ragged_exchange(a[..., None], assign,
-                                                      budget, out_rows)
-                return out[..., 0], overflow
-            if codec is not None and a.is_floating_point():
-                out, _, _, overflow = ragged_exchange_quant(
-                    a, assign, budget, codec, out_rows)
-                return out, overflow
-            out, _, _, overflow = ragged_exchange(a, assign, budget,
-                                                  out_rows)
-            return out, overflow
+        def route_all(arrays, assign):
+            # every array rides the one assignment and budget: one pack
+            # launch, and one overflow counter covers them all
+            outs, _, _, overflow = ragged_exchange_many(
+                arrays, assign, budget, out_rows, codec=codec)
+            return outs, overflow
+
+    def route(a, assign):
+        many = isinstance(a, (tuple, list))
+        outs, overflow = route_all(tuple(a) if many else (a,), assign)
+        return (tuple(outs) if many else outs[0]), overflow
 
     return route
 
@@ -163,12 +167,8 @@ def make_dlrm_esd_stages(n: int, m: int, t_tran: torch.Tensor, alpha: float,
         return assign.reshape(-1), alg1.sum()
 
     def advance(esd_state, sparse, dense, labels, assign):
-        a = split(assign)
-        # every array rides the same assignment/budget, so one route's
-        # overflow counter covers the step
-        s2, overflow = route(split(sparse), a)
-        d2, _ = route(split(dense), a)
-        l2, _ = route(split(labels), a)
+        (s2, d2, l2), overflow = route(
+            (split(sparse), split(dense), split(labels)), split(assign))
         need = need_ids_list(s2)
         new_state, counts = esd_state_update_sparse(esd_state, need,
                                                     capacity)

@@ -10,8 +10,9 @@ feeds, with ``--esd-alpha``, three stages per step
 
   decide   Alg. 1 over each worker's touched ids, through the
            pooled-lookup kernel, then Alg. 2 (auction + greedy);
-  advance  the sample exchange (``--exchange ragged``: send blocks packed
-           by the row-pack kernel) and the sparse cache-state update;
+  advance  the sample exchange (``--exchange ragged``: every worker's
+           ids, dense features and labels packed in one launch of the
+           pack kernel) and the sparse cache-state update;
   train    the DLRM forward and backward on the exchanged batch, then
            row-wise Adagrad.
 

@@ -5,10 +5,13 @@ Imports no JAX, so it runs on a machine with a card and without JAX:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda_kernels.py
 
 Without a CUDA device every test here skips.  staged_gather and
-gather_rows copy rows and must be exact; pooled_lookup sums in the plain
-version's order with the multiply and the add rounded apart and must be
-exact too; pooled_lookup_staged does the same and is held to rtol =
-atol = 1e-5 all the same.  gather_rows_quant and pooled_lookup_quant
+gather_rows copy rows and must be exact, as must pack_send_all, the
+exchange's one-launch pack (slot maps, counts, overflow and send
+blocks); pooled_lookup sums in the plain version's order with the
+multiply and the add rounded apart and must be exact too;
+pooled_lookup_staged does the same and is held bit for bit at the
+serving shapes and around them (and to rtol = atol = 1e-5 in the older
+tests).  gather_rows_quant and pooled_lookup_quant
 compute in their plain versions' forms and must match them bit for bit.
 auction_bids takes one subtraction per value, exact max/argmax and two
 rounded additions: best_j and bid bit for bit.  auction_solve, the whole
@@ -39,6 +42,7 @@ import pytest
 import torch
 
 from repro_torch.core import auction as ta
+from repro_torch.exchange import ragged as tr
 from repro_torch.kernels import auction as tb
 from repro_torch.kernels import emb_lookup as tk
 from repro_torch.kernels import exchange_pack as tp
@@ -550,3 +554,118 @@ def test_flash_attention_bwd_kernel_reads_strided_inputs(cuda, dtype):
                                        dout.contiguous(), True)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,F,E", [(16, 48, 512), (4096, 48, 512),
+                                   (9, 48, 510), (5, 300, 130), (3, 1, 4),
+                                   (300, 7, 1030), (2, 64, 128)])
+def test_pooled_lookup_staged_is_bitwise(cuda, B, F, E):
+    """The serving shapes (B = 16 and 4,096 bags of 48 at E = 512) and
+    odd ones: rows that are not a multiple of 4 (the scalar layout), more
+    valid lookups than a warp's list holds (300), one lookup, a row
+    chunk left over (1030); an all-PAD bag pools to zeros."""
+    rng = np.random.default_rng(B * 7 + F + E)
+    x = _inputs(rng, V=5000, C=64, E=E, B=B, F=F, device=cuda)
+    x["ids"][0], x["slots"][0] = -1, -1
+    n0 = tk.LAUNCHES["pooled_lookup_staged"]
+    for w in (None, x["w"]):
+        args = (x["plane"], x["table"], x["slots"], x["ids"], w)
+        got = tk.pooled_lookup_staged(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tk.pooled_lookup_staged_ref(*args))
+        assert not got[0].any()
+    assert tk.LAUNCHES["pooled_lookup_staged"] == n0 + 2
+
+
+def test_pooled_lookup_staged_unaligned_is_bitwise(cuda):
+    x = _inputs(np.random.default_rng(3), V=64, C=10, E=512, B=16, F=48,
+                device=cuda)
+    big = torch.zeros(10 * 512 + 1, device=cuda)
+    plane = big[1:].view(10, 512)
+    plane.copy_(x["plane"])
+    assert plane.data_ptr() % 16 != 0
+    args = (plane, x["table"], x["slots"], x["ids"], x["w"])
+    assert torch.equal(tk.pooled_lookup_staged(*args),
+                       tk.pooled_lookup_staged_ref(*args))
+
+
+def _pack_case(rng, n_src, n, m, kind):
+    if kind == "balanced":
+        a = np.stack([rng.permutation(np.arange(m) % n)
+                      for _ in range(n_src)])
+    elif kind == "skew":                  # destination 0 over budget
+        a = rng.integers(0, n, (n_src, m))
+        a[:, : m // 2] = 0
+    else:                                 # nobody sends to the last
+        a = rng.integers(0, max(n - 1, 1), (n_src, m))
+    payloads = [rng.integers(-9, 999, (n_src, m, 74)).astype(np.int32),
+                rng.normal(size=(n_src, m, 13)).astype(np.float32),
+                (rng.random((n_src, m)) < 0.3).astype(np.float32),
+                rng.normal(size=(n_src, m, 2, 3)).astype(np.float32)]
+    return torch.from_numpy(a.astype(np.int32)), [torch.from_numpy(p)
+                                                  for p in payloads]
+
+
+@pytest.mark.parametrize("n_src,n,m,budget,kind", [
+    (4, 4, 256, 64, "balanced"), (4, 4, 256, 64, "skew"),
+    (4, 4, 256, 128, "empty"), (4, 4, 256, 128, "skew"),
+    (3, 5, 77, 9, "skew"), (1, 4, 8, 2, "balanced"),
+    (32, 32, 300, 5, "skew"), (2, 3, 1000, 400, "balanced"),
+    (4, 4, 256, 0, "balanced"), (2, 2, 0, 4, "balanced")])
+def test_pack_send_all_matches_plain(cuda, n_src, n, m, budget, kind):
+    assign, payloads = _pack_case(np.random.default_rng(m + budget), n_src,
+                                  n, m, kind)
+    for k in (4, 3, 0):
+        n0 = tp.LAUNCHES["pack_send_all"]
+        got = tp.pack_send_all(assign.to(cuda),
+                               [p.to(cuda) for p in payloads[:k]], n, budget)
+        torch.cuda.synchronize()
+        assert tp.LAUNCHES["pack_send_all"] == n0 + 1
+        want = tp.pack_send_all_ref(assign, payloads[:k], n, budget)
+        assert len(got[0]) == k
+        for a, b in zip(got[0] + list(got[1:]), want[0] + list(want[1:])):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert torch.equal(a.cpu(), b)
+
+
+def test_pack_send_all_raises_beyond_its_limits(cuda):
+    a = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    p = torch.zeros((4, 8, 3), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="at most 32 workers"):
+        tp.pack_send_all(a, [p], 33, 1)
+    with pytest.raises(ValueError, match="at most 32 workers"):
+        tp.pack_send_all(torch.zeros((33, 8), dtype=torch.int32,
+                                     device=cuda), [], 4, 1)
+    with pytest.raises(ValueError, match="65536 rows"):
+        tp.pack_send_all(torch.zeros((1, 65537), dtype=torch.int32,
+                                     device=cuda), [], 4, 1)
+    with pytest.raises(ValueError, match="4 payloads"):
+        tp.pack_send_all(a, [p] * 5, 4, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        tp.pack_send_all(a, [p.transpose(1, 2).contiguous()
+                             .transpose(1, 2)], 4, 2)
+    with pytest.raises(TypeError, match="int32 or float32"):
+        tp.pack_send_all(a, [p.long()], 4, 2)
+    with pytest.raises(ValueError, match="several devices"):
+        tp.pack_send_all(a, [p.cpu()], 4, 2)
+
+
+@pytest.mark.parametrize("codec", [None, "int8"])
+def test_ragged_exchange_many_on_card_equals_cpu(cuda, codec):
+    """ids, dense features and labels over one assignment: one pack
+    launch (and, with the codec, a pack-quantize a worker), the same
+    outputs as on the CPU."""
+    assign, payloads = _pack_case(np.random.default_rng(11), 4, 4, 256,
+                                  "skew")
+    payloads = payloads[:3]
+    n0 = dict(tp.LAUNCHES)
+    got = tr.ragged_exchange_many([p.to(cuda) for p in payloads],
+                                  assign.to(cuda), 128, 512, codec=codec)
+    torch.cuda.synchronize()
+    assert tp.LAUNCHES == {**n0, "pack_send_all": n0["pack_send_all"] + 1,
+                           "gather_rows_quant": n0["gather_rows_quant"]
+                           + (4 if codec else 0)}
+    want = tr.ragged_exchange_many(payloads, assign, 128, 512, codec=codec)
+    for a, b in zip(got[0] + list(got[1:]), want[0] + list(want[1:])):
+        assert torch.equal(a.cpu(), b)
+

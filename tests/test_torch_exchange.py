@@ -1,5 +1,6 @@
-"""Kernel B2 (the row pack) and the ragged exchange over the worker
-dimension: repro_torch against the JAX package on the CPU.
+"""Kernel B2 (the row pack), the exchange's one-launch pack of every
+worker and payload, and the ragged exchange over the worker dimension:
+repro_torch against the JAX package on the CPU.
 
 The reference's pack kernel runs in interpret mode; the port's wrapper
 runs its plain version on CPU tensors.  The exchange is held against
@@ -18,7 +19,8 @@ from repro.core.dispatch_tpu import dispatch_cap, exchange_budget
 from repro.exchange import compact_recv as j_compact, pack_send as j_pack
 from repro.kernels.exchange_pack import gather_rows_pallas
 from repro_torch.exchange.ragged import (compact_recv, pack_send,
-                                         ragged_exchange)
+                                         ragged_exchange,
+                                         ragged_exchange_many)
 from repro_torch.kernels import exchange_pack as tk
 from repro_torch.launch.steps import make_esd_exchange
 
@@ -127,3 +129,104 @@ def test_padded_route_equals_ragged_under_the_hard_cap():
                  torch.from_numpy(rng.random((n, m)).astype(np.float32))):
         (a, ov_a), (b, ov_b) = padded(rows, assign), ragged(rows, assign)
         assert torch.equal(a, b) and int(ov_a) == int(ov_b) == 0
+
+
+def _assignment(rng, case, n, m, budget):
+    if case == "uniform":
+        return np.stack([rng.permutation(np.arange(m) % n)
+                         for _ in range(n)]).astype(np.int32)
+    if case == "empty_dest":        # nobody sends to the last worker
+        return rng.integers(0, n - 1, (n, m)).astype(np.int32)
+    a = rng.integers(0, n, (n, m))  # "overflow": worker 0 over budget
+    a[:, : budget + 2] = 0
+    return a.astype(np.int32)
+
+
+@pytest.mark.parametrize("case,budget", [("uniform", 3), ("overflow", 3),
+                                         ("empty_dest", 8),
+                                         ("overflow", 8)])
+def test_pack_send_all_matches_pallas_reference(case, budget):
+    """The one-launch pack's plain version (what the CPU runs) against
+    the reference's ``pack_send(use_pallas=True)`` worker by worker: ids
+    (int32) and dense features (f32) through the Pallas pack in
+    interpret mode, labels 1-D; overflow, an empty destination, and a
+    budget above m/n (8 > 12/4)."""
+    rng = np.random.default_rng(budget + len(case))
+    n, m = 4, 12
+    assign = _assignment(rng, case, n, m, budget)
+    ids = rng.integers(-1, 999, (n, m, 5)).astype(np.int32)
+    dense = rng.normal(size=(n, m, 3)).astype(np.float32)
+    labels = (rng.random((n, m)) < 0.3).astype(np.float32)
+    n0 = dict(tk.LAUNCHES)
+    sends, slot_to_row, counts, overflow = tk.pack_send_all(
+        torch.from_numpy(assign),
+        [torch.from_numpy(a) for a in (ids, dense, labels)], n, budget)
+    assert tk.LAUNCHES == n0                     # CPU: no kernel launched
+    total_ov = 0
+    for i in range(n):
+        for q, rows in enumerate((ids, dense, labels)):
+            s, c, ov = j_pack(jnp.asarray(rows[i]), jnp.asarray(assign[i]),
+                              n, budget, use_pallas=True)
+            assert sends[q].dtype == torch.from_numpy(rows).dtype
+            np.testing.assert_array_equal(sends[q][i].numpy(), np.asarray(s))
+        np.testing.assert_array_equal(counts[i].numpy(), np.asarray(c))
+        total_ov += int(ov)
+        # the slot map names the rows the blocks hold
+        stm = slot_to_row[i].numpy()
+        np.testing.assert_array_equal(
+            sends[0][i].numpy().reshape(n * budget, -1)[stm >= 0],
+            ids[i][stm[stm >= 0]])
+    assert int(overflow) == total_ov
+    assert (total_ov > 0) == (case == "overflow")
+    if case == "empty_dest":
+        assert not counts[:, -1].any() and (slot_to_row.numpy()[
+            :, (n - 1) * budget:] == -1).all()
+
+
+@pytest.mark.parametrize("case,budget,out_rows", [
+    ("uniform", 3, 12), ("overflow", 3, 12), ("empty_dest", 8, 32),
+    ("overflow", 8, 32), ("overflow", 8, 10)])
+def test_ragged_exchange_many_matches_reference(case, budget, out_rows):
+    """ids, dense features and labels over one assignment in one call:
+    each output is the reference's exchange of that payload alone, bit
+    for bit, with the same totals, counts and overflow."""
+    rng = np.random.default_rng(budget * 3 + out_rows + len(case))
+    n, m = 4, 12
+    assign = _assignment(rng, case, n, m, budget)
+    payloads = [rng.integers(-1, 999, (n, m, 5)).astype(np.int32),
+                rng.normal(size=(n, m, 3)).astype(np.float32),
+                (rng.random((n, m)) < 0.3).astype(np.float32)]
+    outs, total, recv_counts, ov = ragged_exchange_many(
+        [torch.from_numpy(a) for a in payloads], torch.from_numpy(assign),
+        budget, out_rows)
+    for got, rows in zip(outs, payloads):
+        want, totals, _, counts, overflow = _reference_exchange(
+            rows, assign, n, budget, out_rows)
+        assert got.dtype == torch.from_numpy(rows).dtype
+        np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(total.numpy(), totals)
+    np.testing.assert_array_equal(recv_counts.numpy(),
+                                  np.minimum(counts.T, budget))
+    assert int(ov) == overflow
+
+
+@pytest.mark.parametrize("mode", ["padded", "ragged"])
+def test_route_of_several_arrays_equals_routes_of_each(mode):
+    """``route((ids, dense, labels), assign)``, the advance's one call,
+    returns what routing each array alone returns."""
+    rng = np.random.default_rng(6)
+    n, m = 4, 8
+    assign = torch.from_numpy(np.stack(
+        [rng.permutation(np.repeat(np.arange(n), m // n)) for _ in range(n)])
+        .astype(np.int32))
+    arrays = (torch.from_numpy(rng.integers(0, 99, (n, m, 5))
+                               .astype(np.int32)),
+              torch.from_numpy(rng.normal(size=(n, m, 13))
+                               .astype(np.float32)),
+              torch.from_numpy(rng.random((n, m)).astype(np.float32)))
+    route = make_esd_exchange(mode, n, m)
+    outs, ov = route(arrays, assign)
+    assert isinstance(outs, tuple) and len(outs) == 3 and int(ov) == 0
+    for got, a in zip(outs, arrays):
+        assert torch.equal(got, route(a, assign)[0])
+

@@ -299,3 +299,31 @@ def test_codec_driver_matches_reference(reference, policy):
         np.testing.assert_allclose(rec["loss"], want[f"loss_{i}"], rtol=1e-5)
         assert rec["demand_miss_bytes"] == rec["miss_pull"] * row_wire_bytes(
             DLRM_CONFIGS[ARCH].embedding_dim, "int8")
+
+
+@pytest.mark.parametrize("slack,codec", [(0.0, None), (0.5, None),
+                                         (0.0, "int8")])
+def test_advance_packs_once_a_step(reference, monkeypatch, slack, codec):
+    """The advance moves ids, dense features and labels with one pack a
+    step over all workers (on the card one pack_send_all launch; with the
+    codec the dense features take the pack-quantize, one a worker), and
+    its outputs and counts stay the reference's."""
+    from repro_torch.exchange import ragged
+
+    calls = {"pack_send_all": 0, "gather_rows_quant": 0}
+    for name in calls:
+        def spy(*a, _fn=getattr(ragged, name), _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(ragged, name, spy)
+    params, refs = reference
+    want = refs[slack] if codec is None else refs["uniform"]
+    got = _stages_replay(params, slack, codec=codec)
+    assert calls == {"pack_send_all": STEPS,
+                     "gather_rows_quant": N * STEPS if codec else 0}
+    for i in range(STEPS):
+        for key in ("assign", "s2", "d2", "l2", "exchange_overflow") + COUNTS:
+            np.testing.assert_array_equal(got[f"{key}_{i}"],
+                                          want[f"{key}_{i}"],
+                                          err_msg=f"{key} at step {i}")
+
