@@ -29,10 +29,16 @@ Phases, each printing its own lines:
    exchange's one-launch pack of all three for 4 workers of 256, bit for
    bit against its per-worker plain version (balanced, with overflow,
    with an empty destination, on a relaxed budget), timed beside the 12
-   row packs it replaces and beside those with their slot maps.  The quantized
-   wire: the fused pack-quantize of 256 slots of dense features (fp16,
-   int8, int4, int8:4; and int8 at 512 columns), and the pooled lookup
-   over the int8-quantized wdl-s1 table (256 x 74, E = 512 and E = 4).
+   row packs it replaces and beside those with their slot maps.  The
+   quantized wire: the pack-quantize alone on 256 slots of dense features
+   (fp16, int8, int4, int8:4; and int8 at 512 columns); the exchange's
+   one launch with the dense features quantized
+   (``pack_send_all_quant``: fp16, int8, int4, int8:4 at the training
+   shapes, balanced and with overflow, and int8 at 512 columns), bit for
+   bit against its per-worker plain version, timed beside the path it
+   replaced (the exact pack, 4 pack-quantizes and their stack); and the
+   pooled lookup over the int8-quantized wdl-s1 table (256 x 74, E = 512
+   and E = 4; both of its layouts).
    The auction's bids at Table 2's and the simulator's shapes (k = 256
    and 8,192 rows of 8 workers, 1,024 of 16, 64 of 1; a random
    unassigned mask), bit for bit; and the fused whole-solve auction
@@ -67,8 +73,9 @@ Phases, each printing its own lines:
 6. train — ``run_dlrm`` at wdl-s1 (4 workers x 256 samples, ESD alpha 1,
    ragged exchange, 10 steps), then again with ``--codec int8``: one
    launch of the fused auction kernel a step, its rounds per step equal
-   to the CPU's; one launch of the exchange's pack a step (and, with the
-   codec, 4 of the pack-quantize), the row pack alone never;
+   to the CPU's; one launch of the exchange's pack a step (with the codec
+   its quantized kernel), the row pack and the pack-quantize alone
+   never;
 7. table 2 — ``auction_dispatch(exact=False)`` on the draws of
    ``benchmarks/table2.py`` (8 workers, 32 to 1,024 samples a worker):
    rounds, ms per decision and one auction_solve launch each, beside the
@@ -122,6 +129,7 @@ SOURCES = {"pooled_lookup": CSRC + "emb_lookup.cu",
            "staged_gather": CSRC + "emb_lookup.cu",
            "pooled_lookup_staged": CSRC + "emb_lookup.cu",
            "gather_rows_quant": CSRC + "exchange_pack.cu",
+           "pack_send_all_quant": CSRC + "exchange_pack.cu",
            "pooled_lookup_quant": CSRC + "emb_lookup.cu",
            "auction_bids": CSRC + "auction.cu",
            "auction_solve": CSRC + "auction.cu",
@@ -135,6 +143,11 @@ REPLACES = {"pooled_lookup": "src/repro/kernels/emb_lookup.py:88",
             "staged_gather": "src/repro/kernels/emb_lookup.py:174",
             "pooled_lookup_staged": "src/repro/kernels/emb_lookup.py:245",
             "gather_rows_quant": "src/repro/kernels/exchange_pack.py:108",
+            "pack_send_all_quant": "src/repro/kernels/exchange_pack.py:108 "
+                                   "and :34 with the slot map around them: "
+                                   "src/repro/exchange/ragged.py:123 "
+                                   "(ragged_exchange_quant), :36 "
+                                   "(pack_send)",
             "pooled_lookup_quant": "src/repro/kernels/emb_lookup.py:337",
             "auction_bids": "src/repro/kernels/auction.py:51",
             "auction_solve": "src/repro/kernels/auction.py:51 with the "
@@ -519,6 +532,7 @@ def phase_quant_kernels(seed: int) -> dict:
                 max_abs_err=float((out[0] - ref[0]).abs().max()), ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
     del wide_rows
+    rec["pack_send_all_quant"] = phase_quant_pack(rng, wl, 4, m, dev)
 
     # B5: one S1 batch pooled over the int8-quantized wdl-s1 table, and
     # over a quantized table at the decide stage's width E = 4
@@ -558,6 +572,97 @@ def phase_quant_kernels(seed: int) -> dict:
                 bound_by=b_by)
         del codes, scale, zp
     return rec
+
+
+def phase_quant_pack(rng, wl, n: int, m: int, dev) -> dict:
+    """The exchange's one launch with the dense features on the quantized
+    wire (4 workers of 256: ids 74 int32, dense 13 f32 quantized, labels
+    f32) against its plain version, which packs and quantizes worker by
+    worker; timed beside the path it replaced: the exact pack of ids and labels, then a
+    pack-quantize a worker on the pack's slot maps, stacked."""
+    from repro_torch.kernels import exchange_pack as P
+    from repro_torch.quant.codecs import get_codec
+
+    ids = torch.as_tensor(np.stack([wl.sample_batch(rng, m)
+                                    for _ in range(n)]).astype(np.int32),
+                          device=dev)
+    dense = torch.as_tensor(np.stack([wl.dense_batch(rng, m)
+                                      for _ in range(n)]), device=dev)
+    labels = torch.as_tensor(np.stack([wl.label_batch(rng, m)
+                                       for _ in range(n)]), device=dev)
+    wide = torch.randn((n, m, 512), device=dev)
+    balanced = torch.as_tensor(np.stack(
+        [rng.permutation(np.repeat(np.arange(n), m // n))
+         for _ in range(n)]).astype(np.int32), device=dev)
+    skew = rng.integers(0, n, (n, m))
+    skew[:, : m // 2] = 0                  # worker 0 over its budget
+    skew = torch.as_tensor(skew.astype(np.int32), device=dev)
+    budget = m // n
+    marks = (False, True, False)
+
+    def same_bits(a, b):
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.contiguous().view(torch.uint8),
+                                b.contiguous().view(torch.uint8)))
+
+    def flat(out):                 # every tensor of an output, but overflow
+        return [t for x in out[0] for t in (x if isinstance(x, tuple)
+                                            else (x,))] + list(out[1:3])
+
+    cases = [(name, what, a, dense) for name in ("fp16", "int8", "int4",
+                                                 "int8:4")
+             for what, a in (("train", balanced), ("overflow", skew))]
+    for name, what, assign, rows in cases + [("int8", "train", balanced,
+                                              wide)]:
+        payloads = [ids, rows, labels]
+        got = P.pack_send_all(assign, payloads, n, budget, codec=name,
+                              quantized=marks)
+        want = P.pack_send_all_ref(assign, payloads, n, budget, codec=name,
+                                   quantized=marks)
+        torch.cuda.synchronize()
+        check(all(same_bits(x, y) for x, y in zip(flat(got), flat(want)))
+              and int(got[3]) == int(want[3]),
+              f"pack_send_all_quant {name} {what} F={rows.shape[2]} is "
+              f"bitwise equal to plain")
+        check((int(got[3]) > 0) == (what == "overflow"),
+              f"pack_send_all_quant {what}: overflow only where the budget "
+              f"is short")
+        print(f"[kernel] pack_send_all_quant {name} {what}: n={n} m={m} "
+              f"budget={budget} F={rows.shape[2]} overflow="
+              f"{int(got[3])}: bitwise")
+    c = get_codec("int8")
+    payloads = [ids, dense, labels]
+
+    def fused():
+        P.pack_send_all(balanced, payloads, n, budget, codec=c,
+                        quantized=marks)
+
+    def replaced():                # the exact pack, then B4 per worker
+        _, stm, _, _ = P.pack_send_all(balanced, [ids, labels], n, budget)
+        wire = [P.gather_rows_quant(dense[i], stm[i], c) for i in range(n)]
+        return [torch.stack(t) for t in zip(*wire)]
+
+    ms, call_ms = device_ms(fused)
+    was_ms, was_call = device_ms(replaced)
+    plain_ms, plain_call = device_ms(
+        lambda: P.pack_send_all_ref(balanced, payloads, n, budget, codec=c,
+                                    quantized=marks), reps=10)
+    wide_ms, wide_call = device_ms(lambda: P.pack_send_all(
+        balanced, [ids, wide, labels], n, budget, codec=c, quantized=marks))
+    S = n * budget
+    # bytes: assign read, each row of each payload read once, every slot
+    # written (ids 74 words, labels 1, codes 13, scale and zp 1 each),
+    # with slot_to_row and the counts; 7 operations a quantized element
+    b_ms, b_by = bound(n * m * 4 + n * m * (74 + 13 + 1) * 4
+                       + n * S * (74 + 1 + 13 + 2) * 4 + n * S * 4
+                       + n * n * 4 + 4, 7 * n * S * 13)
+    print(f"[kernel] pack_send_all_quant train (ids 74 int32, dense 13 f32 "
+          f"int8, labels f32): {ms:.4f} ms (call {call_ms:.4f}); the path it replaced (pack, 4 gather_rows_quant, stack) "
+          f"{was_ms:.4f} ms (call {was_call:.4f}); plain {plain_ms:.4f} ms "
+          f"(call {plain_call:.4f}); dense at 512 columns {wide_ms:.4f} ms "
+          f"(call {wide_call:.4f}); bound {b_ms:.6f} ms ({b_by})")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by)
 
 
 def phase_kernels(seed: int) -> dict:
@@ -867,14 +972,15 @@ def phase_train(seed: int, codec=None) -> dict:
     check(args.seed != 0 or rounds == TRAIN_ROUNDS[codec][:len(rounds)],
           "the training auction's rounds equal the CPU's "
           "(scripts/train_auction_rounds.py --device cpu)")
-    check(per_step.get("pack_send_all") == 1.0
+    pack, other = (("pack_send_all", "pack_send_all_quant") if codec is None
+                   else ("pack_send_all_quant", "pack_send_all"))
+    check(per_step.get(pack) == 1.0 and other not in launches
           and "gather_rows" not in launches,
-          "one pack_send_all launch a step packs the exchange, for every "
-          "worker and payload; gather_rows never runs on the step")
-    check(per_step.get("gather_rows_quant") == (None if codec is None
-                                                else 4.0),
-          "gather_rows_quant packs the dense features per worker with "
-          "the codec, and never without it")
+          f"one {pack} launch a step packs the exchange, for every "
+          f"worker and payload; gather_rows never runs on the step")
+    check("gather_rows_quant" not in launches,
+          "gather_rows_quant never runs on the step: the pack quantizes "
+          "the dense features in its one launch")
     check(all(np.isfinite(losses)), "every training loss finite")
     check(all(r["miss_pull"] > 0 for r in recs), "miss_pull > 0 each step")
     return launches
@@ -1477,11 +1583,12 @@ def main(argv=None) -> int:
         for k, v in run().items():
             launches[k] = launches.get(k, 0) + v
         print(f"[wall] phase took {time.perf_counter() - t:.1f} s")
-    # B5, the row pack alone and the standalone bid kernel run on no
-    # driver path (phase 3 holds them); every other kernel must have
-    # launched on a main path
+    # B5, the row pack and the pack-quantize alone and the standalone bid
+    # kernel run on no driver path (phase 3 holds them); every other
+    # kernel must have launched on a main path
     for k in SOURCES:
-        check(k in ("pooled_lookup_quant", "auction_bids", "gather_rows")
+        check(k in ("pooled_lookup_quant", "auction_bids", "gather_rows",
+                    "gather_rows_quant")
               or launches.get(k, 0) > 0, f"{k} launched on a main path")
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=REPLACES[k], launches=launches.get(k, 0),

@@ -7,7 +7,11 @@ and the one at ``--other``, "A", e.g. an earlier commit unpacked with
 ``git archive``), in the order given (A, B, B, A by default, so that a
 drift of the card's clocks shows): ``chip_smoke.py``'s timings at the
 training step's shapes (``phase_train_kernels``: B1, the row packs and,
-where the checkout has it, the one-launch pack), then the wdl-s1
+where the checkout has it, the one-launch pack) and at the quantized
+wire's (``phase_quant_kernels``: the pack-quantize alone, the pooled
+lookup over the int8 wdl-s1 table at E = 512 and 4, and, where the
+checkout has it, the one-launch pack with the dense features
+quantized), then the wdl-s1
 training driver ``run_dlrm`` at ``chip_smoke.TRAIN_ARGV`` (4 workers x
 256, ESD alpha 1, ragged exchange, caches of 0.2 V, 10 steps, seed 0),
 exact and with ``--codec int8``: the decide, advance and train stages'
@@ -41,6 +45,7 @@ from repro_torch.launch.train import build_parser, run_dlrm
 
 _build.load_libraries("emb_lookup", "exchange_pack", "auction")
 chip_smoke.phase_train_kernels(0)
+chip_smoke.phase_quant_kernels(0)
 for codec in (None, "int8"):
     argv = chip_smoke.TRAIN_ARGV + ["--seed", "0"]
     if codec is not None:

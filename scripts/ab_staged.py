@@ -1,5 +1,6 @@
-"""The serving history bag's kernel (B6, ``pooled_lookup_staged``) in
-several builds, in turns, in one process.
+"""The serving history bag's kernel (B6, ``pooled_lookup_staged``) and
+the pooled lookup over a quantized table (B5, ``pooled_lookup_quant``)
+in several builds, in turns, in one process.
 
     python3 scripts/ab_staged.py [--other PATH] [--set NAME=VALUE ...] \
         [--reps 200]
@@ -7,13 +8,16 @@ several builds, in turns, in one process.
 Builds ``src/repro_torch/kernels/csrc/emb_lookup.cu`` of this checkout
 as it is ("this"); once more for each ``--set NAME=VALUE``, with the
 source's ``constexpr int NAME = ...;`` set to VALUE (e.g. ``--set
-kBagBatch=16``, the row loads a lane keeps in flight); and the same file
-of the checkout at ``--other`` (e.g. an earlier commit unpacked with
-``git archive``), each by ``nvcc`` with the package's flags into
-``build/ab_staged/``.  Then, on ``chip_smoke.py``'s inputs (wdl-s1:
-V = 502,000, E = 512, the 23,564-row hot-set plane, bags of the
-stream's 48 history slots at B = 16 and 4,096, seed 0), it checks each
-build bit for bit against the plain version and times it with
+kBagBatch=16``, the row loads a lane keeps in flight, B6's and B5's);
+and the same file of the checkout at ``--other`` (e.g. an earlier commit
+unpacked with ``git archive``), each by ``nvcc`` with the package's
+flags into ``build/ab_staged/``.  Then, on ``chip_smoke.py``'s inputs
+(wdl-s1: V = 502,000, E = 512, the 23,564-row hot-set plane, bags of
+the stream's 48 history slots at B = 16 and 4,096, seed 0), and on
+``chip_smoke.phase_quant_kernels``'s shapes (an S1 batch of 256 x 74
+over the int8-quantized wdl-s1 table at E = 512 and E = 4, seed 11; not
+for ``--other``, whose B5 launcher may take other arguments), it checks
+each build bit for bit against the plain versions and times them with
 ``chip_smoke.device_ms`` (median device ms of ``--reps`` calls), going
 through the builds forwards and then backwards, so that a drift of the
 card's clocks shows.  Prints the card's name and power limit, each
@@ -70,9 +74,11 @@ def _build_all(sources: dict, out_dir: Path) -> dict:
         entry = ""
         for ln in err.splitlines():
             if "Compiling entry function" in ln:
-                entry = ln
-            elif "registers" in ln and "pooled_lookup_staged" in entry:
-                print(f"[ab] {name}: {ln.split(':', 1)[-1].strip()}")
+                entry = re.findall(r"'([^']+)'", ln)[0]
+            elif "registers" in ln and ("pooled_lookup_staged" in entry
+                                        or "pooled_lookup_bag" in entry):
+                print(f"[ab] {name} {entry}: "
+                      f"{ln.split(':', 1)[-1].strip()}")
         lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
         for fn, argtypes in _build.SIGNATURES["emb_lookup"].items():
             if hasattr(lib, fn):
@@ -95,6 +101,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import emb_lookup as K
     from repro_torch.pipeline.prefetch import PrefetchPlane, slot_map
+    from repro_torch.quant.codecs import quantize_rows
     from repro_torch.serve.sim import _hot_set
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -129,6 +136,15 @@ def main(argv=None) -> int:
                               .astype(np.int32), device=dev)
         bags[B] = (ids, torch.where(ids >= 0,
                                     smap[ids.long().clamp(min=0)], -1))
+    # chip_smoke.phase_quant_kernels's shapes
+    g5 = torch.Generator(device=dev).manual_seed(11)
+    rng5 = np.random.default_rng(11)
+    q_ids = torch.as_tensor(wl.sample_batch(rng5, 256).astype(np.int32),
+                            device=dev)
+    q_w = torch.rand(q_ids.shape, generator=g5, device=dev)
+    quant = {Eq: quantize_rows(torch.randn((V, Eq), generator=g5,
+                                           device=dev) * 0.01, "int8")
+             for Eq in (512, 4)}
     floor, floor_call = cs.device_ms(lambda: libs["this"].empty_launch(
         torch.cuda.current_stream().cuda_stream), reps=args.reps)
     print(f"[ab] launch floor (an empty kernel): {floor:.4f} ms (call "
@@ -146,9 +162,26 @@ def main(argv=None) -> int:
                 rc = 1
             ms, _ = cs.device_ms(lambda: K.pooled_lookup_staged(
                 plane_rows, table, slots, ids), reps=args.reps)
-            times.setdefault((name, B), []).append(ms)
-    for (name, B), ms in times.items():
-        print(f"[ab] pooled_lookup_staged {name} B={B}: "
+            times.setdefault(("pooled_lookup_staged", name, f"B={B}"),
+                             []).append(ms)
+        # B5's launcher took other arguments before this checkout: its
+        # builds of --other are timed by scripts/ab_advance.py instead
+        for Eq, (codes, scale, zp) in (quant.items() if name != "other"
+                                       else ()):
+            qargs = (codes, scale, zp, q_ids, q_w)
+            out = K.pooled_lookup_quant(*qargs, codec="int8")
+            ref = K.pooled_lookup_quant_ref(*qargs, codec="int8")
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                print(f"[ab] {name} quant E={Eq}: differs from the plain "
+                      f"version")
+                rc = 1
+            ms, _ = cs.device_ms(lambda: K.pooled_lookup_quant(
+                *qargs, codec="int8"), reps=args.reps)
+            times.setdefault(("pooled_lookup_quant", name, f"E={Eq}"),
+                             []).append(ms)
+    for (kernel, name, shape), ms in times.items():
+        print(f"[ab] {kernel} {name} {shape}: "
               f"{', '.join(f'{x:.4f}' for x in ms)} ms (forwards, "
               f"backwards)")
     return rc

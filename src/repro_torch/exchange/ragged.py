@@ -23,13 +23,12 @@ source of each source's rows in their original local order.  1-D rows
 :func:`ragged_exchange_many` moves several payloads over one assignment,
 as the training step's advance moves ids, dense features and labels:
 one pack launch for them all.  With a codec the float (n, m, E)
-payloads take the quantized wire: each source quantizes its send slots
-in the pack (kernel :func:`repro_torch.kernels.exchange_pack.
-gather_rows_quant`, on the slot maps the one pack launch built), codes,
-scales and zero-points cross, and the receivers dequantize before they
-compact.  :func:`ragged_exchange` and :func:`ragged_exchange_quant` are
-its one-payload forms, :func:`pack_send` and :func:`compact_recv` its
-stages for one worker.
+payloads take the quantized wire: the same pack launch quantizes their
+send slots (codes, scales and zero-points) beside the exact payloads'
+copies, and the receivers dequantize before they compact.
+:func:`ragged_exchange` and :func:`ragged_exchange_quant` are its
+one-payload forms, :func:`pack_send` and :func:`compact_recv` its stages
+for one worker.
 """
 from __future__ import annotations
 
@@ -37,7 +36,7 @@ from typing import Sequence
 
 import torch
 
-from ..kernels.exchange_pack import gather_rows_quant, pack_send_all
+from ..kernels.exchange_pack import pack_send_all
 from ..quant.codecs import dequantize_rows, get_codec
 
 __all__ = ["pack_send", "compact_recv", "ragged_exchange",
@@ -110,17 +109,6 @@ def compact_recv(recv: torch.Tensor, recv_counts: torch.Tensor,
     return _compact(recv[:, None], at, ok, fill)[0], total[0]
 
 
-def _quant_blocks(rows: torch.Tensor, slot_to_row: torch.Tensor, codec,
-                  budget: int, fill: int) -> torch.Tensor:
-    """Each source's send slots quantized in the pack (kernel B4, one
-    launch a source), then dequantized as their receivers do."""
-    n, _, E = rows.shape
-    wire = [gather_rows_quant(rows[i], slot_to_row[i], codec, fill)
-            for i in range(n)]
-    codes, scale, zp = (torch.stack(t) for t in zip(*wire))
-    return dequantize_rows(codes, scale, zp, codec).reshape(n, n, budget, E)
-
-
 def ragged_exchange_many(payloads: Sequence[torch.Tensor],
                          assign: torch.Tensor, budget: int,
                          out_rows: int | None = None, fill: int = -1,
@@ -141,16 +129,13 @@ def ragged_exchange_many(payloads: Sequence[torch.Tensor],
     c = get_codec(codec)
     quant = [c is not None and a.dim() == 3 and a.is_floating_point()
              for a in payloads]
-    sends, slot_to_row, counts, overflow = pack_send_all(
-        assign, [a for a, q in zip(payloads, quant) if not q], n, budget,
-        fill)
+    sends, _, counts, overflow = pack_send_all(assign, payloads, n, budget,
+                                               fill, c, quant)
     if out_rows is None:
         out_rows = n * budget
     at, ok, total, recv_counts = _recv_index(counts, budget, out_rows)
-    exact = iter(sends)
-    outs = [_compact(_quant_blocks(a, slot_to_row, c, budget, fill) if q
-                     else next(exact), at, ok, fill)
-            for a, q in zip(payloads, quant)]
+    outs = [_compact(dequantize_rows(*send, c) if q else send, at, ok, fill)
+            for send, q in zip(sends, quant)]
     return outs, total, recv_counts, overflow
 
 
@@ -177,10 +162,10 @@ def ragged_exchange_quant(rows: torch.Tensor, assign: torch.Tensor,
     """Quantized variant of :func:`ragged_exchange` for (n, m, E) float
     rows.
 
-    Each source packs and quantizes its send slots in one pass (kernel
-    :func:`repro_torch.kernels.exchange_pack.gather_rows_quant`, on the
-    slot maps of the pack kernel), the codes and the per-group scale and
-    zero-point cross as separate tensors (the values of the reference's
+    Every source's send slots are packed and quantized in one launch
+    (:func:`repro_torch.kernels.exchange_pack.pack_send_all` with the
+    payload marked), the codes and the per-group scale and zero-point
+    cross as separate tensors (the values of the reference's
     concatenated block), and each destination dequantizes its blocks
     before compacting them.  PAD fill rows are constant and come back
     bitwise ``fill``.  ``codec=None`` is the exact fp32 path.  Returns

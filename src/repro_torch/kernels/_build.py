@@ -38,7 +38,7 @@ SIGNATURES = {
         "pooled_lookup_staged_launch": [_P, _P, _P, _P, _P, _P,
                                         _I, _I, _I, _I, _I, _I, _P],
         "pooled_lookup_quant_launch": [_P, _P, _P, _P, _P, _P,
-                                       _I, _I, _I, _I, _I, _I, _P],
+                                       _I, _I, _I, _I, _I, _I, _I, _P],
         "empty_launch": [_P],
     },
     "exchange_pack": {
@@ -47,6 +47,9 @@ SIGNATURES = {
                                      _F, _F, _F, _P],
         "pack_send_all_launch": [_P] * 5 + [_I] + [_P] * 3 + [_I] * 4
                                 + [_P],
+        "pack_send_all_quant_launch": [_P] * 5 + [_I] + [_P] * 4
+                                      + [_F, _F, _I] + [_P] * 3
+                                      + [_I] * 4 + [_P],
     },
     "auction": {
         "auction_bids_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],

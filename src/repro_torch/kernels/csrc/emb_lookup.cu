@@ -10,8 +10,9 @@
 // (U, n) per-id cost table, n = 4 columns wide, pooled over 256 bags of
 // 74 ids.  Two flops per element read, so bytes bound it (the distinct
 // rows read, the ids and weights, the (B, E) output: 0.075 us at the
-// decide shape); at E = 4 latency bounds it.  The sum runs over f in order, multiply and add rounded
-// apart (__fmul_rn, __fadd_rn: no FMA contraction), so the plain PyTorch
+// decide shape); at E = 4 latency bounds it.  The sum runs over f in
+// order, multiply and add rounded apart (__fmul_rn, __fadd_rn: no FMA
+// contraction), so the plain PyTorch
 // version (out = out + table[ids[:, f]] * w[:, f]) is matched bit for
 // bit; no lookup is skipped: a zero weight adds what the plain sum adds.
 // Two layouts, by row width:
@@ -84,6 +85,39 @@
 // The list holds 128 entries a warp; a bag with more valid lookups than
 // fit is summed in several passes, in order.
 //
+// pooled_lookup_quant_launch replaces the Pallas TPU kernel
+// src/repro/kernels/emb_lookup.py:pooled_lookup_quant (_kernel_quant):
+//     out[b] = sum_f w[b,f] * (codes[id] * scale[id, g] + zp[id, g])
+// B1 over a quantized table, the dequant fused into the accumulate (g the
+// column's scale group of B_g columns; the last group may be partial, G
+// in all); the codes are f32-valued, as the reference stores them.  The
+// PAD rule is B1's (pad_weight), applied here, so a call is one launch.
+// It is no kernel of its own: B1's narrow kernel and B6's bag kernel are
+// written over a row policy (where a lookup's row lies, and what an
+// element of it is worth), and B5 instantiates both with QuantRows.
+// Each element read is a multiply-add, a multiply and an add; bytes bound
+// it (the distinct code rows with their scale and zp, the ids, weights
+// and output: 0.0038 ms at B = 256, F = 74, E = 512 on the wdl-s1 table),
+// and at E = 4 latency does.  Each dequantized value is one rounding
+// (__fmaf_rn: the plain version forms it in f64 and rounds once), its
+// product with w another, the sum over f in order (__fadd_rn), so the
+// plain version is matched bit for bit.  A thread per (bag, column) that
+// walked its F lookups one dependent load chain after another took 34 us
+// at E = 4 and 32 us at E = 512 (and the PAD rule took launches of its
+// own); now B1's and B6's layouts:
+//   - E <= 32: B1's warp per bag.  The lanes take a lookup each, load
+//     its id, weight, its groups' scale and zp once each and its codes
+//     (float4 where E and the group are multiples of 4 and the codes
+//     16-byte aligned), and stage the weighted dequantized values in
+//     shared memory; E lanes then add them in f order.
+//   - E > 32: B6's warp per (bag, 128 columns): the bag's valid lookups
+//     (ids clamped to V-1) compacted into the warp's list, 8 lookups'
+//     codes in flight a lane.  Where a lane's columns lie in one group
+//     (one group a row, or float4 columns and a group a multiple of 4)
+//     its scale and zp are loaded once a lookup with the codes, else per
+//     column.  A PAD lookup is skipped: it adds +-0, which changes no sum
+//     that starts at +0.
+//
 // empty_launch launches a kernel that does nothing: the launch floor that
 // the others' times are read against.
 //
@@ -104,6 +138,8 @@ constexpr int kBagWarps = 4;          // warps a block on a large grid
 constexpr int kSMs = 132;
 constexpr int kLookupThreads = 256;   // (bag, column) pairs per block
 constexpr int kNarrowE = 32;          // widest row of the warp-per-bag layout
+constexpr int kNarrowWarps = 2;       // bags per block
+constexpr int kNarrowBuf = 1024;      // products a warp stages a pass
 
 // B1's PAD rule, as its plain version applies it: a PAD id (< 0) reads
 // row 0 with weight 0, no weights are all ones
@@ -112,16 +148,87 @@ __device__ __forceinline__ float pad_weight(int id,
                                             int64_t at) {
   return id < 0 ? 0.f : (weights != nullptr ? weights[at] : 1.f);
 }
-constexpr int kNarrowWarps = 2;       // bags per block
-constexpr int kNarrowBuf = 1024;      // products a warp stages a pass
 
-template <bool kVec4>
-__global__ void pooled_lookup_narrow_kernel(const float* __restrict__ table,
+// Row policies of the bag kernels.  Entry is what a warp's list holds of
+// a valid lookup; pick forms it from the id (>= 0) and the lookup's aux
+// word, loaded beside the id (B6's plane slot); row is its row; value is
+// an element of the row as the sum takes it, given the affine of its
+// scale group (group() elements a group, groups() of them).
+struct Affine {
+  float s, z;
+};
+
+// an f32 table (B1)
+struct TableRows {
+  using Entry = int;                    // the id, clamped to V-1
+  const float* table;
+  int E, V;
+  __host__ __device__ int group() const { return E; }
+  __device__ int groups() const { return 1; }
+  __device__ int aux(int64_t) const { return -1; }
+  __device__ Entry pick(int id, int) const { return min(id, V - 1); }
+  __device__ const float* row(Entry id) const {
+    return table + static_cast<int64_t>(id) * E;
+  }
+  __device__ Affine affine(Entry, int) const { return {0.f, 0.f}; }
+  __device__ float value(float v, Affine) const { return v; }
+};
+
+// B6's rows: the staged plane's where the lookup's slot is live (clamped
+// to C-1), else the table's (clamped to V-1)
+struct StagedRows {
+  using Entry = const float*;           // the row
+  const float* plane;
+  const float* table;
+  const int* slots;
+  int E, C, V;
+  __host__ __device__ int group() const { return E; }
+  __device__ int groups() const { return 1; }
+  __device__ int aux(int64_t at) const { return slots[at]; }
+  __device__ Entry pick(int id, int slot) const {
+    return (slot >= 0 && C > 0)
+        ? plane + static_cast<int64_t>(min(slot, C - 1)) * E
+        : table + static_cast<int64_t>(min(id, V - 1)) * E;
+  }
+  __device__ const float* row(Entry r) const { return r; }
+  __device__ Affine affine(Entry, int) const { return {0.f, 0.f}; }
+  __device__ float value(float v, Affine) const { return v; }
+};
+
+// a quantized table (B5): f32-valued codes, a scale and zp a group of Bg
+// columns, the value one rounding of codes * scale + zp
+struct QuantRows {
+  using Entry = int;                    // the id, clamped to V-1
+  const float* codes;
+  const float* scale;
+  const float* zp;
+  int E, V, Bg, G;
+  __host__ __device__ int group() const { return Bg; }
+  __device__ int groups() const { return G; }
+  __device__ int aux(int64_t) const { return -1; }
+  __device__ Entry pick(int id, int) const { return min(id, V - 1); }
+  __device__ const float* row(Entry id) const {
+    return codes + static_cast<int64_t>(id) * E;
+  }
+  __device__ Affine affine(Entry id, int g) const {
+    const int64_t at = static_cast<int64_t>(id) * G + g;
+    return {__ldg(scale + at), __ldg(zp + at)};
+  }
+  __device__ float value(float v, Affine a) const {
+    return __fmaf_rn(v, a.s, a.z);
+  }
+};
+
+// B1 and B5 at E <= 32: a warp per bag; kVec4: E and the group are
+// multiples of 4 and the rows 16-byte aligned
+template <class Rows, bool kVec4>
+__global__ void pooled_lookup_narrow_kernel(Rows rows,
                                             const int* __restrict__ ids,
                                             const float* __restrict__ weights,
-                                            float* __restrict__ out,
-                                            int B, int F, int E, int V) {
+                                            float* __restrict__ out, int B,
+                                            int F) {
   __shared__ __align__(16) float prod[kNarrowWarps][kNarrowBuf];
+  const int E = rows.E;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int64_t b = static_cast<int64_t>(blockIdx.x) * kNarrowWarps + warp;
   if (b >= B) return;                    // whole warps leave together
@@ -135,18 +242,25 @@ __global__ void pooled_lookup_narrow_kernel(const float* __restrict__ table,
     for (int f = lane; f < nf; f += 32) {
       const int raw = bag[f0 + f];
       const float wf = pad_weight(raw, weights, b * F + f0 + f);
-      const float* row =
-          table + static_cast<int64_t>(min(max(raw, 0), V - 1)) * E;
+      const typename Rows::Entry id = rows.pick(max(raw, 0), -1);
+      const float* row = rows.row(id);
       float* dst = buf + f * E;
-      if (kVec4) {
-        for (int e = 0; e < E; e += 4) {
-          const float4 v = *reinterpret_cast<const float4*>(row + e);
-          *reinterpret_cast<float4*>(dst + e) =
-              make_float4(__fmul_rn(v.x, wf), __fmul_rn(v.y, wf),
-                          __fmul_rn(v.z, wf), __fmul_rn(v.w, wf));
+      for (int g = 0; g < rows.groups(); ++g) {
+        const Affine a = rows.affine(id, g);
+        const int e1 = min((g + 1) * rows.group(), E);
+        if (kVec4) {
+          for (int e = g * rows.group(); e < e1; e += 4) {
+            const float4 v = *reinterpret_cast<const float4*>(row + e);
+            *reinterpret_cast<float4*>(dst + e) = make_float4(
+                __fmul_rn(rows.value(v.x, a), wf),
+                __fmul_rn(rows.value(v.y, a), wf),
+                __fmul_rn(rows.value(v.z, a), wf),
+                __fmul_rn(rows.value(v.w, a), wf));
+          }
+        } else {
+          for (int e = g * rows.group(); e < e1; ++e)
+            dst[e] = __fmul_rn(rows.value(row[e], a), wf);
         }
-      } else {
-        for (int e = 0; e < E; ++e) dst[e] = __fmul_rn(row[e], wf);
       }
     }
     __syncwarp();
@@ -204,19 +318,24 @@ __global__ void staged_gather_kernel(const float* __restrict__ plane,
   }
 }
 
-// the valid lookups of list[0, n) added into acc in order, 8 loads in
-// flight a lane; the scalar layout reads columns e, e+32, e+64, e+96
-template <bool kVec4>
-__device__ __forceinline__ void add_rows(const float* const* list_row,
+// the valid lookups list[0, n) added into acc in order, 8 row loads in
+// flight a lane; the scalar layout reads columns e, e+32, e+64, e+96.
+// kOneGroup: the lane's columns lie in group g, whose affine loads with
+// the row; else each column's loads before its add
+template <class Rows, bool kVec4, bool kOneGroup>
+__device__ __forceinline__ void add_rows(const Rows& rows,
+                                         const typename Rows::Entry* list,
                                          const float* list_w, int n, int e,
-                                         int E, float (&acc)[4]) {
+                                         int g, float (&acc)[4]) {
+  const int E = rows.E;
   for (int j0 = 0; j0 < n; j0 += kBagBatch) {
     const int nk = min(kBagBatch, n - j0);
     float4 r[kBagBatch];
+    Affine a[kBagBatch];
 #pragma unroll
     for (int k = 0; k < kBagBatch; ++k) {
       if (k < nk) {
-        const float* row = list_row[j0 + k];
+        const float* row = rows.row(list[j0 + k]);
         if (kVec4) {
           r[k] = e < E ? __ldg(reinterpret_cast<const float4*>(row + e))
                        : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -226,32 +345,41 @@ __device__ __forceinline__ void add_rows(const float* const* list_row,
           r[k].z = e + 64 < E ? __ldg(row + e + 64) : 0.f;
           r[k].w = e + 96 < E ? __ldg(row + e + 96) : 0.f;
         }
+        if (kOneGroup)
+          a[k] = e < E ? rows.affine(list[j0 + k], g) : Affine{0.f, 0.f};
       }
     }
 #pragma unroll
     for (int k = 0; k < kBagBatch; ++k) {
       if (k < nk) {
         const float w = list_w[j0 + k];
-        acc[0] = __fadd_rn(acc[0], __fmul_rn(r[k].x, w));
-        acc[1] = __fadd_rn(acc[1], __fmul_rn(r[k].y, w));
-        acc[2] = __fadd_rn(acc[2], __fmul_rn(r[k].z, w));
-        acc[3] = __fadd_rn(acc[3], __fmul_rn(r[k].w, w));
+        const float v[4] = {r[k].x, r[k].y, r[k].z, r[k].w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          Affine ac{0.f, 0.f};
+          if (kOneGroup) {
+            ac = a[k];
+          } else {
+            const int col = kVec4 ? e + c : e + 32 * c;
+            if (col < E) ac = rows.affine(list[j0 + k], col / rows.group());
+          }
+          acc[c] = __fadd_rn(acc[c], __fmul_rn(rows.value(v[c], ac), w));
+        }
       }
     }
   }
 }
 
-template <bool kVec4>
-__global__ void pooled_lookup_staged_kernel(const float* __restrict__ plane,
-                                            const float* __restrict__ table,
-                                            const int* __restrict__ slots,
-                                            const int* __restrict__ ids,
-                                            const float* __restrict__ weights,
-                                            float* __restrict__ out, int B,
-                                            int F, int E, int C, int V,
-                                            int chunks) {
-  __shared__ const float* s_row[kBagWarps][kBagList];
+// B6 and B5 at E > 32: a warp per (bag, 128 columns)
+template <class Rows, bool kVec4, bool kOneGroup>
+__global__ void pooled_lookup_bag_kernel(Rows rows,
+                                         const int* __restrict__ ids,
+                                         const float* __restrict__ weights,
+                                         float* __restrict__ out, int B,
+                                         int F, int chunks) {
+  __shared__ typename Rows::Entry s_list[kBagWarps][kBagList];
   __shared__ float s_w[kBagWarps][kBagList];
+  const int E = rows.E;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int64_t unit = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5)
                        + warp;
@@ -260,21 +388,22 @@ __global__ void pooled_lookup_staged_kernel(const float* __restrict__ plane,
   const int col0 = static_cast<int>(unit - b * chunks) * kBagCols;
   // the lane's columns: 4 neighbours (float4), or 4 a warp-width apart
   const int e = col0 + (kVec4 ? lane * 4 : lane);
-  const float** list_row = s_row[warp];
+  const int g = kOneGroup && e < E ? e / rows.group() : 0;
+  typename Rows::Entry* list = s_list[warp];
   float* list_w = s_w[warp];
   const int64_t base = b * F;
   const unsigned below = (1u << lane) - 1u;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
   int n = 0;
   for (int f0 = 0; f0 < F; f0 += 64) {
-    // 64 lookups' ids, slots and weights in flight, two a lane
-    int id[2], sl[2];
+    // 64 lookups' ids, aux words and weights in flight, two a lane
+    int id[2], ax[2];
     float w[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int f = f0 + h * 32 + lane;
       id[h] = f < F ? ids[base + f] : -1;
-      sl[h] = f < F ? slots[base + f] : -1;
+      ax[h] = f < F ? rows.aux(base + f) : -1;
       w[h] = (f < F && weights != nullptr) ? weights[base + f] : 1.f;
     }
 #pragma unroll
@@ -283,16 +412,14 @@ __global__ void pooled_lookup_staged_kernel(const float* __restrict__ plane,
       const unsigned mask = __ballot_sync(0xffffffffu, valid);
       if (valid) {
         const int at = n + __popc(mask & below);
-        list_row[at] = (sl[h] >= 0 && C > 0)
-            ? plane + static_cast<int64_t>(min(sl[h], C - 1)) * E
-            : table + static_cast<int64_t>(min(id[h], V - 1)) * E;
+        list[at] = rows.pick(id[h], ax[h]);
         list_w[at] = w[h];
       }
       n += __popc(mask);
     }
     __syncwarp();
     if (n > kBagList - 64 || f0 + 64 >= F) {     // the list is full or done
-      add_rows<kVec4>(list_row, list_w, n, e, E, acc);
+      add_rows<Rows, kVec4, kOneGroup>(rows, list, list_w, n, e, g, acc);
       n = 0;
       __syncwarp();
     }
@@ -309,34 +436,36 @@ __global__ void pooled_lookup_staged_kernel(const float* __restrict__ plane,
   }
 }
 
-__global__ void pooled_lookup_quant_kernel(const float* __restrict__ codes,
-                                           const float* __restrict__ scale,
-                                           const float* __restrict__ zp,
-                                           const int* __restrict__ ids,
-                                           const float* __restrict__ weights,
-                                           float* __restrict__ out, int B,
-                                           int F, int E, int V, int Bg,
-                                           int G) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (t >= static_cast<int64_t>(B) * E) return;
-  const int64_t b = t / E;
-  const int e = static_cast<int>(t - b * E);
-  const int g = e / Bg;
-  const int* bag = ids + b * F;
-  const float* w = weights + b * F;
-  float acc = 0.f;
-#pragma unroll 4
-  for (int f = 0; f < F; ++f) {
-    const int64_t id = min(max(bag[f], 0), V - 1);
-    const float x = __fmaf_rn(codes[id * E + e], scale[id * G + g],
-                              zp[id * G + g]);
-    acc = __fadd_rn(acc, __fmul_rn(x, w[f]));
-  }
-  out[t] = acc;
+__global__ void empty_kernel() {}
+
+template <class Rows>
+int launch_narrow(const Rows& rows, bool vec4, const int* ids,
+                  const float* weights, float* out, int B, int F,
+                  cudaStream_t st) {
+  const unsigned blocks = static_cast<unsigned>(
+      (static_cast<int64_t>(B) + kNarrowWarps - 1) / kNarrowWarps);
+  if (vec4)
+    pooled_lookup_narrow_kernel<Rows, true>
+        <<<blocks, kNarrowWarps * 32, 0, st>>>(rows, ids, weights, out, B, F);
+  else
+    pooled_lookup_narrow_kernel<Rows, false>
+        <<<blocks, kNarrowWarps * 32, 0, st>>>(rows, ids, weights, out, B, F);
+  return static_cast<int>(cudaGetLastError());
 }
 
-__global__ void empty_kernel() {}
+template <class Rows, bool kVec4, bool kOneGroup>
+int launch_bags(const Rows& rows, const int* ids, const float* weights,
+                float* out, int B, int F, cudaStream_t st) {
+  const int chunks = (rows.E + kBagCols - 1) / kBagCols;
+  const int64_t units = static_cast<int64_t>(B) * chunks;
+  // a warp a block until the grid fills the card, then four
+  const int warps = units < static_cast<int64_t>(kBagWarps) * kSMs
+                        ? 1 : kBagWarps;
+  const unsigned blocks = static_cast<unsigned>((units + warps - 1) / warps);
+  pooled_lookup_bag_kernel<Rows, kVec4, kOneGroup>
+      <<<blocks, warps * 32, 0, st>>>(rows, ids, weights, out, B, F, chunks);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -354,17 +483,11 @@ extern "C" int pooled_lookup_launch(const void* table, const void* ids,
   const int* i = static_cast<const int*>(ids);
   const float* w = static_cast<const float*>(weights);
   float* o = static_cast<float*>(out);
-  if (E <= kNarrowE) {
-    const unsigned blocks = static_cast<unsigned>(
-        (static_cast<int64_t>(B) + kNarrowWarps - 1) / kNarrowWarps);
-    if (E % 4 == 0 && reinterpret_cast<uintptr_t>(t) % 16 == 0)
-      pooled_lookup_narrow_kernel<true>
-          <<<blocks, kNarrowWarps * 32, 0, st>>>(t, i, w, o, B, F, E, V);
-    else
-      pooled_lookup_narrow_kernel<false>
-          <<<blocks, kNarrowWarps * 32, 0, st>>>(t, i, w, o, B, F, E, V);
-    return static_cast<int>(cudaGetLastError());
-  }
+  if (E <= kNarrowE)
+    return launch_narrow(
+        TableRows{t, E, V},
+        E % 4 == 0 && reinterpret_cast<uintptr_t>(t) % 16 == 0, i, w, o, B,
+        F, st);
   const int64_t threads = static_cast<int64_t>(B) * E;
   const unsigned blocks =
       static_cast<unsigned>((threads + kLookupThreads - 1) / kLookupThreads);
@@ -395,26 +518,16 @@ extern "C" int pooled_lookup_staged_launch(const void* plane,
                                            int B, int F, int E, int C, int V,
                                            int vec4, void* stream) {
   if (B == 0 || E == 0) return 0;
-  const int chunks = (E + kBagCols - 1) / kBagCols;
-  const int64_t units = static_cast<int64_t>(B) * chunks;
-  // a warp a block until the grid fills the card, then four
-  const int warps = units < static_cast<int64_t>(kBagWarps) * kSMs
-                        ? 1 : kBagWarps;
-  const unsigned blocks = static_cast<unsigned>((units + warps - 1) / warps);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* pl = static_cast<const float*>(plane);
-  const float* tb = static_cast<const float*>(table);
-  const int* sl = static_cast<const int*>(slots);
+  const StagedRows rows{static_cast<const float*>(plane),
+                        static_cast<const float*>(table),
+                        static_cast<const int*>(slots), E, C, V};
   const int* id = static_cast<const int*>(ids);
   const float* w = static_cast<const float*>(weights);
   float* o = static_cast<float*>(out);
-  if (vec4)
-    pooled_lookup_staged_kernel<true><<<blocks, warps * 32, 0, st>>>(
-        pl, tb, sl, id, w, o, B, F, E, C, V, chunks);
-  else
-    pooled_lookup_staged_kernel<false><<<blocks, warps * 32, 0, st>>>(
-        pl, tb, sl, id, w, o, B, F, E, C, V, chunks);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return vec4 ? launch_bags<StagedRows, true, true>(rows, id, w, o, B, F, st)
+              : launch_bags<StagedRows, false, true>(rows, id, w, o, B, F,
+                                                     st);
 }
 
 extern "C" int pooled_lookup_quant_launch(const void* codes,
@@ -422,16 +535,26 @@ extern "C" int pooled_lookup_quant_launch(const void* codes,
                                           const void* ids,
                                           const void* weights, void* out,
                                           int B, int F, int E, int V, int Bg,
-                                          int G, void* stream) {
+                                          int G, int vec4, void* stream) {
   if (B == 0 || E == 0) return 0;
-  const int64_t threads = static_cast<int64_t>(B) * E;
-  const unsigned blocks =
-      static_cast<unsigned>((threads + kLookupThreads - 1) / kLookupThreads);
-  pooled_lookup_quant_kernel<<<blocks, kLookupThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(codes), static_cast<const float*>(scale),
-      static_cast<const float*>(zp), static_cast<const int*>(ids),
-      static_cast<const float*>(weights), static_cast<float*>(out), B, F, E,
-      V, Bg, G);
-  return static_cast<int>(cudaGetLastError());
+  if (V < 1 || Bg < 1 || G < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const QuantRows rows{static_cast<const float*>(codes),
+                       static_cast<const float*>(scale),
+                       static_cast<const float*>(zp), E, V, Bg, G};
+  const int* i = static_cast<const int*>(ids);
+  const float* w = static_cast<const float*>(weights);
+  float* o = static_cast<float*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec4_groups = vec4 && Bg % 4 == 0;
+  if (E <= kNarrowE)
+    return launch_narrow(rows, vec4_groups, i, w, o, B, F, st);
+  if (vec4) {
+    return G == 1 || vec4_groups
+        ? launch_bags<QuantRows, true, true>(rows, i, w, o, B, F, st)
+        : launch_bags<QuantRows, true, false>(rows, i, w, o, B, F, st);
+  }
+  return G == 1
+      ? launch_bags<QuantRows, false, true>(rows, i, w, o, B, F, st)
+      : launch_bags<QuantRows, false, false>(rows, i, w, o, B, F, st);
 }

@@ -22,17 +22,21 @@
 //     codes = clip(round((x - zp) / scale), 0, levels)
 // over the slot's f32 row, in groups of B elements (the last group may be
 // partial; G groups in all).  A PAD slot is a constant fill row: scale 1,
-// zp = fill, codes 0, written in the same pass.  On the training step it
-// packs the dense features: S = 256 slots of 13 f32, about 29 KB in all,
-// so launch latency bounds it, not bytes.  Design: one warp per slot, as
-// above.  The warp walks the groups in order; for each, the lanes stride
-// its elements, reduce min and max with warp shuffles (exact in any
-// order), and write the codes of the same elements.  The arithmetic takes
-// the forms the JAX reference takes under jit: the reciprocal of levels is
-// rounded to f32 once (by the caller), the scale is a product
-// (__fmul_rn), the codes an IEEE division (__fdiv_rn: this file must not
-// be built with --use_fast_math or -prec-div=false) rounded half to even
-// (rintf), so the kernel matches its plain PyTorch version bit for bit.
+// zp = fill, codes 0, written in the same pass.  S = 256 slots of 13 f32
+// are about 29 KB, so launch latency bounds it, not bytes.  Since the
+// exchange's pack took the quantized payload in (below) it runs on no
+// driver path.  Design: one warp per slot, as above.  The warp walks the
+// groups in order; for each, the lanes stride its elements, reduce min
+// and max with warp shuffles, and write the codes of the same elements
+// (quantize_row).  The min is taken over order keys (a float's bits with
+// the magnitude flipped below zero), so it is exact in any order and puts
+// -0 below +0, as the reference's min does; the max is a float max (the
+// sign of a zero max changes no output).  The arithmetic takes the forms
+// the JAX reference takes under jit: the reciprocal of levels is rounded
+// to f32 once (by the caller), the scale is a product (__fmul_rn), the
+// codes an IEEE division (__fdiv_rn: this file must not be built with
+// --use_fast_math or -prec-div=false) rounded half to even (rintf), so the
+// kernel matches its plain PyTorch version bit for bit.
 //
 // pack_send_all_launch is the whole pack of a step's exchange in one
 // launch, for every source worker and up to four payloads: the slot map
@@ -71,11 +75,35 @@
 // left off the wire and out of the counts.  The wrapper raises beyond
 // these.
 //
+// pack_send_all_quant_launch is the same pack with payloads marked as
+// quantized: the quantized wire's pack (B4) folded into the exchange's
+// one launch, replacing gather_rows_quant_pallas with the slot-map code
+// around it.  For a marked (n_src, m, F) f32 payload the blocks write,
+// for each slot of their tile, what gather_rows_quant writes (codes
+// (n_src, S, F) f32, scale and zp (n_src, S, G) f32), or for the fp16
+// codec the row cast to halves (RNE, a PAD slot the fill) with scale 1
+// and zp 0, from the same slot map in shared memory.  It replaced 4
+// gather_rows_quant launches a step (one a source, after the pack) and
+// their stack.  A row of at most kQuantHalfWarpMaxF = 16 floats (the
+// training step's 13 dense features) is quantized by half a warp, 16
+// slots to a pass of the block, its shuffles masked to the half and of
+// width 16 (0.0112 ms at the training shape against a warp's 0.0127); a
+// wider row by a warp (8 slots a pass), its groups in order.  fp16 has
+// one group a slot (scale 1, zp 0); the launcher refuses another.  The
+// exact payloads' copy and the slot map are the same code as
+// pack_send_all_kernel's; the quantized payloads' side outputs and codec
+// travel in a second parameter struct (Wire) that only this instance
+// takes, so the exact launch's parameters stay as they were.
+//
 // The launchers run on the caller's stream, allocate nothing and return
 // cudaGetLastError() so a refused launch surfaces in the Python wrapper.
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -85,6 +113,7 @@ constexpr int kAllWarps = kAllThreads / 32;
 constexpr int kAllTile = 32;        // send slots a block
 constexpr int kAllMaxN = 32;        // sources, destinations
 constexpr int kAllMaxPayloads = 4;
+constexpr int kQuantHalfWarpMaxF = 16;  // rows this wide or less: half a warp
 
 struct Payloads {
   const uint32_t* in[kAllMaxPayloads];    // (n_src, m, width) 32-bit words
@@ -92,7 +121,71 @@ struct Payloads {
   int width[kAllMaxPayloads];
   uint32_t fill[kAllMaxPayloads];
 };
+// the quantized payloads of pack_send_all_quant_launch and their codec
+struct Wire {
+  float* scale[kAllMaxPayloads];   // (n_src, S, groups); null: exact payload
+  float* zp[kAllMaxPayloads];
+  int group[kAllMaxPayloads];      // elements a scale group
+  int groups[kAllMaxPayloads];
+  float levels, inv_levels;
+  int fp16;                        // codes as halves, scale 1, zp 0
+};
+struct NoWire {};                  // pack_send_all_launch: all exact
 constexpr unsigned kFullMask = 0xffffffffu;
+
+// a float's bits as an int that orders as the float does, -0 below +0;
+// the map is its own inverse
+__device__ __forceinline__ int order_key(int bits) {
+  return bits ^ ((bits >> 31) & 0x7fffffff);
+}
+
+// One slot's row quantized by a team of L lanes (L = 16: half a warp,
+// mask its lanes; L = 32: the warp), lane l of the team; src null is a
+// PAD slot (codes 0, scale 1, zp fill).  Groups of B elements, G of them,
+// in order: min (order keys) and max over the group's elements, reduced
+// by shuffles within the team, then the codes.
+template <int L>
+__device__ __forceinline__ void quantize_row(
+    const float* __restrict__ src, float* __restrict__ codes,
+    float* __restrict__ sc_out, float* __restrict__ zp_out, int F, int B,
+    int G, float levels, float inv_levels, float fill, int l,
+    unsigned mask) {
+  if (src == nullptr) {
+    for (int e = l; e < F; e += L) codes[e] = 0.f;
+    for (int g = l; g < G; g += L) {
+      sc_out[g] = 1.f;
+      zp_out[g] = fill;
+    }
+    return;
+  }
+  for (int g = 0; g < G; ++g) {
+    const int e0 = g * B;
+    const int e1 = min(e0 + B, F);
+    int lo = INT_MAX;
+    float hi = -INFINITY;
+    for (int e = e0 + l; e < e1; e += L) {
+      const float v = src[e];
+      lo = min(lo, order_key(__float_as_int(v)));
+      hi = fmaxf(hi, v);
+    }
+#pragma unroll
+    for (int off = L / 2; off > 0; off >>= 1) {
+      lo = min(lo, __shfl_xor_sync(mask, lo, off, L));
+      hi = fmaxf(hi, __shfl_xor_sync(mask, hi, off, L));
+    }
+    const float zp = __int_as_float(order_key(lo));
+    float sc = __fmul_rn(__fsub_rn(hi, zp), inv_levels);
+    sc = sc > 0.f ? sc : 1.f;
+    if (l == 0) {
+      sc_out[g] = sc;
+      zp_out[g] = zp;
+    }
+    for (int e = e0 + l; e < e1; e += L) {
+      const float q = rintf(__fdiv_rn(__fsub_rn(src[e], zp), sc));
+      codes[e] = fminf(fmaxf(q, 0.f), levels);
+    }
+  }
+}
 
 __global__ void gather_rows_kernel(const uint32_t* __restrict__ rows,
                                    const int* __restrict__ slot_to_row,
@@ -125,51 +218,72 @@ __global__ void gather_rows_quant_kernel(const float* __restrict__ rows,
   const int lane = threadIdx.x & 31;
   if (slot >= S) return;                 // whole warps leave together
   const int r = slot_to_row[slot];
-  float* dst = codes + slot * F;
-  float* sc_out = scale + slot * G;
-  float* zp_out = zp + slot * G;
-  if (r < 0 || m == 0) {
-    for (int e = lane; e < F; e += 32) dst[e] = 0.f;
-    for (int g = lane; g < G; g += 32) {
-      sc_out[g] = 1.f;
-      zp_out[g] = fill;
+  quantize_row<32>(
+      (r < 0 || m == 0) ? nullptr
+                        : rows + static_cast<int64_t>(min(r, m - 1)) * F,
+      codes + slot * F, scale + slot * G, zp + slot * G, F, B, G, levels,
+      inv_levels, fill, lane, kFullMask);
+}
+
+// the quantized payload q of a pack_send_all tile: ns slots from slot0 on
+// (global), their rows (local to source src, -1 = PAD) in tile
+__device__ __forceinline__ void quantize_tile(const Payloads& p,
+                                              const Wire& w, int q, int src,
+                                              int m, int64_t slot0, int ns,
+                                              const int* tile, int tid) {
+  const int F = p.width[q];
+  const int G = w.groups[q];
+  const float* in = reinterpret_cast<const float*>(p.in[q]) +
+                    static_cast<int64_t>(src) * m * F;
+  const float fill = __uint_as_float(p.fill[q]);
+  float* scale = w.scale[q] + slot0 * G;
+  float* zp = w.zp[q] + slot0 * G;
+  if (w.fp16) {
+    __half* out = reinterpret_cast<__half*>(p.out[q]) + slot0 * F;
+    for (int i = tid; i < ns * F; i += kAllThreads) {
+      const int j = i / F;
+      const int r = tile[j];
+      out[i] = __float2half_rn(
+          r >= 0 ? in[static_cast<int64_t>(r) * F + (i - j * F)] : fill);
+    }
+    for (int j = tid; j < ns; j += kAllThreads) {
+      scale[j] = 1.f;
+      zp[j] = 0.f;
     }
     return;
   }
-  const float* src = rows + static_cast<int64_t>(min(r, m - 1)) * F;
-  for (int g = 0; g < G; ++g) {
-    const int e0 = g * B;
-    const int e1 = min(e0 + B, F);
-    float lo = INFINITY, hi = -INFINITY;
-    for (int e = e0 + lane; e < e1; e += 32) {
-      const float v = src[e];
-      lo = fminf(lo, v);
-      hi = fmaxf(hi, v);
+  float* codes = reinterpret_cast<float*>(p.out[q]) + slot0 * F;
+  const int B = w.group[q];
+  if (F <= kQuantHalfWarpMaxF) {   // half a warp a slot, 16 slots a pass
+    const int l = tid & 15;
+    const unsigned mask = 0xffffu << (tid & 16);
+    for (int j = tid >> 4; j < ns; j += kAllThreads / 16) {
+      const int r = tile[j];
+      quantize_row<16>(r >= 0 ? in + static_cast<int64_t>(r) * F : nullptr,
+                       codes + static_cast<int64_t>(j) * F, scale + j * G,
+                       zp + j * G, F, B, G, w.levels, w.inv_levels, fill, l,
+                       mask);
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      lo = fminf(lo, __shfl_xor_sync(kFullMask, lo, off));
-      hi = fmaxf(hi, __shfl_xor_sync(kFullMask, hi, off));
-    }
-    float sc = __fmul_rn(__fsub_rn(hi, lo), inv_levels);
-    sc = sc > 0.f ? sc : 1.f;
-    if (lane == 0) {
-      sc_out[g] = sc;
-      zp_out[g] = lo;
-    }
-    for (int e = e0 + lane; e < e1; e += 32) {
-      const float q = rintf(__fdiv_rn(__fsub_rn(src[e], lo), sc));
-      dst[e] = fminf(fmaxf(q, 0.f), levels);
+  } else {                         // a warp a slot, 8 slots a pass
+    const int l = tid & 31;
+    for (int j = tid >> 5; j < ns; j += kAllWarps) {
+      const int r = tile[j];
+      quantize_row<32>(r >= 0 ? in + static_cast<int64_t>(r) * F : nullptr,
+                       codes + static_cast<int64_t>(j) * F, scale + j * G,
+                       zp + j * G, F, B, G, w.levels, w.inv_levels, fill, l,
+                       kFullMask);
     }
   }
 }
 
+template <class W>
 __global__ void pack_send_all_kernel(const int* __restrict__ assign,
-                                     Payloads p, int n_payloads,
+                                     Payloads p, W wire, int n_payloads,
                                      int* __restrict__ slot_to_row,
                                      int* __restrict__ counts,
                                      int* __restrict__ overflow, int n_src,
                                      int n_dst, int m, int budget) {
+  constexpr bool kQuant = std::is_same<W, Wire>::value;
   __shared__ int s_run[kAllMaxN];               // rows so far, by destination
   __shared__ int s_warp[kAllWarps][kAllMaxN];   // a pass's counts, by warp
   __shared__ int s_tile[kAllTile];              // the tile's rows, -1 = PAD
@@ -248,6 +362,12 @@ __global__ void pack_send_all_kernel(const int* __restrict__ assign,
 #pragma unroll
   for (int q = 0; q < kAllMaxPayloads; ++q) {
     if (q >= n_payloads) break;
+    if constexpr (kQuant) {
+      if (wire.scale[q] != nullptr) {
+        quantize_tile(p, wire, q, src, m, slot0, ns, s_tile, tid);
+        continue;
+      }
+    }
     const int F = p.width[q];
     const uint32_t* in = p.in[q] + static_cast<int64_t>(src) * m * F;
     uint32_t* out = p.out[q] + slot0 * F;
@@ -258,6 +378,35 @@ __global__ void pack_send_all_kernel(const int* __restrict__ assign,
       out[i] = r >= 0 ? in[static_cast<int64_t>(r) * F + (i - j * F)] : fill;
     }
   }
+}
+
+template <class W>
+int launch_pack(const void* assign, const void* const* ins,
+                void* const* outs, const int* widths, const int* fills,
+                int n_payloads, const W& wire, void* slot_to_row,
+                void* counts, void* overflow, int n_src, int n_dst, int m,
+                int budget, void* stream) {
+  if (n_src < 1 || n_src > kAllMaxN || n_dst < 1 || n_dst > kAllMaxN ||
+      m < 0 || budget < 0 || n_payloads < 0 ||
+      n_payloads > kAllMaxPayloads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Payloads p{};
+  for (int q = 0; q < n_payloads; ++q) {
+    p.in[q] = static_cast<const uint32_t*>(ins[q]);
+    p.out[q] = static_cast<uint32_t*>(outs[q]);
+    p.width[q] = widths[q];
+    p.fill[q] = static_cast<uint32_t>(fills[q]);
+  }
+  const int S = n_dst * budget;
+  const dim3 grid(static_cast<unsigned>(n_src),
+                  static_cast<unsigned>(S > 0 ? (S + kAllTile - 1) / kAllTile
+                                              : 1));
+  pack_send_all_kernel<W><<<grid, kAllThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(assign), p, wire, n_payloads,
+      static_cast<int*>(slot_to_row), static_cast<int*>(counts),
+      static_cast<int*>(overflow), n_src, n_dst, m, budget);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -302,25 +451,35 @@ extern "C" int pack_send_all_launch(const void* assign,
                                     void* counts, void* overflow, int n_src,
                                     int n_dst, int m, int budget,
                                     void* stream) {
-  if (n_src < 1 || n_src > kAllMaxN || n_dst < 1 || n_dst > kAllMaxN ||
-      m < 0 || budget < 0 || n_payloads < 0 ||
-      n_payloads > kAllMaxPayloads)
+  return launch_pack(assign, ins, outs, widths, fills, n_payloads, NoWire{},
+                     slot_to_row, counts, overflow, n_src, n_dst, m, budget,
+                     stream);
+}
+
+extern "C" int pack_send_all_quant_launch(
+    const void* assign, const void* const* ins, void* const* outs,
+    const int* widths, const int* fills, int n_payloads,
+    void* const* scales, void* const* zps, const int* groups,
+    const int* n_groups, float levels, float inv_levels, int fp16,
+    void* slot_to_row, void* counts, void* overflow, int n_src, int n_dst,
+    int m, int budget, void* stream) {
+  if (n_payloads < 0 || n_payloads > kAllMaxPayloads)
     return static_cast<int>(cudaErrorInvalidValue);
-  Payloads p{};
+  Wire w{};
   for (int q = 0; q < n_payloads; ++q) {
-    p.in[q] = static_cast<const uint32_t*>(ins[q]);
-    p.out[q] = static_cast<uint32_t*>(outs[q]);
-    p.width[q] = widths[q];
-    p.fill[q] = static_cast<uint32_t>(fills[q]);
+    w.scale[q] = static_cast<float*>(scales[q]);
+    w.zp[q] = static_cast<float*>(zps[q]);
+    w.group[q] = groups[q];
+    w.groups[q] = n_groups[q];
+    if (w.scale[q] != nullptr && (w.zp[q] == nullptr || groups[q] < 1 ||
+                                  n_groups[q] < 1 ||
+                                  (fp16 && n_groups[q] != 1)))
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int S = n_dst * budget;
-  const dim3 grid(static_cast<unsigned>(n_src),
-                  static_cast<unsigned>(S > 0 ? (S + kAllTile - 1) / kAllTile
-                                              : 1));
-  pack_send_all_kernel<<<grid, kAllThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(assign), p, n_payloads,
-      static_cast<int*>(slot_to_row), static_cast<int*>(counts),
-      static_cast<int*>(overflow), n_src, n_dst, m, budget);
-  return static_cast<int>(cudaGetLastError());
+  w.levels = levels;
+  w.inv_levels = inv_levels;
+  w.fp16 = fp16;
+  return launch_pack(assign, ins, outs, widths, fills, n_payloads, w,
+                     slot_to_row, counts, overflow, n_src, n_dst, m, budget,
+                     stream);
 }

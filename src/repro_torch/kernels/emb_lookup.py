@@ -14,8 +14,10 @@
   ``repro/kernels/emb_lookup.py:pooled_lookup_staged``.
 * :func:`pooled_lookup_quant` — the pooled bag over a quantized table,
   ``out[b] = sum_f w[b, f] * (codes[id] * scale[id, g] + zp[id, g])``,
-  the dequant fused into the accumulate.  Replaces
-  ``repro/kernels/emb_lookup.py:pooled_lookup_quant``.
+  the dequant fused into the accumulate, on :func:`pooled_lookup`'s warp
+  per bag at E <= 32 and :func:`pooled_lookup_staged`'s warp per (bag,
+  128 columns) above.  Replaces ``repro/kernels/emb_lookup.py:
+  pooled_lookup_quant``.
 
 The kernels are CUDA C++ for ``sm_90a`` in ``csrc/emb_lookup.cu``; that
 file states what bounds each on the card and how its design answers it.
@@ -313,11 +315,12 @@ def pooled_lookup_quant(codes: torch.Tensor, scale: torch.Tensor,
     from ._build import load_library
 
     lib = load_library("emb_lookup")
-    ids_c, w = _pad_rule(ids, weights)
     out = torch.empty((B, E), dtype=torch.float32, device=codes.device)
+    # the kernel applies the PAD rule itself: one launch a call
     rc = lib.pooled_lookup_quant_launch(
-        codes.data_ptr(), scale.data_ptr(), zp.data_ptr(), ids_c.data_ptr(),
-        w.data_ptr(), out.data_ptr(), B, F, E, V, Bg, G,
+        codes.data_ptr(), scale.data_ptr(), zp.data_ptr(), ids.data_ptr(),
+        None if weights is None else weights.data_ptr(), out.data_ptr(),
+        B, F, E, V, Bg, G, _vec4(E, codes, out),
         torch.cuda.current_stream(codes.device).cuda_stream)
     _raise_on(rc, "pooled_lookup_quant")
     LAUNCHES["pooled_lookup_quant"] += 1

@@ -179,16 +179,42 @@ def _grouped(x: torch.Tensor, B: int, fill: float = 0.0) -> torch.Tensor:
 
 def _ungrouped(g: torch.Tensor, E: int) -> torch.Tensor:
     """(..., G, B) -> (..., E), dropping the pad tail."""
-    return g.reshape(g.shape[:-2] + (-1,))[..., :E].contiguous()
+    return g.reshape(g.shape[:-2] + (g.shape[-2] * g.shape[-1],))[
+        ..., :E].contiguous()
 
 
-def _group_bounds(x: torch.Tensor, codec: Codec):
+def _group_bounds(x: torch.Tensor, codec: Codec, zero_sign: bool):
     """Per-group (lo, hi) of ``x`` (..., E), the pad tail of a partial
-    terminal group excluded."""
+    terminal group excluded.  With ``zero_sign`` a zero minimum is -0
+    where the group holds a -0, as the reference's ``min`` orders -0
+    below +0 (``amin`` picks between them by its reduction order); it
+    keeps every code +0.  Without it the zero's sign is ``amin``'s, which
+    changes no dequantized value.  The sign of a zero ``hi`` changes no
+    output."""
     B = group_size(x.shape[-1], codec)
-    lo = _grouped(x, B, float("inf")).amin(dim=-1)
+    g = _grouped(x, B, float("inf"))
+    lo = g.amin(dim=-1)
+    if zero_sign:
+        lo = torch.where((lo == 0) & torch.signbit(g).any(dim=-1), -0.0, lo)
     hi = _grouped(x, B, float("-inf")).amax(dim=-1)
     return lo, hi, B
+
+
+def _quantize(x: torch.Tensor, c: Codec, zero_sign: bool):
+    """:func:`quantize_rows` for a resolved codec; ``zero_sign`` as in
+    :func:`_group_bounds`."""
+    x = x.float()
+    if c.kind == "fp16":
+        one = torch.ones(x.shape[:-1] + (1,), dtype=torch.float32,
+                         device=x.device)
+        return x.half(), one, torch.zeros_like(one)
+    E = x.shape[-1]
+    lo, hi, B = _group_bounds(x, c, zero_sign)
+    scale = (hi - lo) * inv_levels(c)
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = _grouped(x, B) - lo[..., None]
+    q.div_(scale[..., None]).round_().clamp_(0, c.levels)
+    return _ungrouped(q, E), scale, lo
 
 
 def quantize_rows(x: torch.Tensor, codec):
@@ -198,24 +224,14 @@ def quantize_rows(x: torch.Tensor, codec):
     placeholders so every codec shares the ``codes * scale + zp``
     dequant.  int codecs: ``codes`` are f32-valued integers in [0,
     levels], scale/zp (..., G) f32 with zero-range groups snapped to
-    scale 1 (constant groups round-trip exactly).
+    scale 1 (constant groups round-trip exactly); the wire's bits, a
+    zero zero-point's sign included, are the reference's.
     """
     c = get_codec(codec)
     if c is None:
         raise ValueError("quantize_rows needs a codec (None is the fp32 "
                          "identity path — do not call through it)")
-    x = x.float()
-    if c.kind == "fp16":
-        one = torch.ones(x.shape[:-1] + (1,), dtype=torch.float32,
-                         device=x.device)
-        return x.half(), one, torch.zeros_like(one)
-    E = x.shape[-1]
-    lo, hi, B = _group_bounds(x, c)
-    scale = (hi - lo) * inv_levels(c)
-    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
-    q = _grouped(x, B) - lo[..., None]
-    q.div_(scale[..., None]).round_().clamp_(0, c.levels)
-    return _ungrouped(q, E), scale, lo
+    return _quantize(x, c, zero_sign=True)
 
 
 def dequantize_rows(codes: torch.Tensor, scale: torch.Tensor | None,
@@ -239,8 +255,9 @@ def fake_quant(x: torch.Tensor, codec) -> torch.Tensor:
     c = get_codec(codec)
     if c is None:
         return x
-    codes, scale, zp = quantize_rows(x, c)
-    return dequantize_rows(codes, scale, zp, c)
+    # the sign of a zero zero-point changes no dequantized value: skip
+    # the pass over x that fixes it
+    return dequantize_rows(*_quantize(x, c, zero_sign=False), c)
 
 
 def ste(x: torch.Tensor, codec) -> torch.Tensor:

@@ -11,8 +11,10 @@ blocks); pooled_lookup sums in the plain version's order with the
 multiply and the add rounded apart and must be exact too;
 pooled_lookup_staged does the same and is held bit for bit at the
 serving shapes and around them (and to rtol = atol = 1e-5 in the older
-tests).  gather_rows_quant and pooled_lookup_quant
-compute in their plain versions' forms and must match them bit for bit.
+tests).  gather_rows_quant, the pack's quantized kernel and both
+layouts of pooled_lookup_quant compute in their plain versions' forms
+and must match them bit for bit, on groups whose minimum is -0 or +0
+too.
 auction_bids takes one subtraction per value, exact max/argmax and two
 rounded additions: best_j and bid bit for bit.  auction_solve, the whole
 eps-scaled auction in one launch, shares that arithmetic and compares
@@ -161,13 +163,27 @@ def _spread_rows(rng, k, E, device):
     return torch.from_numpy(x).to(device)
 
 
+def _signed_zero_rows(rng, k, F, device):
+    """_spread_rows with rows whose minimum is a zero of either sign:
+    -0 and +0 mixed, all -0, and zeros beside positive values."""
+    x = _spread_rows(rng, k, F, "cpu").numpy().copy()
+    x[2] = np.where(np.arange(F) % 2, -0.0, 0.0)
+    x[3] = -0.0
+    x[4] = np.abs(x[4])
+    x[4, ::3] = -0.0
+    x[4, 1::3] = 0.0
+    x[5] = np.where(np.arange(F) % 4 == 1, -0.0, 0.0)
+    x[5, ::4] = 3.5
+    return torch.from_numpy(x).to(device)
+
+
 @pytest.mark.parametrize("name", ["int8", "int4", "int8:4", "int4:5",
                                   "fp16"])
 @pytest.mark.parametrize("F", [13, 70, 512])
 def test_gather_rows_quant_matches_plain(cuda, name, F):
     rng = np.random.default_rng(F)
     m, S = 64, 256
-    rows = _spread_rows(rng, m, F, cuda)
+    rows = _signed_zero_rows(rng, m, F, cuda)
     slot = rng.integers(0, m + 5, S).astype(np.int32)   # some past the rows
     slot[rng.random(S) < 0.25] = -1
     slot = torch.from_numpy(slot).to(cuda)
@@ -653,7 +669,7 @@ def test_pack_send_all_raises_beyond_its_limits(cuda):
 @pytest.mark.parametrize("codec", [None, "int8"])
 def test_ragged_exchange_many_on_card_equals_cpu(cuda, codec):
     """ids, dense features and labels over one assignment: one pack
-    launch (and, with the codec, a pack-quantize a worker), the same
+    launch (with the codec, the pack's quantized kernel), the same
     outputs as on the CPU."""
     assign, payloads = _pack_case(np.random.default_rng(11), 4, 4, 256,
                                   "skew")
@@ -662,10 +678,135 @@ def test_ragged_exchange_many_on_card_equals_cpu(cuda, codec):
     got = tr.ragged_exchange_many([p.to(cuda) for p in payloads],
                                   assign.to(cuda), 128, 512, codec=codec)
     torch.cuda.synchronize()
-    assert tp.LAUNCHES == {**n0, "pack_send_all": n0["pack_send_all"] + 1,
-                           "gather_rows_quant": n0["gather_rows_quant"]
-                           + (4 if codec else 0)}
+    kernel = "pack_send_all_quant" if codec else "pack_send_all"
+    assert tp.LAUNCHES == {**n0, kernel: n0[kernel] + 1}
     want = tr.ragged_exchange_many(payloads, assign, 128, 512, codec=codec)
     for a, b in zip(got[0] + list(got[1:]), want[0] + list(want[1:])):
         assert torch.equal(a.cpu(), b)
 
+
+
+@pytest.mark.parametrize("name", ["int8", "int4", "int8:4", "fp16"])
+@pytest.mark.parametrize("F", [1, 13, 16, 17, 512])
+def test_pack_send_all_quant_matches_plain(cuda, name, F):
+    """The exchange's pack with the dense features on the quantized wire
+    (ids and labels exact) in one launch: every output bit for bit
+    against the plain version, which packs and quantizes worker by
+    worker; overflow and PAD slots; groups whose minimum is -0 or +0;
+    half a warp a slot (F <= 16) and a warp a slot (F = 17, 512)."""
+    rng = np.random.default_rng(F * 7 + len(name))
+    n, m = 4, 96
+    assign = rng.integers(0, n, (n, m))
+    assign[:, : m // 2] = 0                 # destination 0 over budget
+    assign = torch.from_numpy(assign.astype(np.int32))
+    dense = torch.stack([_signed_zero_rows(rng, m, F, "cpu")
+                         for _ in range(n)])
+    payloads = [torch.from_numpy(rng.integers(-9, 999, (n, m, 5))
+                                 .astype(np.int32)), dense,
+                torch.from_numpy(rng.random((n, m)).astype(np.float32))]
+    marks = (False, True, False)
+    for budget in (32, 0):
+        n0 = dict(tp.LAUNCHES)
+        got = tp.pack_send_all(assign.to(cuda),
+                               [p.to(cuda) for p in payloads], n, budget,
+                               codec=name, quantized=marks)
+        torch.cuda.synchronize()
+        assert tp.LAUNCHES == {**n0, "pack_send_all_quant":
+                               n0["pack_send_all_quant"] + 1}
+        want = tp.pack_send_all_ref(assign, payloads, n, budget,
+                                    codec=name, quantized=marks)
+        assert int(got[3]) == int(want[3]) and (budget == 0
+                                                or int(got[3]) > 0)
+        for a, b in zip(got[1:], want[1:]):
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+        assert _same_bits(got[0][0].cpu(), want[0][0])
+        assert _same_bits(got[0][2].cpu(), want[0][2])
+        assert len(got[0][1]) == 3
+        for a, b in zip(got[0][1], want[0][1]):
+            assert _same_bits(a.cpu(), b)
+
+
+def test_pack_send_all_quant_launcher_refuses_fp16_groups(cuda):
+    """The quantized pack's launcher, called directly, refuses an fp16
+    payload of more than one scale group (fp16 writes one scale and zp a
+    slot) with cudaErrorInvalidValue, and takes it with one."""
+    import ctypes
+
+    from repro_torch.kernels._build import load_library
+
+    lib = load_library("exchange_pack")
+    n, m, F = 2, 8, 4
+    assign = torch.zeros((n, m), dtype=torch.int32, device=cuda)
+    rows = torch.zeros((n, m, F), device=cuda)
+    out = torch.empty((n, n, m, F), dtype=torch.float16, device=cuda)
+    scale, zp = (torch.empty((n, n, m, 2), device=cuda) for _ in range(2))
+    slot_to_row = torch.empty((n, n * m), dtype=torch.int32, device=cuda)
+    counts = torch.empty((n, n), dtype=torch.int32, device=cuda)
+    overflow = torch.empty((), dtype=torch.int32, device=cuda)
+    ptr, one = ctypes.c_void_p * 1, ctypes.c_int * 1
+
+    def launch(groups: int) -> int:
+        arrays = [ptr(rows.data_ptr()), ptr(out.data_ptr()), one(F),
+                  one(0), ptr(scale.data_ptr()), ptr(zp.data_ptr()),
+                  one(F // groups), one(groups)]
+        at = [ctypes.addressof(a) for a in arrays]
+        rc = lib.pack_send_all_quant_launch(
+            assign.data_ptr(), *at[:4], 1, *at[4:], 1.0, 0.0, 1,
+            slot_to_row.data_ptr(), counts.data_ptr(), overflow.data_ptr(),
+            n, n, m, m, torch.cuda.current_stream(cuda).cuda_stream)
+        torch.cuda.synchronize()
+        return rc
+
+    assert launch(2) == 1                   # cudaErrorInvalidValue
+    assert launch(1) == 0
+
+
+@pytest.mark.parametrize("name", ["int8", "int4", "int8:4"])
+@pytest.mark.parametrize("E", [1, 4, 13, 32, 33, 512, 515])
+def test_pooled_lookup_quant_layouts_match_plain(cuda, name, E):
+    """B5's warp per bag (E <= 32) and warp per (bag, 128 columns)
+    (E > 32), bit for bit: PAD ids, ids past the table, an all-PAD bag,
+    weights None and given, bags of more valid lookups than a warp's list
+    holds (150), a block that does not divide E (int8:4 at 13, 33, 515),
+    and rows that are not float4-aligned (a view one float in)."""
+    rng = np.random.default_rng(E * 3 + len(name))
+    V, B = 300, 37
+    codes, scale, zp = quantize_rows(_spread_rows(rng, V, E, cuda), name)
+    big = torch.empty(V * E + 1, device=cuda)
+    shifted = big[1:].view(V, E)
+    shifted.copy_(codes)
+    for F in (74, 150):
+        ids = rng.integers(0, V + 20, (B, F)).astype(np.int32)
+        ids[rng.random((B, F)) < 0.3] = -1
+        ids[0] = -1
+        ids = torch.from_numpy(ids).to(cuda)
+        w = torch.from_numpy(rng.random((B, F)).astype(np.float32)).to(cuda)
+        for table in (codes, shifted):
+            for wt in (None, w):
+                n0 = tk.LAUNCHES["pooled_lookup_quant"]
+                got = tk.pooled_lookup_quant(table, scale, zp, ids, wt,
+                                             codec=name)
+                torch.cuda.synchronize()
+                assert tk.LAUNCHES["pooled_lookup_quant"] == n0 + 1
+                want = tk.pooled_lookup_quant_ref(table, scale, zp, ids, wt,
+                                                  codec=name)
+                assert _same_bits(got, want)
+                assert not got[0].any()
+
+
+def test_quantized_training_step_packs_once_a_step(cuda):
+    """A --codec int8 training step on the card packs the exchange (the
+    dense features quantized) in one launch of the pack's quantized
+    kernel a step, and never runs gather_rows_quant."""
+    from repro_torch.launch.train import build_parser, run_dlrm
+
+    steps = 3
+    args = build_parser().parse_args(
+        ["--arch", "wdl-tiny", "--workers", "4", "--batch-per-worker", "8",
+         "--steps", str(steps), "--esd-alpha", "1", "--exchange", "ragged",
+         "--codec", "int8", "--device", "cuda"])
+    n0 = dict(tp.LAUNCHES)
+    out = run_dlrm(args)
+    assert len(out["metrics"]) == steps
+    assert tp.LAUNCHES == {**n0, "pack_send_all_quant":
+                           n0["pack_send_all_quant"] + steps}

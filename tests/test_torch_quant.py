@@ -13,7 +13,12 @@ plain version is bitwise the pooled sum of the ``fake_quant``-ed table
 differently, to rtol 1e-6 and an absolute 1e-6 of the largest output
 (a few f32 ulps of a sum of six rows).  The quantized ragged exchange
 is held against the reference's pack, quantize, dequantize and compact
-per worker, the collective emulated: bitwise.
+per worker, the collective emulated: bitwise.  The exchange's one pack
+launch with a payload marked as quantized (its plain version) is held
+per source against ``gather_rows_quant_pallas`` in interpret mode on
+the reference's slot map, bitwise.  Groups whose minimum is a zero take
+-0 as their zero-point where they hold a -0, as the reference's ``min``
+does, and every code is +0.
 """
 import jax
 import jax.numpy as jnp
@@ -272,3 +277,134 @@ def test_codec_route_quantizes_only_float_rows():
                        ragged_exchange(dense, assign, 2)[0])
     with pytest.raises(ValueError, match="ragged"):
         make_esd_exchange("padded", n, m, codec="int8")
+
+
+def _signed_zero_rows(rng, k, E):
+    """_rows plus rows whose minimum is a zero of either sign: -0 and +0
+    mixed, all -0, zeros beside positive values."""
+    x = _rows(rng, k=k, E=E)
+    x[5] = np.where(np.arange(E) % 2, -0.0, 0.0)
+    x[6] = -0.0
+    x[7] = np.abs(x[7])
+    x[7, ::3] = -0.0
+    x[7, 1::3] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("name", ["int8", "int4", "int8:4", "int4:5"])
+def test_signed_zero_groups_match_reference(name):
+    """A group whose minimum is a zero: zero-point -0 where it holds a
+    -0 (+0 otherwise), codes +0, as the reference's jitted codec and its
+    Pallas pack give them."""
+    rng = np.random.default_rng(len(name))
+    rows = _signed_zero_rows(rng, 12, 13)
+    c = J.get_codec(name)
+    got = T.quantize_rows(torch.from_numpy(rows), name)
+    for g, w, what in zip(got, j_quantize(jnp.asarray(rows), c),
+                          ("codes", "scale", "zp")):
+        _bits_equal(g, w, f"{name} quantize_rows {what}")
+    assert np.signbit(got[2][6].numpy()).all()       # all -0: zp -0
+    assert not np.signbit(got[0].numpy()).any()      # codes never -0
+    # fake_quant skips the zero's sign, which changes no dequantized bit
+    _bits_equal(T.fake_quant(torch.from_numpy(rows), name),
+                j_fake(jnp.asarray(rows), c), f"{name} fake_quant")
+    _bits_equal(T.fake_quant(torch.from_numpy(rows), name),
+                T.dequantize_rows(*got, name).numpy(),
+                f"{name} fake_quant = dequantize(quantize_rows)")
+    slot = np.arange(-1, 12, dtype=np.int32)
+    want = gather_rows_quant_pallas(jnp.asarray(rows), jnp.asarray(slot),
+                                    codec=c, interpret=True)
+    got = tp.gather_rows_quant(torch.from_numpy(rows), torch.from_numpy(slot),
+                               name)
+    for g, w, what in zip(got, want, ("codes", "scale", "zp")):
+        _bits_equal(g, w, f"{name} gather_rows_quant {what}")
+
+
+def _jax_slot_map(assign, n, budget):
+    """The reference's slot map for the quantized pack
+    (``repro/exchange/ragged.py:ragged_exchange_quant``, use_pallas)."""
+    a = jnp.asarray(assign)
+    m = a.shape[0]
+    counts = jnp.zeros((n,), jnp.int32).at[a].add(1, mode="drop")
+    starts = jnp.cumsum(counts) - counts
+    order = jnp.argsort(a, stable=True)
+    rank = jnp.zeros((m,), jnp.int32).at[order].set(
+        jnp.arange(m, dtype=jnp.int32))
+    pos = rank - starts[a]
+    slot = jnp.where(pos < budget, a * budget + pos, n * budget)
+    return jnp.full((n * budget,), -1, jnp.int32).at[slot].set(
+        jnp.arange(m, dtype=jnp.int32), mode="drop")
+
+
+@pytest.mark.parametrize("name", ["int8", "int4", "int8:4", "fp16"])
+@pytest.mark.parametrize("case,budget", [("uniform", 3), ("overflow", 3),
+                                         ("overflow", 8)])
+def test_pack_send_all_quant_ref_matches_pallas(name, case, budget):
+    """The exchange's one pack with the dense features marked as
+    quantized (ids and labels exact), its plain version as the CPU runs
+    it: per source, the quantized blocks equal ``gather_rows_quant_pallas``
+    (interpret mode) on the reference's slot map, codes, scale and zp bit
+    for bit, PAD slots and an overflowing link included; the exact
+    payloads equal the reference's Pallas pack."""
+    rng = np.random.default_rng(budget + len(case) + len(name))
+    n, m, F = 4, 12, 13
+    if case == "uniform":
+        assign = np.stack([rng.permutation(np.arange(m) % n)
+                           for _ in range(n)])
+    else:                       # worker 0 over its budget
+        assign = rng.integers(0, n, (n, m))
+        assign[:, : budget + 2] = 0
+    assign = assign.astype(np.int32)
+    ids = rng.integers(-1, 999, (n, m, 5)).astype(np.int32)
+    dense = np.stack([_signed_zero_rows(rng, m, F) for _ in range(n)])
+    labels = (rng.random((n, m)) < 0.3).astype(np.float32)
+    n0 = dict(tp.LAUNCHES)
+    sends, stm, counts, overflow = tp.pack_send_all(
+        torch.from_numpy(assign),
+        [torch.from_numpy(a) for a in (ids, dense, labels)], n, budget,
+        codec=name, quantized=(False, True, False))
+    assert tp.LAUNCHES == n0                 # CPU: no kernel launched
+    codes, scale, zp = sends[1]
+    G = 1 if name == "fp16" else -(-F // T.group_size(F, T.get_codec(name)))
+    assert codes.shape == (n, n, budget, F) and scale.shape == (n, n, budget,
+                                                                G)
+    total_ov = 0
+    for i in range(n):
+        want_stm = _jax_slot_map(assign[i], n, budget)
+        np.testing.assert_array_equal(stm[i].numpy(), np.asarray(want_stm))
+        want = gather_rows_quant_pallas(jnp.asarray(dense[i]), want_stm,
+                                        codec=J.get_codec(name),
+                                        interpret=True)
+        for g, w, what in zip(sends[1], want, ("codes", "scale", "zp")):
+            _bits_equal(g[i].reshape(n * budget, -1), w,
+                        f"{name} {case} source {i} {what}")
+        for q, rows in ((0, ids), (2, labels)):
+            s, c, ov = j_pack(jnp.asarray(rows[i]), jnp.asarray(assign[i]),
+                              n, budget, use_pallas=True)
+            np.testing.assert_array_equal(sends[q][i].numpy(), np.asarray(s))
+        np.testing.assert_array_equal(counts[i].numpy(), np.asarray(c))
+        total_ov += int(ov)
+    assert int(overflow) == total_ov and (total_ov > 0) == (case ==
+                                                             "overflow")
+    pad = stm.numpy().reshape(n, n, budget) < 0
+    assert pad.any() == (case == "overflow")  # the other links run short
+    if name != "fp16":                       # PAD slots: scale 1, zp fill
+        assert (codes.numpy()[pad] == 0).all()
+        assert (scale.numpy()[pad] == 1).all() and (zp.numpy()[pad] == -1
+                                                    ).all()
+
+
+def test_pack_send_all_refuses_marks_it_cannot_honour():
+    """A quantized mark needs a codec and (n_src, m, F) f32 rows, and
+    one mark a payload."""
+    assign = torch.zeros((2, 4), dtype=torch.int32)
+    ids = torch.zeros((2, 4, 3), dtype=torch.int32)
+    dense = torch.zeros((2, 4, 3))
+    labels = torch.zeros((2, 4))
+    for payloads, codec, marks in (([ids], "int8", (True,)),
+                                   ([labels], "int8", (True,)),
+                                   ([dense], None, (True,)),
+                                   ([dense, ids], "int8", (True,))):
+        with pytest.raises(ValueError, match="quantized"):
+            tp.pack_send_all(assign, payloads, 2, 2, codec=codec,
+                             quantized=marks)

@@ -306,21 +306,32 @@ def test_codec_driver_matches_reference(reference, policy):
 def test_advance_packs_once_a_step(reference, monkeypatch, slack, codec):
     """The advance moves ids, dense features and labels with one pack a
     step over all workers (on the card one pack_send_all launch; with the
-    codec the dense features take the pack-quantize, one a worker), and
-    its outputs and counts stay the reference's."""
+    codec the dense features quantized in that pack, marked as the one
+    quantized payload), never through the pack-quantize alone, and its
+    outputs and counts stay the reference's."""
     from repro_torch.exchange import ragged
+    from repro_torch.kernels import exchange_pack
 
     calls = {"pack_send_all": 0, "gather_rows_quant": 0}
-    for name in calls:
-        def spy(*a, _fn=getattr(ragged, name), _name=name, **k):
-            calls[_name] += 1
-            return _fn(*a, **k)
-        monkeypatch.setattr(ragged, name, spy)
+    marks = []
+
+    def pack(*a, _fn=ragged.pack_send_all, **k):
+        calls["pack_send_all"] += 1
+        marks.append(tuple(a[6]) if len(a) > 6 else tuple(
+            k.get("quantized", ())))
+        return _fn(*a, **k)
+
+    def alone(*a, _fn=exchange_pack.gather_rows_quant, **k):
+        calls["gather_rows_quant"] += 1
+        return _fn(*a, **k)
+
+    monkeypatch.setattr(ragged, "pack_send_all", pack)
+    monkeypatch.setattr(exchange_pack, "gather_rows_quant", alone)
     params, refs = reference
     want = refs[slack] if codec is None else refs["uniform"]
     got = _stages_replay(params, slack, codec=codec)
-    assert calls == {"pack_send_all": STEPS,
-                     "gather_rows_quant": N * STEPS if codec else 0}
+    assert calls == {"pack_send_all": STEPS, "gather_rows_quant": 0}
+    assert marks == [(False, codec is not None, False)] * STEPS
     for i in range(STEPS):
         for key in ("assign", "s2", "d2", "l2", "exchange_overflow") + COUNTS:
             np.testing.assert_array_equal(got[f"{key}_{i}"],
