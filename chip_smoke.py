@@ -1,7 +1,7 @@
 """Drive the PyTorch port's serving path and training step, exact and
 over the quantized wire, the paper's simulator with its auction solver,
-and LM training with its flash-attention kernel, on one CUDA card and
-check them.
+LM training with its flash-attention kernel, and the pipelined training
+step with its prefetch plane, on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -20,7 +20,8 @@ Phases, each printing its own lines:
    least time the card could take (bytes over 3.35 TB/s, or operations
    over 67 TFLOP/s f32), beside the launch floor (an empty kernel's
    device and call ms).  Serving (wdl-s1: V = 502,000, E = 512): the
-   hot-set plane of C rows, bags of the stream's 48 history slots, B =
+   hot-set plane of C rows (and the training prefetch plane's pull: 64
+   of 512 slots), bags of the stream's 48 history slots, B =
    16 and 4,096, bit for bit (and with an all-PAD bag, weights, and at
    E = 510).  Training: the decide stage's per-id cost table (U, 4)
    pooled over one S1 batch of 256 x 74 (and the pooled lookup again at
@@ -67,7 +68,12 @@ Phases, each printing its own lines:
    3 steps of ``run_lm`` at smollm-360m's smoke config with S = 2,048
    (the flash route) on the card against the CPU, losses within 1e-4,
    and again in bf16 (the card's wgmma forward and tensor-core backward
-   against the CPU's plain versions), losses within 5e-2;
+   against the CPU's plain versions), losses within 5e-2; ``run_dlrm``
+   pipelined at wdl-tiny (depth 2; depth 2 with stale decisions; depth 3
+   with decide-ahead 2, lookahead 2 and 16 rows a step prefetched into
+   64 slots), the card's chain on a stream of its own, against the CPU:
+   integer fields equal, losses and Alg.-1 costs within 1e-5, the final
+   prefetch plane's ids, expiry and rows equal;
 5. serve — ``run_serve`` at wdl-s1 (4 workers, 2,000 QPS for 1 s), then
    for 0.5 s with ``--codec int8``;
 6. train — ``run_dlrm`` at wdl-s1 (4 workers x 256 samples, ESD alpha 1,
@@ -90,9 +96,18 @@ Phases, each printing its own lines:
    layers, d = 960, vocab 49,152, bf16), B = 4, S = 2,048, 5 steps of
    Adam: ms per step (mean of steps 1-4, each ended by a synchronise),
    tokens/s, losses, peak memory, and 32 launches a step of the flash
-   kernel and 32 of its backward kernel.
+   kernel and 32 of its backward kernel;
+10. train-pipeline — ``run_dlrm`` at phase 6's configuration with
+   ``--pipeline-depth 2``, exact and with ``--codec int8``: every record
+   (loss, counts, cost, Alg.-1 estimate) bit for bit phase 6's, the
+   auction's rounds and the launches a step depth 1's, the wall ms a
+   step beside depth 1's; with ``--stale-decide`` (step 0's
+   ``alg1_realized`` equal to its ``alg1_est`` within 1e-6); and the
+   README's configuration (depth 4, lookahead 4, decide-ahead 3, 64 rows
+   a step prefetched into 512 slots): one staged_gather launch a step,
+   rows prefetched after step 0, demand misses within the misses.
 
-Each run of phases 5 to 9 sets every kernel's launch counter to 0 just
+Each run of phases 5 to 10 sets every kernel's launch counter to 0 just
 before and reads the counters just after.  Then one JSON line of kernel
 records, after the script's wall time, and as the last line ``{"ok":
 true, "device": {...}}``.  Any failed check raises, so the script exits
@@ -701,6 +716,28 @@ def phase_kernels(seed: int) -> dict:
           f" exact, {ms:.4f} ms (call {call_ms:.4f}), plain {plain_ms:.4f} ms"
           f" (call {plain_call:.4f}), bound {b_ms:.4f} ms ({b_by})")
 
+    # staged_gather at the training prefetch plane (--prefetch 64
+    # --prefetch-slots 512): 64 of 512 slots pull a table row
+    Cp, pulls = 512, 64
+    plane_p = torch.randn((Cp, E), generator=g, device=dev) * 0.01
+    src_p = np.full(Cp, -1, np.int32)
+    src_p[rng.choice(Cp, pulls, replace=False)] = rng.choice(V, pulls,
+                                                             replace=False)
+    src_p = torch.as_tensor(src_p, device=dev)
+    out = K.staged_gather(plane_p, table, src_p)
+    ref = K.staged_gather_ref(plane_p, table, src_p)
+    torch.cuda.synchronize()
+    check(torch.equal(out, ref), "staged_gather at the prefetch plane's "
+                                 "shape is bitwise equal to plain")
+    ms_p, call_p = device_ms(lambda: K.staged_gather(plane_p, table, src_p))
+    plain_p, plain_call_p = device_ms(
+        lambda: K.staged_gather_ref(plane_p, table, src_p))
+    bp_ms, bp_by = bound(2 * Cp * E * 4 + Cp * 4, 0)
+    print(f"[kernel] staged_gather (training prefetch pull) C={Cp} E={E} "
+          f"pulled={pulls}: exact, {ms_p:.4f} ms (call {call_p:.4f}), plain "
+          f"{plain_p:.4f} ms (call {plain_call_p:.4f}), bound {bp_ms:.4f} ms "
+          f"({bp_by})")
+
     # the launch floor: an empty kernel through the same ctypes path
     from repro_torch.kernels._build import load_library
 
@@ -886,6 +923,62 @@ def phase_train_parity(seed: int, codec=None):
           f"1e-5)")
 
 
+PIPE_PARITY = {"depth 2": ["--pipeline-depth", "2"],
+               "stale": ["--pipeline-depth", "2", "--stale-decide"],
+               "depth 3, decide-ahead 2, prefetch": [
+                   "--pipeline-depth", "3", "--decide-ahead", "2",
+                   "--lookahead", "2", "--prefetch", "16",
+                   "--prefetch-slots", "64"]}
+
+
+def phase_train_pipeline_parity(seed: int):
+    """``run_dlrm`` pipelined at wdl-tiny (4 workers x 8, 5 steps), its
+    chain on a stream of its own on the card, against the same run on the
+    CPU from the same weights: every integer field equal, losses and
+    Alg.-1 costs within 1e-5, the final prefetch plane's ids and expiry
+    equal and its rows bit for bit."""
+    from repro_torch.configs import DLRM_CONFIGS
+    from repro_torch.data.synthetic import WORKLOADS
+    from repro_torch.launch.train import build_parser, run_dlrm
+    from repro_torch.models.dlrm import init_params
+
+    cfg = DLRM_CONFIGS["wdl-tiny"]
+    cpu = init_params(cfg, WORKLOADS[cfg.workload],
+                      torch.Generator().manual_seed(seed), "cpu")
+    base = ["--arch", "wdl-tiny", "--workers", "4", "--batch-per-worker",
+            "8", "--steps", "5", "--esd-alpha", "1", "--exchange", "ragged",
+            "--seed", str(seed)]
+    for what, extra in PIPE_PARITY.items():
+        outs = {dev: run_dlrm(build_parser().parse_args(
+                    base + extra + ["--device", dev]),
+                    model=copy.deepcopy(cpu).to(dev))
+                for dev in ("cpu", "cuda")}
+        rc, rg = outs["cpu"]["metrics"], outs["cuda"]["metrics"]
+        check(outs["cuda"]["stage_clock"] == "device",
+              "the pipelined card run put its chain on a stream of its own")
+        worst = 0.0
+        for a, b in zip(rc, rg, strict=True):
+            check(set(a) == set(b), f"{what}: the same record fields")
+            for key, v in a.items():
+                if key in ("loss", "alg1_est", "alg1_realized", "cost"):
+                    check(math.isclose(b[key], v, rel_tol=1e-5, abs_tol=0),
+                          f"{what}: {key} on card vs CPU within 1e-5")
+                    worst = max(worst, abs(b[key] - v) / abs(v))
+                elif key != "wall_s":
+                    check(b[key] == v, f"{what}: {key} equal on card and CPU")
+        pc, pg = outs["cpu"]["prefetch_plane"], outs["cuda"]["prefetch_plane"]
+        if pc is not None:
+            for key in ("ids", "expiry", "rows"):
+                check(torch.equal(getattr(pc, key), getattr(pg, key).cpu()),
+                      f"{what}: the final plane's {key} equal on card and "
+                      f"CPU")
+        print(f"[parity] run_dlrm {what}, card vs CPU, wdl-tiny, 5 steps: "
+              f"integer fields equal, losses {[r['loss'] for r in rg]}, max "
+              f"rel err of losses and costs {worst:.3g} (tolerance 1e-5)"
+              + ("; the final plane's ids, expiry and rows equal"
+                 if pc is not None else ""))
+
+
 def phase_serve(seed: int, codec=None, duration: float = 1.0) -> dict:
     from repro_torch.data.synthetic import WORKLOADS
     from repro_torch.launch.serve import build_parser, run_serve
@@ -928,6 +1021,9 @@ def phase_serve(seed: int, codec=None, duration: float = 1.0) -> dict:
     return launches
 
 
+TRAIN_DEPTH1: dict = {}     # codec -> (run_dlrm summary, launches a step)
+
+
 def phase_train(seed: int, codec=None) -> dict:
     from repro_torch.kernels import auction as A
     from repro_torch.launch.train import build_parser, run_dlrm
@@ -946,6 +1042,7 @@ def phase_train(seed: int, codec=None) -> dict:
         solves, A.ROUNDS_LOG = A.ROUNDS_LOG, None
     recs = out["metrics"]
     per_step = {k: round(v / len(recs), 3) for k, v in launches.items()}
+    TRAIN_DEPTH1[codec] = out, per_step
     losses = [r["loss"] for r in recs]
     print(f"[train] wdl-s1, codec {out['codec']}, {out['workers']} workers x "
           f"{out['batch'] // out['workers']}, {len(recs)} steps: loss "
@@ -984,6 +1081,101 @@ def phase_train(seed: int, codec=None) -> dict:
     check(all(np.isfinite(losses)), "every training loss finite")
     check(all(r["miss_pull"] > 0 for r in recs), "miss_pull > 0 each step")
     return launches
+
+
+# the README's pipelined configuration at full width
+AHEAD_ARGV = ["--pipeline-depth", "4", "--lookahead", "4", "--decide-ahead",
+              "3", "--prefetch", "64", "--prefetch-slots", "512"]
+
+
+def phase_train_pipeline(seed: int) -> dict:
+    """``run_dlrm`` at wdl-s1 pipelined: depth 2, exact and with
+    ``--codec int8``, each record bit for bit phase 6's depth-1 record,
+    the auction's rounds and the launches a step depth 1's; depth 2 with
+    stale decisions; and the README's configuration (depth 4, lookahead 4,
+    decide-ahead 3, 64 rows a step into 512 slots), its prefetch pull one
+    staged_gather launch a step."""
+    from repro_torch.configs import DLRM_CONFIGS
+    from repro_torch.kernels import auction as A
+    from repro_torch.launch.train import build_parser, run_dlrm
+    from repro_torch.quant.codecs import row_wire_bytes
+
+    total: dict = {}
+
+    def run(extra):
+        args = build_parser().parse_args(TRAIN_ARGV + extra
+                                         + ["--seed", str(seed)])
+        A.ROUNDS_LOG = []
+        _zero_launches()
+        try:
+            out = run_dlrm(args)
+        finally:
+            launches = {k: v for k, v in _read_launches().items() if v}
+            solves, A.ROUNDS_LOG = A.ROUNDS_LOG, None
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        recs = out["metrics"]
+        per_step = {k: round(v / len(recs), 3) for k, v in launches.items()}
+        print(f"[train-pipeline] {' '.join(extra)}: wall "
+              f"{out['wall_ms_mean']:.3f} ms a step (mean after the first "
+              f"{out['pipeline_depth']}), device ms decide "
+              f"{out['decide_ms_mean']:.3f}, advance "
+              f"{out['advance_ms_mean']:.3f}, train "
+              f"{out['train_ms_mean']:.3f}; host ms {out['host_ms_mean']}; "
+              f"{out['samples_per_s']:.1f} samples/s; losses "
+              f"{[r['loss'] for r in recs]}; launches {per_step} per step")
+        check(out["stage_clock"] == "device",
+              "the chain ran on a stream of its own")
+        check(all(np.isfinite([r["loss"] for r in recs])),
+              "every pipelined loss finite")
+        return out, per_step, [r.sum(dim=1).tolist() for r in solves]
+
+    keys = ("loss", "miss_pull", "update_push", "evict_push", "cost",
+            "alg1_est")
+    for codec in (None, "int8"):
+        one, one_launch = TRAIN_DEPTH1[codec]
+        extra = ["--pipeline-depth", "2"] + (["--codec", codec] if codec
+                                             else [])
+        out, per_step, rounds = run(extra)
+        check([[r[k] for k in keys] for r in out["metrics"]]
+              == [[r[k] for k in keys] for r in one["metrics"]],
+              f"depth 2 (codec {codec}): every record bit for bit depth 1's")
+        check(seed != 0 or rounds == TRAIN_ROUNDS[codec][:len(rounds)],
+              f"depth 2 (codec {codec}): the auction's rounds equal the "
+              f"CPU's")
+        check(per_step == one_launch,
+              f"depth 2 (codec {codec}): the launches a step equal depth "
+              f"1's")
+        print(f"[train-pipeline] codec {codec or 'none'}: wall ms a step, "
+              f"depth 1 {one['wall_ms_mean']:.3f}, depth 2 "
+              f"{out['wall_ms_mean']:.3f} (records, rounds and launches "
+              f"equal)")
+
+    out, _, _ = run(["--pipeline-depth", "2", "--stale-decide"])
+    recs = out["metrics"]
+    check(all("alg1_realized" in r for r in recs),
+          "stale: every record has alg1_realized")
+    check(math.isclose(recs[0]["alg1_realized"], recs[0]["alg1_est"],
+                       rel_tol=1e-6),
+          "stale: step 0 decides on the committed state (realized = est)")
+
+    out, per_step, _ = run(AHEAD_ARGV)
+    recs = out["metrics"]
+    wire = row_wire_bytes(DLRM_CONFIGS[TRAIN_ARGV[1]].embedding_dim, None)
+    check(per_step.get("staged_gather") == 1.0,
+          "the prefetch pull launched staged_gather once a step")
+    check(all(r["prefetch_bytes"] > 0 for r in recs[1:]),
+          "prefetch_bytes > 0 after step 0")
+    check(all(r["demand_miss_bytes"] <= r["miss_pull"] * wire for r in recs),
+          "demand misses never exceed misses")
+    check(all("n_reassigned" in r and "alg1_realized" in r for r in recs),
+          "n_reassigned and alg1_realized in every record")
+    print(f"[train-pipeline] README configuration: prefetch_bytes "
+          f"{[r['prefetch_bytes'] for r in recs]}, prefetch_hit_rate "
+          f"{[r['prefetch_hit_rate'] for r in recs]}, n_reassigned "
+          f"{[r['n_reassigned'] for r in recs]}, window_dedup_frac "
+          f"{[r['window_dedup_frac'] for r in recs]}")
+    return total
 
 
 def phase_auction_kernels(seed: int) -> dict:
@@ -1570,6 +1762,7 @@ def main(argv=None) -> int:
     phase_train_parity(args.seed, codec="int8")
     phase_sim_parity(args.seed)
     phase_lm_parity(args.seed)
+    phase_train_pipeline_parity(args.seed)
     # launches on the main paths: each run counted from zero, then summed
     launches: dict = {}
     for run in (lambda: phase_serve(args.seed),
@@ -1578,7 +1771,8 @@ def main(argv=None) -> int:
                 lambda: phase_train(args.seed, codec="int8"),
                 phase_table2,
                 lambda: phase_simulate(args.seed),
-                lambda: phase_lm_train(args.seed)):
+                lambda: phase_lm_train(args.seed),
+                lambda: phase_train_pipeline(args.seed)):
         t = time.perf_counter()
         for k, v in run().items():
             launches[k] = launches.get(k, 0) + v

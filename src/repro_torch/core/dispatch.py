@@ -18,6 +18,9 @@ worker's decision stays independent of the others', as under
     :func:`heu_dispatch`.  The greedy scans and the auction's straggler
     placement are sequential over samples; they run on the host over
     small integer arrays, in the reference's order;
+  * the pipelined step's repair of a stale assignment
+    (:func:`changed_samples_mask`, :func:`esd_reassign`, the same
+    host-side capped scan);
   * the sparse cache state (:class:`SparseEsdState`,
     :func:`esd_state_update_sparse`) and :func:`need_ids_list`.
 
@@ -37,10 +40,11 @@ from ..kernels import auction as KA
 from ..kernels.ops import cost_matrix_sparse_kernel
 from .cost import unique_padded
 
-__all__ = ["heu_dispatch", "auction_fixed", "hybrid_dispatch",
-           "dispatch_cap", "exchange_budget", "esd_cost_matrix",
-           "esd_decide", "SparseEsdState", "esd_sparse_init",
-           "esd_state_update_sparse", "need_ids_list"]
+__all__ = ["heu_dispatch", "changed_samples_mask", "esd_reassign",
+           "auction_fixed", "hybrid_dispatch", "dispatch_cap",
+           "exchange_budget", "esd_cost_matrix", "esd_decide",
+           "SparseEsdState", "esd_sparse_init", "esd_state_update_sparse",
+           "need_ids_list"]
 
 _I32_MAX = int(np.iinfo(np.int32).max)
 
@@ -82,6 +86,61 @@ def heu_dispatch(C: torch.Tensor, cap: int, workload=None) -> torch.Tensor:
         wl[j] += 1
         out[i] = j
     return torch.tensor(out, dtype=torch.int32, device=C.device)
+
+
+def changed_samples_mask(samples: torch.Tensor, state_a, state_b
+                         ) -> torch.Tensor:
+    """(..., m) bool: samples (..., m, F) holding at least one id whose
+    Alg.-1 state column (``latest`` or ``dirty``) differs between two
+    SparseEsdStates — exactly the rows whose stale cost can differ from
+    the committed one, the only rows :func:`esd_reassign` re-places.
+    PAD (-1) ids never flag a sample."""
+    V = state_a.latest.shape[1]
+    valid = samples >= 0
+    g = samples.clamp(0, V - 1).long()
+    diff = ((state_a.latest[:, g] != state_b.latest[:, g])
+            | (state_a.dirty[:, g] != state_b.dirty[:, g])).any(dim=0)
+    return (diff & valid).any(dim=-1)
+
+
+def esd_reassign(C: torch.Tensor, assign: torch.Tensor,
+                 flagged: torch.Tensor, cap: int):
+    """Repair a stale assignment against a fresh cost matrix.
+
+    Every unflagged sample keeps its stale worker (its cost row is what
+    the decide-time state gave, so the stale choice stands); the flagged
+    rows, in regret-descending order, each take their cheapest worker
+    with spare capacity, starting from the unflagged rows' workload — the
+    reference's capped scan, run on the host over the preference table
+    as :func:`heu_dispatch` runs.  C: (k, n), or (B, k, n) for B workers'
+    independent repairs; assign, flagged: (k,) / (B, k).  Returns
+    ``(assign, n_reassigned)``: int32 of assign's shape, and the flagged
+    count, a 0-dim int32 tensor summed over the B repairs."""
+    single = C.dim() == 2
+    if single:
+        C, assign, flagged = C[None], assign[None], flagged[None]
+    B, k, n = C.shape
+    # flagged rows first, by regret; the pass-through rows keep their
+    # worker and never move the workload the scan fills
+    key = -torch.where(flagged, _regret(C),
+                       torch.full_like(C[..., 0], -float("inf")))
+    order = torch.argsort(key, dim=1, stable=True).tolist()
+    pref = torch.argsort(C, dim=2, stable=True).tolist()
+    out = assign.to(torch.int32).tolist()
+    flags = flagged.tolist()
+    for b in range(B):
+        wl = [0] * n
+        for j, f in zip(out[b], flags[b]):
+            if not f:
+                wl[j] += 1
+        for i in order[b]:
+            if flags[b][i]:
+                j = _first_free(pref[b][i], wl, cap)
+                wl[j] += 1
+                out[b][i] = j
+    out = torch.tensor(out, dtype=torch.int32, device=C.device)
+    n_re = flagged.sum(dtype=torch.int32)
+    return (out[0] if single else out), n_re
 
 
 def _eps(span: torch.Tensor, e_pow: int) -> torch.Tensor:
@@ -275,13 +334,14 @@ def esd_state_update_sparse(state: SparseEsdState, need_ids: torch.Tensor,
     need_ids: (n, L) int32, the ids each worker trains this iteration,
     unique within each row, PAD = -1 (see :func:`need_ids_list`).
     Returns (new_state, counts) with per-worker ``miss_pull``,
-    ``update_push`` and ``evict_push`` (n,) int32.
+    ``update_push`` and ``evict_push`` (n,) int32.  ``staged``, the
+    (V,) bool membership of the prefetch plane
+    (:func:`repro_torch.pipeline.prefetch.staged_membership`), splits
+    the misses into ``prefetch_hit`` (the row was staged) and
+    ``demand_miss``; the state is the same with or without it.
     """
     if part is not None:
         raise NotImplementedError("multi-PS state comes with ROADMAP A2")
-    if staged is not None:
-        raise NotImplementedError("the prefetch miss split comes with "
-                                  "ROADMAP A8")
     n, L = need_ids.shape
     V = state.latest.shape[1]
     dev = need_ids.device
@@ -381,6 +441,11 @@ def esd_state_update_sparse(state: SparseEsdState, need_ids: torch.Tensor,
                          last_access.contiguous(), slots, step)
     counts = {"miss_pull": miss_pull, "update_push": update_push,
               "evict_push": evict_push}
+    if staged is not None:
+        stagedU = staged[g] & uvalid
+        pre = (miss & stagedU[None, :]).sum(dim=1, dtype=torch.int32)
+        counts["prefetch_hit"] = pre
+        counts["demand_miss"] = miss_pull - pre
     return new, counts
 
 

@@ -1,19 +1,20 @@
 """Prefetching data loader: keeps the next batches ready on a worker
-thread while the current step runs.
+thread while the current step runs, and composes a dispatch callback
+into that overlap.
 
-The port's copy of the JAX package's ``PrefetchLoader``; each upstream
-pull is a ``data.load`` span on the ``loader`` track of the port's
-tracer (:mod:`repro_torch.obs.trace`).
+The port's copy of the JAX package's ``PrefetchLoader`` and
+``DispatchingLoader``; each upstream pull is a ``data.load`` span on the
+``loader`` track of the port's tracer (:mod:`repro_torch.obs.trace`).
 """
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Any, Iterator
+from typing import Any, Callable, Iterator
 
 from ..obs.trace import get_tracer
 
-__all__ = ["PrefetchLoader"]
+__all__ = ["PrefetchLoader", "DispatchingLoader"]
 
 _SENTINEL = object()
 
@@ -59,3 +60,35 @@ class PrefetchLoader:
                 raise self._err
             raise StopIteration
         return item
+
+
+class DispatchingLoader:
+    """Prefetch + one-step lookahead dispatch.
+
+    ``dispatch_fn(next_batch) -> dispatched_batch`` runs while the caller
+    is still training on the current batch — the paper's decision-hiding
+    pipeline.  Yields already-dispatched batches.
+    """
+
+    def __init__(self, it: Iterator[Any], dispatch_fn: Callable[[Any], Any],
+                 depth: int = 2):
+        self._inner = PrefetchLoader(it, depth)
+        self._fn = dispatch_fn
+        self._pending = None
+        self._primed = False
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if not self._primed:
+            self._pending = self._fn(next(self._inner))
+            self._primed = True
+        out = self._pending
+        if out is None:
+            raise StopIteration
+        try:
+            self._pending = self._fn(next(self._inner))
+        except StopIteration:
+            self._pending = None
+        return out

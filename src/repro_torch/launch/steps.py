@@ -3,19 +3,21 @@ training step.
 
 The counterpart of the JAX package's ``launch/steps.py``
 (``make_train_step`` for the LM, and ``make_esd_exchange``,
-``raise_on_overflow``, ``make_dlrm_esd_stages`` for the non-elastic,
-single-PS case).  The reference's stages run one
-shard per device under ``shard_map``; here the ``n`` workers share one
-device and a stage's global ``(k, ...)`` batch is split by rows, worker
-``i`` holding rows ``[i * m, (i + 1) * m)``.  ``lax.all_to_all`` becomes
-a transpose of the stacked send blocks, ``all_gather`` a stack over
-workers and ``psum`` a sum over them.
+``raise_on_overflow``, ``make_dlrm_esd_stages`` and
+``make_dlrm_repair_stage`` for the non-elastic, single-PS case).  The
+reference's stages run one shard per device under ``shard_map``; here
+the ``n`` workers share one device and a stage's global ``(k, ...)``
+batch is split by rows, worker ``i`` holding rows ``[i * m, (i + 1) *
+m)``.  ``lax.all_to_all`` becomes a transpose of the stacked send
+blocks, ``all_gather`` a stack over workers and ``psum`` a sum over
+them.
 """
 from __future__ import annotations
 
 import torch
 
-from ..core.dispatch import (dispatch_cap, esd_cost_matrix, esd_decide,
+from ..core.dispatch import (changed_samples_mask, dispatch_cap,
+                             esd_cost_matrix, esd_decide, esd_reassign,
                              esd_state_update_sparse, exchange_budget,
                              need_ids_list)
 from ..exchange.ragged import ragged_exchange_many
@@ -23,7 +25,7 @@ from ..models import api
 from ..quant.codecs import get_codec
 
 __all__ = ["make_train_step", "make_esd_exchange", "raise_on_overflow",
-           "make_dlrm_esd_stages"]
+           "make_dlrm_esd_stages", "make_dlrm_repair_stage"]
 
 
 def make_train_step(cfg, model, optimizer):
@@ -130,19 +132,21 @@ def make_dlrm_esd_stages(n: int, m: int, t_tran: torch.Tensor, alpha: float,
     ``make_dlrm_esd_stages``, non-elastic, single PS, sparse engine):
 
       decide(esd_state, sparse)                    -> (assign (k,), alg1)
-      advance(esd_state, sparse, dense, labels, assign)
+      advance(esd_state, sparse, dense, labels, assign, staged=None)
           -> ((sparse', dense', labels'), new_esd_state, counts)
       realized_cost(esd_state, sparse, assign)     -> alg1
 
     ``sparse``/``dense``/``labels`` are the global (k, ...) batch, k = n
     * m.  ``decide`` is Alg. 1 + Alg. 2 per worker; ``advance`` moves the
     samples over the selected wire path and runs the cache-state
-    machine.  With ``cap_slack > 0`` (needs ``exchange="ragged"``) the
-    exchanged arrays come back with ``out_rows = n * exchange_budget``
-    rows per worker, valid rows first and -1 after (pair with the
-    PAD-masked loss).  ``codec`` (needs ``exchange="ragged"``) sends the
-    dense features over the quantized wire.  Returns ``(decide, advance,
-    realized_cost, out_rows)``.
+    machine; ``staged``, the prefetch plane's (V,) membership, splits
+    the step's misses into ``prefetch_hit`` and ``demand_miss`` counts
+    (accounting only).  With ``cap_slack > 0`` (needs
+    ``exchange="ragged"``) the exchanged arrays come back with
+    ``out_rows = n * exchange_budget`` rows per worker, valid rows first
+    and -1 after (pair with the PAD-masked loss).  ``codec`` (needs
+    ``exchange="ragged"``) sends the dense features over the quantized
+    wire.  Returns ``(decide, advance, realized_cost, out_rows)``.
     """
     if cap_slack > 0.0 and exchange != "ragged":
         raise ValueError("cap_slack > 0 needs exchange='ragged' (the padded "
@@ -166,12 +170,12 @@ def make_dlrm_esd_stages(n: int, m: int, t_tran: torch.Tensor, alpha: float,
                                   cap_slack=cap_slack, with_cost=True)
         return assign.reshape(-1), alg1.sum()
 
-    def advance(esd_state, sparse, dense, labels, assign):
+    def advance(esd_state, sparse, dense, labels, assign, staged=None):
         (s2, d2, l2), overflow = route(
             (split(sparse), split(dense), split(labels)), split(assign))
         need = need_ids_list(s2)
         new_state, counts = esd_state_update_sparse(esd_state, need,
-                                                    capacity)
+                                                    capacity, staged=staged)
         counts = dict(counts)
         counts["exchange_overflow"] = overflow
         flat = lambda x: x.reshape((n * out_rows,) + x.shape[2:])
@@ -186,3 +190,32 @@ def make_dlrm_esd_stages(n: int, m: int, t_tran: torch.Tensor, alpha: float,
         return total
 
     return decide, advance, realized_cost, out_rows
+
+
+def make_dlrm_repair_stage(n: int, m: int, t_tran: torch.Tensor, *,
+                           cap_slack: float = 0.0):
+    """Commit-time repair for the decide-ahead chain (reference
+    ``make_dlrm_repair_stage``, single PS), per worker:
+
+      repair(committed_state, decide_state, sparse, assign)
+          -> (assign' (k,), n_reassigned)
+
+    Flags the samples whose ids' ``latest`` or ``dirty`` columns changed
+    between the decide-time state and the committed one
+    (:func:`changed_samples_mask`) and re-places only those with the
+    capped greedy (:func:`esd_reassign`) against the committed state's
+    cost matrix; every other sample keeps its stale worker.
+    ``n_reassigned`` is the flagged count over all workers (0-dim
+    int32).
+    """
+    cap = dispatch_cap(m, n, cap_slack)
+
+    def repair(committed_state, decide_state, sparse, assign):
+        s = sparse.reshape((n, m) + sparse.shape[1:])
+        flagged = changed_samples_mask(s, decide_state, committed_state)
+        C = torch.stack([esd_cost_matrix(s[i], committed_state, t_tran)
+                         for i in range(n)])                      # (n, m, n)
+        a2, n_re = esd_reassign(C, assign.reshape(n, m), flagged, cap)
+        return a2.reshape(-1), n_re
+
+    return repair

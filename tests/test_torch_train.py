@@ -50,19 +50,35 @@ def test_runs_without_esd_and_with_other_paths(extra):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--pipeline-depth", "2"], "A8"), (["--stale-decide"], "A8"),
-    (["--decide-ahead", "1"], "A8"), (["--lookahead", "4"], "A8"),
-    (["--prefetch", "8"], "A8"),
     (["--fault-plan", "crash@1:0"], "A10"), (["--ckpt-dir", "x"], "A10"),
     (["--resume"], "A10"), (["--n-ps", "2"], "A2"), (["--ps-hetero"], "A2"),
     (["--esd-engine", "dense"], "A4"), (["--trace-out", "t.json"], "A15"),
-    (["--validate-timing"], "A15"), (["--prefetch-slots", "64"], "A8"),
+    (["--validate-timing"], "A15"),
     (["--ckpt-every", "5"], "A10"), (["--compute-time-s", "0.1"], "A10"),
     (["--ps-layout", "hashed"], "A2"), (["--trace-buffer", "10"], "A15"),
     (["--smoke"], "A14"), (["--seq-len", "32"], "A14")])
 def test_unported_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         main(TINY + ["--esd-alpha", "1", "--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--pipeline-depth", "2"], ["--pipeline-depth", "2", "--stale-decide"],
+    ["--decide-ahead", "1"], ["--lookahead", "4"],
+    ["--lookahead", "2", "--prefetch", "8"],
+    ["--pipeline-depth", "2", "--lookahead", "2", "--prefetch", "8",
+     "--prefetch-slots", "16"]])
+def test_pipeline_flags_run(flags):
+    """The six pipelining flags are ported: each runs (the slice's
+    parity with the reference is tests/test_torch_pipeline_slice.py)."""
+    out = main(TINY + ["--esd-alpha", "1", "--exchange", "ragged",
+                       "--device", "cpu"] + flags)
+    assert out["steps"] == 3 and out["wall_ms_mean"] is not None
+    assert all(math.isfinite(r["loss"]) for r in out["metrics"])
+    assert ("window_dedup_frac" in out["metrics"][0]) == \
+        ("--lookahead" in flags)
+    assert ("alg1_realized" in out["metrics"][0]) == (
+        "--stale-decide" in flags or "--decide-ahead" in flags)
 
 
 @pytest.mark.parametrize("extra", [
