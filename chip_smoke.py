@@ -1,7 +1,8 @@
 """Drive the PyTorch port's serving path and training step, exact and
 over the quantized wire, the paper's simulator with its auction solver,
-LM training with its flash-attention kernel, and the pipelined training
-step with its prefetch plane, on one CUDA card and check them.
+LM training with its flash-attention kernel, the pipelined training
+step with its prefetch plane, and the LM serving path (prefill and
+KV-cache decode) and MoE layers, on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -49,7 +50,9 @@ Phases, each printing its own lines:
    and owners and rounds, with its ms a solve and us a round.  The flash
    attention at the LM path's
    shape (smollm-360m: B = 4, S = 2,048, 5 KV heads x 3, hd = 64,
-   causal) and around it (non-causal, hd 128, hd 32): bf16 on the
+   causal; the prefill's too) and around it (non-causal, hd 128, hd
+   32; phi3.5-moe's training shape, B = 1, 8 KV heads x 4, hd 128): bf16
+   on the
    ``wgmma`` kernel (max abs err 1e-2, or up to 2e-2 where it is within
    1.5x ``scaled_dot_product_attention``'s error against the same plain
    version: both round P to bf16; lse 2e-5), and f32 on the CUDA-core
@@ -73,7 +76,10 @@ Phases, each printing its own lines:
    with decide-ahead 2, lookahead 2 and 16 rows a step prefetched into
    64 slots), the card's chain on a stream of its own, against the CPU:
    integer fields equal, losses and Alg.-1 costs within 1e-5, the final
-   prefetch plane's ids, expiry and rows equal;
+   prefetch plane's ids, expiry and rows equal; 8 decode steps of
+   smollm-360m's and phi3.5-moe's smoke configs (f32, B 4), logits
+   within 1e-5, and 3 ``run_lm`` steps of phi3.5-moe's smoke config at
+   S = 2,048, losses within 1e-4;
 5. serve — ``run_serve`` at wdl-s1 (4 workers, 2,000 QPS for 1 s), then
    for 0.5 s with ``--codec int8``;
 6. train — ``run_dlrm`` at wdl-s1 (4 workers x 256 samples, ESD alpha 1,
@@ -105,9 +111,22 @@ Phases, each printing its own lines:
    ``alg1_realized`` equal to its ``alg1_est`` within 1e-6); and the
    README's configuration (depth 4, lookahead 4, decide-ahead 3, 64 rows
    a step prefetched into 512 slots): one staged_gather launch a step,
-   rows prefetched after step 0, demand misses within the misses.
+   rows prefetched after step 0, demand misses within the misses;
+11. lm-serve — smollm-360m at full width and depth (bf16, tied head): a
+   prefill of B = 4 x S = 2,048 through ``make_prefill_step`` (32 B8
+   launches, 4 times: ms and peak memory), then
+   ``examples/serve_llm_decode_torch.py``'s ``run`` at B = 4, the
+   prefill batch's first 256 tokens teacher-forced and 256 greedy tokens
+   into 512 slots (ms a step p50 and p99, tok/s); then in f32 the same
+   prefill and prompt, the decode logits at positions 0..255 within 1e-3
+   of the prefill's;
+12. lm-moe — phi3.5-moe at full width (d 4,096, 16 experts top-2, bf16),
+   its depth cut to 2 layers: 3 ``run_lm`` steps at B = 1, S = 2,048
+   (ms a step, peak memory, finite losses, one B8 and one backward
+   launch a layer and step), then decode at B = 4, prompt 64, 64 greedy
+   tokens, and a nonzero router aux loss.
 
-Each run of phases 5 to 10 sets every kernel's launch counter to 0 just
+Each run of phases 5 to 12 sets every kernel's launch counter to 0 just
 before and reads the counters just after.  Then one JSON line of kernel
 records, after the script's wall time, and as the last line ``{"ok":
 true, "device": {...}}``.  Any failed check raises, so the script exits
@@ -1532,6 +1551,7 @@ def phase_flash_kernels(seed: int) -> dict:
             (4, 2048, 5, 3, 64, True, torch.float32),
             (2, 1024, 5, 3, 64, False, torch.bfloat16),
             (2, 2048, 2, 4, 128, True, torch.bfloat16),
+            (1, 2048, 8, 4, 128, True, torch.bfloat16),
             (2, 2048, 4, 2, 32, True, torch.bfloat16)):
         q, k, v = qkv(B, S, KV, G, hd, dtype)
         out, lse = FA.flash_attention(q, k, v, causal)
@@ -1585,7 +1605,8 @@ def phase_flash_kernels(seed: int) -> dict:
             (4, 2048, 5, 3, 64, True, torch.bfloat16),
             (4, 2048, 5, 3, 64, True, torch.float32),
             (2, 1024, 5, 3, 64, False, torch.bfloat16),
-            (2, 2048, 2, 4, 128, True, torch.bfloat16)):
+            (2, 2048, 2, 4, 128, True, torch.bfloat16),
+            (1, 2048, 8, 4, 128, True, torch.bfloat16)):
         q, k, v = qkv(B, S, KV, G, hd, dtype)
         out, lse = FA.flash_attention(q, k, v, causal)
         dout = torch.randn(out.shape, generator=g, device=dev).to(dtype)
@@ -1713,6 +1734,66 @@ def phase_lm_parity(seed: int):
               f"{err:.3g} (tolerance {tol}); card kernel launches {ran}")
 
 
+def phase_lm_decode_parity(seed: int):
+    """The LM serving path and MoE on the card against the CPU from the
+    same f32 smoke weights: 8 decode steps of smollm-360m and
+    phi3.5-moe (logits within 1e-5: f32 sums in another order), and 3
+    ``run_lm`` steps of phi3.5-moe at S = 2,048 (the flash route, then
+    the experts; losses within phase 4's 1e-4)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.launch.train import build_parser, run_lm
+    from repro_torch.models import api
+
+    for arch in ("smollm-360m", "phi3.5-moe-42b-a6.6b"):
+        cfg = get_config(arch, smoke=True)
+        cpu = api.init_model(cfg, generator=torch.Generator().manual_seed(
+            seed), device="cpu")
+        gpu = copy.deepcopy(cpu).to("cuda")
+        toks = torch.as_tensor(np.random.default_rng(seed).integers(
+            0, cfg.vocab, (4, 8)))
+        step = make_serve_step(cfg)
+        caches = [api.init_decode_cache(cfg, 4, 8, d) for d in ("cpu",
+                                                                "cuda")]
+        err = 0.0
+        for pos in range(8):
+            a, caches[0] = step(cpu, caches[0], toks[:, pos:pos + 1], pos)
+            b, caches[1] = step(gpu, caches[1], toks[:, pos:pos + 1].cuda(),
+                                pos)
+            err = max(err, float((b.cpu() - a).abs().max()))
+        check(err <= 1e-5, f"{arch} smoke decode on card vs CPU within "
+                           f"1e-5 (max err {err})")
+        print(f"[parity] 8 decode steps, {cfg.name} (f32), B 4, card vs "
+              f"CPU: logits max abs err {err:.3g} (tolerance 1e-5)")
+
+    arch = "phi3.5-moe-42b-a6.6b"
+    cfg = get_config(arch, smoke=True)
+    argv = ["--arch", arch, "--smoke", "--seq-len", "2048",
+            "--batch-per-worker", "1", "--steps", "3", "--seed", str(seed)]
+    cpu = api.init_model(cfg, generator=torch.Generator().manual_seed(seed),
+                         device="cpu")
+    gpu = copy.deepcopy(cpu).to("cuda")
+    runs = {}
+    for dev, model in (("cpu", cpu), ("cuda", gpu)):
+        n0 = dict(FA.LAUNCHES)
+        out = run_lm(build_parser().parse_args(argv + ["--device", dev]),
+                     model=model)
+        runs[dev] = [r["loss"] for r in out["metrics"]]
+        ran = {k: FA.LAUNCHES[k] - n0[k] for k in n0}
+    err = max(abs(a - b) for a, b in zip(runs["cpu"], runs["cuda"]))
+    check(all(np.isfinite(runs["cuda"])) and err <= 1e-4,
+          f"phi3.5-moe smoke losses on card vs CPU within 1e-4 (max err "
+          f"{err})")
+    check(ran == {k: cfg.n_layers * 3 for k in ran},
+          f"the card's phi3.5-moe smoke steps ran B8's forward and backward "
+          f"once per layer and step ({ran})")
+    print(f"[parity] 3 LM steps, {cfg.name} (2 layers, d 256, 4 experts "
+          f"top-2, f32), B 1, S 2048, card vs CPU: losses {runs['cuda']} vs "
+          f"{runs['cpu']}, max abs err {err:.3g} (tolerance 1e-4); card "
+          f"kernel launches {ran}")
+
+
 def phase_lm_train(seed: int) -> dict:
     """``run_lm`` at smollm-360m's full width and depth."""
     from repro_torch.configs import get_config
@@ -1742,6 +1823,169 @@ def phase_lm_train(seed: int) -> dict:
     return launches
 
 
+# the LM serving path: smollm-360m at full width and depth
+SERVE_B, SERVE_S, SERVE_PROMPT, SERVE_GEN = 4, 2048, 256, 256
+# f32 decode against f32 prefill at positions 0..255: 32 layers of f32
+# sums over up to 2,560 terms in other orders (the prefill's GEMMs and
+# B8's online softmax against decode's GEMVs and a plain softmax) leave
+# errors near 1e-5 on logits of magnitude ~1; 1e-3 keeps a wide margin
+# and is 20x tighter than the reference's own check (2e-2)
+SERVE_F32_TOL = 1e-3
+
+
+def _decode_example():
+    import runpy
+
+    return runpy.run_path(str(ROOT / "examples" /
+                              "serve_llm_decode_torch.py"))
+
+
+def _peak_gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_lm_serve(seed: int) -> dict:
+    """smollm-360m at full width and depth (32 layers, d 960, bf16, tied
+    head): a prefill of B 4 x S 2,048 through ``make_prefill_step`` (one
+    B8 launch a layer), then the decode example's loop at B 4, its
+    prompt the prefill batch's first 256 tokens, teacher-forced, and 256
+    greedy tokens into a cache of 512 slots; then the same prefill and
+    prompt in f32, the decode logits at positions 0..255 against the
+    prefill's within ``SERVE_F32_TOL``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import api
+
+    dev = torch.device("cuda")
+    ex = _decode_example()
+    args = ex["build_parser"]().parse_args(
+        ["--arch", "smollm-360m", "--batch", str(SERVE_B), "--prompt-len",
+         str(SERVE_PROMPT), "--gen-len", str(SERVE_GEN), "--device", "cuda"])
+    cfg = get_config("smollm-360m")
+    toks = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (SERVE_B, SERVE_S)), device=dev)
+    model = api.init_model(cfg, generator=torch.Generator(
+        device=dev).manual_seed(seed), device=dev)
+    prefill = make_prefill_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    times = []
+    for _ in range(4):
+        t = time.perf_counter()
+        logits = prefill(model, {"tokens": toks})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        del logits
+    prefill_peak = _peak_gib()
+    out = ex["run"](args, cfg=cfg, model=model,
+                    prompts=toks[:, :SERVE_PROMPT].cpu().numpy())
+    launches = {k: v for k, v in _read_launches().items() if v}
+    check(launches == {"flash_attention": 4 * cfg.n_layers},
+          f"4 prefills launched B8 once a layer each and decode launched "
+          f"no kernel ({launches})")
+    seq = out["sequences"]
+    check(seq.shape == (SERVE_B, SERVE_PROMPT + SERVE_GEN) and bool(
+        (seq[:, :SERVE_PROMPT] == toks[:, :SERVE_PROMPT].cpu().numpy())
+        .all()) and bool(((seq >= 0) & (seq < cfg.vocab)).all()),
+          "decode kept the prompt and emitted tokens of the vocabulary")
+    print(f"[lm-serve] {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads}, vocab {cfg.vocab}, "
+          f"{cfg.dtype}): prefill B {SERVE_B} x S {SERVE_S} {times[0]:.3f} "
+          f"ms first, {statistics.median(times[1:]):.3f} ms (median of 3 "
+          f"after), peak {prefill_peak:.2f} GiB; decode B {SERVE_B}, prompt "
+          f"{SERVE_PROMPT} + {SERVE_GEN} greedy into {out['steps'] + 1} "
+          f"slots, {out['steps']} steps: p50 {out['step_p50_ms']:.3f} ms, "
+          f"p99 {out['step_p99_ms']:.3f} ms a step, {out['tok_per_s']:.1f} "
+          f"tok/s; peak {_peak_gib():.2f} GiB; launches {launches}")
+    del model
+
+    # f32: the decode logits at the prompt's positions against the prefill
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = api.init_model(cfg32, generator=torch.Generator(
+        device=dev).manual_seed(seed), device=dev)
+    want = make_prefill_step(cfg32)(model, {"tokens": toks})[
+        :, :SERVE_PROMPT].clone()
+    got = torch.empty_like(want)
+
+    def keep(pos, logits):
+        got[:, pos] = logits[:, 0]
+
+    args32 = ex["build_parser"]().parse_args(
+        ["--batch", str(SERVE_B), "--prompt-len", str(SERVE_PROMPT),
+         "--gen-len", "1", "--device", "cuda"])
+    ex["run"](args32, cfg=cfg32, model=model,
+              prompts=toks[:, :SERVE_PROMPT].cpu().numpy(), on_logits=keep)
+    err = float((got - want).abs().max())
+    check(err <= SERVE_F32_TOL, f"f32 decode logits at positions 0..255 "
+                                f"within {SERVE_F32_TOL} of the prefill's "
+                                f"(max err {err})")
+    print(f"[lm-serve] f32: decode logits at positions 0..{SERVE_PROMPT - 1} "
+          f"against the prefill's [:, :{SERVE_PROMPT}]: max abs err "
+          f"{err:.3g} (tolerance {SERVE_F32_TOL}; |logits| up to "
+          f"{float(want.abs().max()):.3g})")
+    return launches
+
+
+# phi3.5-moe at full width, depth cut to 2 layers (about 2.9 B parameters)
+MOE_LAYERS = 2
+
+
+def phase_lm_moe(seed: int) -> dict:
+    """phi3.5-moe at full width (d 4,096, 32 heads over 8, hd 128, 16
+    experts top-2, d_ff 6,400, vocab 32,064, bf16), 2 layers: 3 steps of
+    ``run_lm`` at B 1, S 2,048 (B8 and its backward at hd 128, once a
+    layer and step each), then the decode example at B 4, prompt 64,
+    64 greedy tokens; finite losses and a nonzero router aux loss."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import build_parser, run_lm
+    from repro_torch.models import api, backbone
+
+    dev = torch.device("cuda")
+    arch = "phi3.5-moe-42b-a6.6b"
+    cfg = dataclasses.replace(get_config(arch), n_layers=MOE_LAYERS)
+    model = api.init_model(cfg, generator=torch.Generator(
+        device=dev).manual_seed(seed), device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    args = build_parser().parse_args(
+        ["--arch", arch, "--seq-len", "2048", "--batch-per-worker", "1",
+         "--steps", "3", "--seed", str(seed), "--device", "cuda"])
+    ex = _decode_example()
+    dargs = ex["build_parser"]().parse_args(
+        ["--arch", arch, "--batch", "4", "--prompt-len", "64", "--gen-len",
+         "64", "--device", "cuda"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    out = run_lm(args, model=model, cfg=cfg)
+    train_peak = _peak_gib()
+    torch.cuda.reset_peak_memory_stats()
+    dec = ex["run"](dargs, cfg=cfg, model=model)
+    launches = {k: v for k, v in _read_launches().items() if v}
+    losses = [r["loss"] for r in out["metrics"]]
+    with torch.no_grad():
+        tok = torch.as_tensor(dec["sequences"], device=dev)
+        _, aux = backbone.forward(model, cfg, tok)
+    aux = aux.item()
+    print(f"[lm-moe] {cfg.name} at full width, {cfg.n_layers} layers "
+          f"({n_params / 1e9:.3f} B parameters, {cfg.n_experts} experts "
+          f"top-{cfg.top_k}, {cfg.dtype}), B 1, S 2048, 3 steps: "
+          f"{out['step_ms_mean']:.3f} ms per step (mean of steps 1..), "
+          f"{out['tokens_per_s']:.1f} tokens/s; losses {losses}; step s "
+          f"{[r['wall_s'] for r in out['metrics']]}; peak memory "
+          f"{train_peak:.2f} GiB; decode B 4, prompt 64 + 64: p50 "
+          f"{dec['step_p50_ms']:.3f} ms, p99 {dec['step_p99_ms']:.3f} ms a "
+          f"step, {dec['tok_per_s']:.1f} tok/s, peak {_peak_gib():.2f} GiB; "
+          f"router aux on the decoded tokens {aux:.4f}; launches {launches}")
+    check(all(np.isfinite(losses)), "every phi3.5-moe loss finite")
+    check(np.isfinite(aux) and aux > 0, "the router's aux loss is nonzero")
+    n = cfg.n_layers * len(losses)
+    check(launches == {"flash_attention": n, "flash_attention_bwd": n},
+          f"B8 and its backward once a layer and step, none in decode "
+          f"({launches})")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1762,6 +2006,7 @@ def main(argv=None) -> int:
     phase_train_parity(args.seed, codec="int8")
     phase_sim_parity(args.seed)
     phase_lm_parity(args.seed)
+    phase_lm_decode_parity(args.seed)
     phase_train_pipeline_parity(args.seed)
     # launches on the main paths: each run counted from zero, then summed
     launches: dict = {}
@@ -1772,7 +2017,9 @@ def main(argv=None) -> int:
                 phase_table2,
                 lambda: phase_simulate(args.seed),
                 lambda: phase_lm_train(args.seed),
-                lambda: phase_train_pipeline(args.seed)):
+                lambda: phase_train_pipeline(args.seed),
+                lambda: phase_lm_serve(args.seed),
+                lambda: phase_lm_moe(args.seed)):
         t = time.perf_counter()
         for k, v in run().items():
             launches[k] = launches.get(k, 0) + v

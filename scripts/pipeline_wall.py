@@ -1,7 +1,6 @@
 """Wall time a step of the pipelined wdl-s1 training step, by depth.
 
-    python3 scripts/pipeline_wall.py [--steps 20] [--codec int8] [--loader]
-                                     [--readme]
+    python3 scripts/pipeline_wall.py [--steps 20] [--codec int8] [--readme]
 
 Runs ``run_dlrm`` at chip_smoke.py's training configuration (wdl-s1, 4
 workers of 256, ESD alpha 1, ragged exchange, caches of 0.2 V) on the
@@ -11,9 +10,8 @@ card, at depth 1 and depth 2 in turns (1, 2, 2, 1), exact and with each
 its loss reaching the host), the stages' mean ms (depth 1: host time up
 to a synchronise; depth 2: device time between CUDA events on each
 stage's stream, and the host's issue time), and the host ms a batch of
-the seeded stream takes to draw.  ``--loader`` adds depth-2 runs whose
-host stream is drawn by a ``PrefetchLoader`` thread, as the reference's
-driver draws it, to price the draw against the overlap.  ``--readme``
+the seeded stream takes to draw (the driver draws its batches on a
+``PrefetchLoader`` thread, as the reference's does).  ``--readme``
 adds the README's configuration (decide-ahead 3, lookahead 4, 64 rows a
 step prefetched into 512 slots) at depth 1 and depth 4 in turns (1, 4,
 4, 1): the decide-ahead chain makes the same decisions at any depth.
@@ -41,7 +39,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--codec", action="append", default=[])
-    ap.add_argument("--loader", action="store_true")
     ap.add_argument("--readme", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -50,7 +47,6 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     from repro_torch.data import synthetic
-    from repro_torch.data.loader import PrefetchLoader
     from repro_torch.launch.train import build_parser, run_dlrm
 
     wl = synthetic.WORKLOADS["S1"]
@@ -65,23 +61,14 @@ def main(argv=None) -> int:
     readme = ["--lookahead", "4", "--decide-ahead", "3", "--prefetch", "64",
               "--prefetch-slots", "512"]
 
-    def run(depth, codec, loader=False, flags=()):
+    def run(depth, codec, flags=()):
         extra = ["--steps", str(args.steps), "--pipeline-depth", str(depth),
                  *flags]
         if codec:
             extra += ["--codec", codec]
-        real = synthetic.CTRWorkload.stream
-        if loader:
-            synthetic.CTRWorkload.stream = (
-                lambda self, seed, batch: PrefetchLoader(
-                    real(self, seed, batch), depth=2))
-        try:
-            out = run_dlrm(build_parser().parse_args(ARGV + extra))
-        finally:
-            synthetic.CTRWorkload.stream = real
+        out = run_dlrm(build_parser().parse_args(ARGV + extra))
         host = out["host_ms_mean"] or {}
         print(f"RESULT depth {depth} codec {codec or 'none'}"
-              f"{' loader' if loader else ''}"
               f"{' ' + ' '.join(flags) if flags else ''}: wall "
               f"{out['wall_ms_mean']:.3f}"
               f" ms a step; stages ({out['stage_clock']}) decide "
@@ -98,8 +85,6 @@ def main(argv=None) -> int:
         order = (1, 2, 2, 1)
         for depth in order:
             losses.append(run(depth, codec))
-        if args.loader:
-            losses.append(run(2, codec, loader=True))
         same = all(x == losses[0] for x in losses)
         print(f"codec {codec or 'none'}: losses equal across runs: {same}")
     if args.readme:

@@ -1,8 +1,9 @@
-"""Step builders: the LM train step and the stages of the DLRM ESD
-training step.
+"""Step builders: the LM train, serve (decode) and prefill steps, and
+the stages of the DLRM ESD training step.
 
 The counterpart of the JAX package's ``launch/steps.py``
-(``make_train_step`` for the LM, and ``make_esd_exchange``,
+(``make_train_step``, ``make_serve_step`` and ``make_prefill_step`` for
+the LM, and ``make_esd_exchange``,
 ``raise_on_overflow``, ``make_dlrm_esd_stages`` and
 ``make_dlrm_repair_stage`` for the non-elastic, single-PS case).  The
 reference's stages run one shard per device under ``shard_map``; here
@@ -21,11 +22,12 @@ from ..core.dispatch import (changed_samples_mask, dispatch_cap,
                              esd_state_update_sparse, exchange_budget,
                              need_ids_list)
 from ..exchange.ragged import ragged_exchange_many
-from ..models import api
+from ..models import api, backbone
 from ..quant.codecs import get_codec
 
-__all__ = ["make_train_step", "make_esd_exchange", "raise_on_overflow",
-           "make_dlrm_esd_stages", "make_dlrm_repair_stage"]
+__all__ = ["make_train_step", "make_serve_step", "make_prefill_step",
+           "make_esd_exchange", "raise_on_overflow", "make_dlrm_esd_stages",
+           "make_dlrm_repair_stage"]
 
 
 def make_train_step(cfg, model, optimizer):
@@ -47,6 +49,32 @@ def make_train_step(cfg, model, optimizer):
         return loss.detach()
 
     return step
+
+
+def make_serve_step(cfg):
+    """``serve_step(params, cache, token, pos) -> (logits, cache)``: one
+    decode step (:func:`repro_torch.models.api.decode_step`); ``pos`` is
+    a host int."""
+    def serve_step(params, cache, token, pos: int):
+        return api.decode_step(params, cfg, token, cache, pos)
+
+    return serve_step
+
+
+def make_prefill_step(cfg):
+    """``prefill_step(params, batch) -> logits``: the forward's logits
+    (B, S, V) for ``batch["tokens"]``, without autograd.  At S >= 2,048
+    (a multiple of 512) every full-attention layer runs B8's forward.
+    The VLM prefix and the audio encoder wait for ROADMAP A14.5 and
+    A14.6, and raise here."""
+    api._lm_only(cfg)
+
+    def prefill_step(params, batch):
+        with torch.no_grad():
+            logits, _ = backbone.forward(params, cfg, batch["tokens"])
+        return logits
+
+    return prefill_step
 
 
 def make_esd_exchange(mode: str, n: int, m: int, budget: int | None = None,

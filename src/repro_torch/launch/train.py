@@ -60,9 +60,10 @@ tokens on the one device, drawn from a seeded Zipf token stream
 (``--seed``, inputs ``[:, :-1]``, labels ``[:, 1:]``), trained by Adam
 through :func:`repro_torch.launch.steps.make_train_step`.  At
 ``--seq-len`` 2048 and above (a multiple of 512) every layer's attention
-runs through the flash kernel B8.  Only the dense families run; the
-rest raise (ROADMAP A14).  Every step logs the loss and its wall time
-after a synchronise.
+runs through the flash kernel B8.  The dense and MoE families run (an
+MoE layer adds the router's load-balance loss at weight 0.01); the SSM,
+hybrid, VLM and audio families raise (ROADMAP A14.4 to A14.6).  Every
+step logs the loss and its wall time after a synchronise.
 
 Flags of the reference that this port does not carry yet raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
@@ -143,8 +144,6 @@ def _unported(args) -> None:
         (args.trace_out is not None, "--trace-out", "A15"),
         (args.validate_timing, "--validate-timing", "A15"),
         (args.trace_buffer != 65536, "--trace-buffer", "A15"),
-        (args.smoke, "--smoke", "A14"),
-        (args.seq_len != 64, "--seq-len", "A14"),
     ]
     _raise_unported(todo)
 
@@ -357,8 +356,9 @@ def run_dlrm(args, model=None) -> dict:
             log_step(rec)
         return rec
 
-    # the host batch stream, with the lookahead window's dedup meta
-    host = wl.stream(args.seed + 1, k)
+    # the host batch stream, drawn on a loader thread as the reference
+    # draws it, with the lookahead window's dedup meta
+    host = PrefetchLoader(wl.stream(args.seed + 1, k), depth=2)
     src = (LookaheadWindow(host, args.lookahead, key=lambda b: b[0])
            if args.lookahead > 0 else ((b, None) for b in host))
 
@@ -602,10 +602,11 @@ def build_parser():
 
 
 def run_lm(args, model=None, cfg=None) -> dict:
-    """Next-token training of a dense LM for ``args.steps`` steps; returns
-    the summary: the per-step records (``metrics``: loss, wall_s), the
-    mean ms per step and tokens per second over the steps after the
-    first (which builds the kernel and warms the allocator).  ``model``
+    """Next-token training of a dense or MoE LM for ``args.steps``
+    steps; returns the summary: the per-step records (``metrics``: loss,
+    wall_s), the mean ms per step and tokens per second over the steps
+    after the first (which builds the kernel and warms the allocator).
+    The other families raise where their model is built.  ``model``
     replaces the seeded random weights (tests pass the JAX package's),
     ``cfg`` the config of ``--arch`` (a variant of it, such as another
     dtype)."""
@@ -618,10 +619,6 @@ def run_lm(args, model=None, cfg=None) -> dict:
                      (args.validate_timing, "--validate-timing", "A15")])
     if cfg is None:
         cfg = get_config(args.arch, smoke=args.smoke)
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"--arch {args.arch}: the {cfg.family} family is not ported to "
-            f"repro_torch yet (ROADMAP A14)")
     if model is None:
         model = api.init_model(cfg, generator=torch.Generator(
             device=device).manual_seed(args.seed), device=device)

@@ -1,21 +1,27 @@
-"""Decoder backbone of the dense LM families, train/prefill half.
+"""Decoder backbone of the attention LM families (dense and MoE): train,
+prefill and decode.
 
-The counterpart of the JAX package's ``models/backbone.py`` for dense
-full-attention stacks (smollm, yi, minitron, granite): an ``LM`` module
-holds the tied or untied embedding, the layers and the final norm;
-:func:`forward` and :func:`lm_loss` are functions over it.  Layers follow
-``cfg.layer_pattern`` cycled over ``cfg.n_layers``; where the reference
-stacks each pattern group's parameters and scans over the groups, the
-port keeps one module per layer and loops over them in Python (no remat:
-the reference's LM driver trains with ``remat=False``).
+The counterpart of the JAX package's ``models/backbone.py`` for
+attention stacks (smollm, yi, minitron, granite; phi3.5-moe and
+llama4-scout with their MoE layers): an ``LM`` module holds the tied or
+untied embedding, the layers and the final norm; :func:`forward`,
+:func:`lm_loss` and :func:`decode_step` are functions over it.  Layers
+follow ``cfg.layer_pattern`` cycled over ``cfg.n_layers``; where the
+reference stacks each pattern group's parameters and scans over the
+groups, the port keeps one module per layer and loops over them in
+Python (no remat: the reference's LM driver trains with
+``remat=False``).  The decode cache is a list with one KV-cache dict a
+layer.
 
 Public surface:
   init_params(cfg, generator=, device=)  -> LM
-  forward(params, cfg, tokens)           -> logits     train/prefill
-  lm_loss(params, cfg, tokens, labels)   -> scalar
+  forward(params, cfg, tokens)           -> (logits, aux)  train/prefill
+  lm_loss(params, cfg, tokens, labels)   -> scalar (+ 0.01 aux for MoE)
+  init_cache(cfg, batch, seq_len, device) -> decode cache
+  decode_step(params, cfg, token, cache, pos) -> (logits, cache)
   params_from_jax(tree, cfg)             -> LM with the reference's weights
 
-Decode, MoE, SSM and hybrid layers, and the VLM prefix are ROADMAP A14.
+SSM and hybrid layers (ROADMAP A14.4) and the VLM prefix (A14.5) raise.
 """
 from __future__ import annotations
 
@@ -25,11 +31,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
-from .layers import (MLP, Attention, attention_train, init_attention,
-                     init_mlp, mlp, rmsnorm)
+from .layers import (MLP, Attention, MoE, attention_decode,
+                     attention_train, cache_spec, init_attention,
+                     init_kv_cache, init_mlp, init_moe, mlp, moe_ffn,
+                     rmsnorm)
 
 __all__ = ["LM", "Layer", "group_layout", "init_params", "backbone_apply",
-           "forward", "lm_loss", "params_from_jax"]
+           "forward", "lm_loss", "init_cache", "decode_step",
+           "params_from_jax"]
 
 ATTN_KINDS = ("full", "local", "chunked")
 
@@ -39,9 +48,10 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 class Layer(nn.Module):
-    """One attention layer: ``norm1``, ``attn``, ``norm2``, ``ffn``."""
+    """One attention layer: ``norm1``, ``attn``, ``norm2``, ``ffn`` (an
+    :class:`MLP`, or an :class:`MoE` when ``cfg.mlp`` is ``moe``)."""
 
-    def __init__(self, norm1, attn: Attention, norm2, ffn: MLP):
+    def __init__(self, norm1, attn: Attention, norm2, ffn: MLP | MoE):
         super().__init__()
         self.norm1, self.norm2 = nn.Parameter(norm1), nn.Parameter(norm2)
         self.attn, self.ffn = attn, ffn
@@ -61,20 +71,20 @@ class LM(nn.Module):
 
 
 def _check_kind(cfg: ModelConfig, kind: str):
-    if kind not in ATTN_KINDS or cfg.mlp == "moe":
+    if kind not in ATTN_KINDS:
         raise NotImplementedError(
-            f"{kind!r} layers with mlp {cfg.mlp!r} ({cfg.family} family) "
-            f"are not ported to repro_torch yet (ROADMAP A14)")
+            f"{kind!r} layers ({cfg.family} family) are not ported to "
+            f"repro_torch yet (ROADMAP A14.4)")
 
 
 def _init_layer(cfg: ModelConfig, kind: str, *, generator, device) -> Layer:
     _check_kind(cfg, kind)
     dt = _dtype(cfg)
     zeros = torch.zeros((cfg.d_model,), dtype=torch.float32, device=device)
-    return Layer(zeros, init_attention(cfg, dt, generator=generator,
-                                       device=device),
-                 zeros.clone(), init_mlp(cfg, dt, generator=generator,
-                                         device=device))
+    attn = init_attention(cfg, dt, generator=generator, device=device)
+    init_ffn = init_moe if cfg.mlp == "moe" else init_mlp
+    return Layer(zeros, attn, zeros.clone(),
+                 init_ffn(cfg, dt, generator=generator, device=device))
 
 
 def group_layout(cfg: ModelConfig) -> tuple[int, tuple[str, ...],
@@ -110,41 +120,102 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                                          device=device), head)
 
 
+def _attn_kind(cfg: ModelConfig, kind: str) -> str:
+    # llama4's global layers skip RoPE (NoPE)
+    return "nope" if (kind == "full" and cfg.nope_global) else kind
+
+
+def _ffn(p: Layer, x, cfg: ModelConfig):
+    """The layer's feed-forward half on x: (x', aux); aux is None for a
+    dense MLP."""
+    h2 = rmsnorm(x, p.norm2, cfg.norm_eps)
+    if cfg.mlp == "moe":
+        y, aux = moe_ffn(p.ffn, h2, cfg)
+        return x + y, aux
+    return x + mlp(p.ffn, h2, cfg.mlp), None
+
+
 def _apply_layer(p: Layer, x, kind: str, cfg: ModelConfig, positions):
     h = rmsnorm(x, p.norm1, cfg.norm_eps)
-    attn_kind = "nope" if (kind == "full" and cfg.nope_global) else kind
-    x = x + attention_train(p.attn, h, cfg, attn_kind, positions)
-    h2 = rmsnorm(x, p.norm2, cfg.norm_eps)
-    return x + mlp(p.ffn, h2, cfg.mlp)
+    x = x + attention_train(p.attn, h, cfg, _attn_kind(cfg, kind), positions)
+    return _ffn(p, x, cfg)
 
 
 def backbone_apply(params: LM, cfg: ModelConfig, x, positions):
-    """Run all layers on embeddings x: (B,S,D) -> hidden (B,S,D)."""
+    """Run all layers on embeddings x: (B,S,D) -> (hidden (B,S,D), aux),
+    aux the f32 sum of the MoE layers' load-balance losses (0 without
+    MoE)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, kind in zip(params.layers, cfg.kinds()):
-        x = _apply_layer(layer, x, kind, cfg, positions)
-    return x
+        x, a = _apply_layer(layer, x, kind, cfg, positions)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
-def forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor):
-    """tokens: (B,S) -> logits (B,S,V) in the model's dtype."""
-    x = F.embedding(tokens, params.embed.to(_dtype(cfg)))
-    positions = torch.arange(x.shape[1], device=x.device)
-    x = backbone_apply(params, cfg, x, positions)
+def _head(params: LM, cfg: ModelConfig, x):
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     return x @ head.to(x.dtype)
 
 
+def forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor):
+    """tokens: (B,S) -> (logits (B,S,V) in the model's dtype, aux)."""
+    x = F.embedding(tokens, params.embed.to(_dtype(cfg)))
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, aux = backbone_apply(params, cfg, x, positions)
+    return _head(params, cfg, x), aux
+
+
 def lm_loss(params: LM, cfg: ModelConfig, tokens, labels):
     """Next-token cross-entropy over f32 logits (labels = tokens shifted
-    by the caller; -1 = pad, masked)."""
-    logits = forward(params, cfg, tokens).float()
+    by the caller; -1 = pad, masked), plus the router's aux loss with
+    weight 0.01."""
+    logits, aux = forward(params, cfg, tokens)
+    logits = logits.float()
     mask = labels >= 0
     safe = torch.where(mask, labels, torch.zeros_like(labels))
     logz = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, safe[..., None].long())[..., 0]
     nll = (logz - ll) * mask
-    return nll.sum() / torch.clamp(mask.sum(), min=1)
+    return nll.sum() / torch.clamp(mask.sum(), min=1) + 0.01 * aux
+
+
+# --------------------------------------------------------------------------
+# decode (serve step)
+# --------------------------------------------------------------------------
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device) -> list:
+    """One KV cache a layer (:func:`.layers.init_kv_cache`): ``seq_len``
+    slots for full attention, ``min(window, seq_len)`` for local and
+    chunked layers."""
+    caches = []
+    for kind in cfg.kinds():
+        _check_kind(cfg, kind)
+        caches.append(init_kv_cache(cfg, cache_spec(kind, cfg.window,
+                                                    seq_len),
+                                    batch, _dtype(cfg), device))
+    return caches
+
+
+def _apply_layer_decode(p: Layer, x, kind: str, cfg: ModelConfig,
+                        layer_cache: dict, pos: int):
+    h = rmsnorm(x, p.norm1, cfg.norm_eps)
+    y, layer_cache = attention_decode(p.attn, h, layer_cache, pos, cfg,
+                                      _attn_kind(cfg, kind))
+    x, _ = _ffn(p, x + y, cfg)
+    return x, layer_cache
+
+
+@torch.no_grad()
+def decode_step(params: LM, cfg: ModelConfig, token, cache: list, pos: int):
+    """token: (B, 1) int; ``pos``: the token's absolute position, a host
+    int.  -> (logits (B, 1, V), cache), each layer's cache written in
+    place.  Runs without autograd: a cache written in place must not
+    carry a graph from step to step."""
+    x = F.embedding(token, params.embed.to(_dtype(cfg)))
+    for i, (layer, kind) in enumerate(zip(params.layers, cfg.kinds())):
+        x, cache[i] = _apply_layer_decode(layer, x, kind, cfg, cache[i], pos)
+    return _head(params, cfg, x), cache
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -161,7 +232,9 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cpu") -> LM:
     array (``{"embed", "final_norm", "groups": {"l{i}": ...}, "rest":
     {...}, "lm_head"}``, each group leaf stacked over the groups).  Layer
     ``g P + i`` is ``groups/l{i}`` at index ``g``; the rest follow.  One
-    tied ``embed`` serves the gather and the head."""
+    tied ``embed`` serves the gather and the head.  An MoE layer's
+    ``ffn`` is ``{router/w, wi, wg, wo}``, with ``shared/{wi,wg,wo}/w``
+    for llama4."""
     n_groups, gkinds, rkinds = group_layout(cfg)
 
     def layer(lp, kind, at=None):
@@ -170,8 +243,17 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cpu") -> LM:
                                device))
         a, f = lp["attn"], lp["ffn"]
         attn = Attention(t(a["wq"]), t(a["wk"]), t(a["wv"]), t(a["wo"]))
-        ffn = MLP(t(f["wi"]["w"]), t(f["wo"]["w"]),
-                  t(f["wg"]["w"]) if "wg" in f else None)
+
+        def dense(f):
+            return MLP(t(f["wi"]["w"]), t(f["wo"]["w"]),
+                       t(f["wg"]["w"]) if "wg" in f else None)
+
+        if cfg.mlp == "moe":
+            ffn = MoE(t(f["router"]["w"]), t(f["wi"]), t(f["wg"]),
+                      t(f["wo"]), dense(f["shared"]) if "shared" in f
+                      else None)
+        else:
+            ffn = dense(f)
         return Layer(t(lp["norm1"]), attn, t(lp["norm2"]), ffn)
 
     layers = [layer(tree["groups"][f"l{i}"], kind, g)

@@ -1,15 +1,19 @@
 """Core layers: the bias-free linear layer, RMSNorm, RoPE, GQA attention
-for training (naive, and flash through kernel B8) and the dense MLPs.
+for training (naive, and flash through kernel B8) and for decode over a
+ring-buffered KV cache, the dense MLPs and the sort-based MoE.
 
 The counterpart of the JAX package's ``models/layers.py`` for the DLRM
-and the dense LM: functions ``(params, x, ...) -> y`` over tensors, with
+and the LM: functions ``(params, x, ...) -> y`` over tensors, with
 the JAX package's layouts (a linear weight is ``(din, dout)`` and the
 forward ``x @ w``; attention weights keep the GQA head structure:
-``wq (D, KV, G, hd)``, ``wk``/``wv (D, KV, hd)``, ``wo (KV, G, hd, D)``).
-Decode-time attention, cross-attention and MoE come with the rest of the
-LM side (ROADMAP A14).
+``wq (D, KV, G, hd)``, ``wk``/``wv (D, KV, hd)``, ``wo (KV, G, hd, D)``;
+an MoE's experts are stacked, ``wi``/``wg (E, D, ff)``, ``wo (E, ff,
+D)``).  Cross-attention comes with the audio family (ROADMAP A14.6).
 """
 from __future__ import annotations
+
+import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
@@ -20,8 +24,9 @@ from ..kernels.flash_attn import flash_attn
 
 __all__ = ["linear", "init_linear", "rmsnorm", "rope", "Attention",
            "init_attention", "attention_naive", "attention_flash",
-           "attention_train", "MLP", "init_mlp", "mlp", "FLASH_MIN_SEQ",
-           "FLASH_BLOCK"]
+           "attention_train", "CacheSpec", "cache_spec", "init_kv_cache",
+           "attention_decode", "MLP", "init_mlp", "mlp", "MoE", "init_moe",
+           "moe_ffn", "FLASH_MIN_SEQ", "FLASH_BLOCK"]
 
 NEG_INF = -1e30
 FLASH_BLOCK = 512          # kv block of the reference's scan-based flash
@@ -158,11 +163,11 @@ def attention_flash(q, k, v, kind: str = "full"):
     """Blockwise online-softmax attention through kernel B8
     (:func:`repro_torch.kernels.flash_attn.flash_attn`), positions 0 ..
     S-1 on both sides.  B8 masks causally or not at all, so only ``full``
-    attention takes it; the local and chunked masks are ROADMAP A14."""
+    attention takes it; the local and chunked masks are ROADMAP A14.8."""
     if kind != "full":
         raise NotImplementedError(
             f"{kind} attention at S >= {FLASH_MIN_SEQ} needs a masked flash "
-            f"kernel, not ported to repro_torch yet (ROADMAP A14)")
+            f"kernel, not ported to repro_torch yet (ROADMAP A14.8)")
     return flash_attn(q, k, v, causal=True)
 
 
@@ -180,6 +185,58 @@ def attention_train(p: Attention, x, cfg: ModelConfig, kind, positions,
         out = attention_naive(q, k, v, kind, cfg.window, positions,
                               positions, bidirectional=bidirectional)
     return _proj_out(p, out)
+
+
+# --------------------------------------------------------------------------
+# decode-time attention with a (ring-buffered) KV cache
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class CacheSpec:
+    size: int          # slots
+    kind: str          # full | local | chunked
+
+
+def cache_spec(kind: str, window: int, seq_len: int) -> CacheSpec:
+    if kind in ("local", "chunked"):
+        return CacheSpec(min(window, seq_len), kind)
+    return CacheSpec(seq_len, "full")
+
+
+def init_kv_cache(cfg: ModelConfig, spec: CacheSpec, batch: int, dtype,
+                  device) -> dict:
+    """``{k, v: (B, C, KV, hd) in dtype, pos: (C,) int32}``; ``pos`` is
+    each slot's absolute position, -1 while the slot is empty."""
+    shape = (batch, spec.size, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.full((spec.size,), -1, dtype=torch.int32,
+                              device=device)}
+
+
+def attention_decode(p: Attention, x, cache: dict, cur_pos: int,
+                     cfg: ModelConfig, kind: str):
+    """x: (B, 1, D); ``cur_pos``: the new token's absolute position, a
+    host int, so that neither the slot nor the mask reads the device.
+    Writes the token's k, v and position into slot ``cur_pos % C`` of
+    ``cache`` in place and returns ``(out (B, 1, D), cache)``."""
+    q, k, v = _qkv(p, x)
+    pos1 = torch.full((1,), cur_pos, dtype=torch.int32, device=x.device)
+    if kind != "nope":
+        q = rope(q, pos1, cfg.rope_theta)
+        k = rope(k, pos1, cfg.rope_theta)
+    kind = "full" if kind == "nope" else kind
+    ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+    C = ck.shape[1]
+    slot = cur_pos % C
+    ck[:, slot] = k[:, 0]
+    cv[:, slot] = v[:, 0]
+    cpos[slot] = cur_pos
+    logits = _gqa_logits(q, ck).float()                    # (B,KV,G,1,C)
+    window = cfg.window if cfg.window else C
+    valid = (cpos >= 0) & _pair_mask(kind, window, pos1, cpos)[0]   # (C,)
+    logits = torch.where(valid, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return _proj_out(p, _gqa_out(probs, cv)), cache
 
 
 # --------------------------------------------------------------------------
@@ -227,3 +284,109 @@ def mlp(p: MLP, x, kind: str):
     if kind == "gelu":
         return linear(p.wo, _gelu(linear(p.wi, x)))
     raise ValueError(kind)
+
+
+# --------------------------------------------------------------------------
+# MoE (sort-based grouped dispatch)
+# --------------------------------------------------------------------------
+class MoE(nn.Module):
+    """``router (D, E)``, the stacked experts ``wi``/``wg (E, D, ff)`` and
+    ``wo (E, ff, D)``, and for llama4 an always-on swiglu ``shared``
+    expert (an :class:`MLP`)."""
+
+    def __init__(self, router, wi, wg, wo, shared: MLP | None = None):
+        super().__init__()
+        self.router = nn.Parameter(router)
+        self.wi, self.wg = nn.Parameter(wi), nn.Parameter(wg)
+        self.wo = nn.Parameter(wo)
+        self.shared = shared
+
+
+def init_moe(cfg: ModelConfig, dtype, *, generator: torch.Generator,
+             device) -> MoE:
+    """The JAX package's distributions: the router N(0, 1) * 0.02, the
+    experts' ``wi``, ``wg`` N(0, 1) * d**-0.5 and ``wo`` N(0, 1) *
+    ff**-0.5, the shared expert as :func:`init_mlp`'s swiglu."""
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+
+    def nrm(shape, sc):
+        return (torch.randn(shape, generator=generator, device=device,
+                            dtype=torch.float32) * sc).to(dtype)
+
+    shared = None
+    if cfg.shared_expert:
+        shared = init_mlp(dataclasses.replace(cfg, mlp="swiglu"), dtype,
+                          generator=generator, device=device)
+    return MoE(nrm((d, E), 0.02), nrm((E, d, ff), d ** -0.5),
+               nrm((E, d, ff), d ** -0.5), nrm((E, ff, d), ff ** -0.5),
+               shared)
+
+
+def _moe_dispatch_block(xt, p: MoE, cfg: ModelConfig,
+                        capacity_factor: float):
+    """Sort-based capacity dispatch of one token block.  xt: (T, D) ->
+    the (E, C, D) expert buffer, the (expert, token) pairs' metadata, the
+    router's probabilities (T, E) and its top-k experts (T, K)."""
+    T, D = xt.shape
+    E, K = cfg.n_experts, cfg.top_k
+    probs = torch.softmax((xt @ p.router.to(xt.dtype)).float(), dim=-1)
+    # top-k as a stable descending sort: of two equal probabilities the
+    # lower expert comes first, as jax.lax.top_k takes it
+    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = topv[:, :K], topi[:, :K]
+    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+
+    C = min(math.ceil(capacity_factor * T * K / E), T)
+    eids = topi.reshape(-1)                               # (T*K,)
+    tids = torch.arange(T, device=xt.device).repeat_interleave(K)
+    w = topv.reshape(-1)
+
+    order = torch.argsort(eids, stable=True)
+    se, st, sw = eids[order], tids[order], w[order]
+    grp_start = torch.searchsorted(se, torch.arange(E, device=xt.device))
+    pos = torch.arange(T * K, device=xt.device) - grp_start[se]
+    keep = pos < C
+    slot = torch.where(keep, pos, C)          # dropped pairs: slot C
+    buf = xt.new_zeros((E, C + 1, D)).index_put((se, slot), xt[st])[:, :C]
+    return buf, (se, st, sw, pos, keep), probs, topi
+
+
+def _moe_experts(p: MoE, buf, dtype):
+    hi = torch.einsum("ecd,edf->ecf", buf, p.wi.to(dtype))
+    hg = torch.einsum("ecd,edf->ecf", buf, p.wg.to(dtype))
+    return torch.einsum("ecf,efd->ecd", F.silu(hg) * hi, p.wo.to(dtype))
+
+
+def _moe_combine(ho, meta, T: int, D: int, dtype):
+    """Each pair's expert output, weighted by its router probability (0
+    for a dropped pair), added into its token's row.  A token has K <= 2
+    pairs added to a zero row, and a sum of two terms is the same in
+    either order, so the card's atomic adds are deterministic here."""
+    se, st, sw, pos, keep = meta
+    contrib = ho[se, torch.where(keep, pos, 0)] \
+        * (sw * keep)[:, None].to(dtype)
+    return ho.new_zeros((T, D)).index_add(0, st, contrib)
+
+
+def moe_ffn(p: MoE, x, cfg: ModelConfig, capacity_factor: float = 1.25):
+    """x: (B, S, D) -> (y (B, S, D), aux).  The tokens' (expert, token)
+    pairs are sorted by expert and packed into an (E, C, D) buffer, C =
+    min(ceil(capacity_factor T K / E), T) (pairs past an expert's
+    capacity are dropped), the experts run as batched products over the
+    stacked weights, and the outputs are added back weighted by the
+    router's renormalised top-k probabilities.  ``aux`` is the Switch
+    load-balance loss E * sum(mean prob * top-1 share).  The reference's
+    multi-block dispatch (``dist.ctx.MOE_BLOCKS > 1``) waits for
+    sharding (ROADMAP A14.9); this is its one-block path."""
+    B, S, D = x.shape
+    E = cfg.n_experts
+    T = B * S
+    xt = x.reshape(T, D)
+    buf, meta, probs, topi = _moe_dispatch_block(xt, p, cfg, capacity_factor)
+    yt = _moe_combine(_moe_experts(p, buf, xt.dtype), meta, T, D, xt.dtype)
+    if p.shared is not None:
+        yt = yt + mlp(p.shared, xt, "swiglu")
+    me = probs.mean(dim=0)                                # (E,)
+    fe = F.one_hot(topi[:, 0], E).float().mean(dim=0)
+    aux = E * torch.sum(me * fe)
+    return yt.reshape(B, S, D), aux

@@ -1,4 +1,5 @@
-"""repro_torch and chip_smoke.py import neither JAX nor the JAX package.
+"""repro_torch, chip_smoke.py and the port's decode example import
+neither JAX nor the JAX package.
 
 Checked in a fresh interpreter, so that the imports this test process
 already holds cannot hide one.
@@ -19,6 +20,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import runpy
+runpy.run_path("examples/serve_llm_decode_torch.py")
 from repro_torch.launch.serve import build_parser
 from repro_torch.launch.train import build_parser as train_parser
 bad = sorted(m for m in sys.modules
@@ -60,7 +63,8 @@ def test_port_imports_no_jax_and_no_reference():
 
 def test_sources_name_no_jax_import():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py",
+              ROOT / "examples" / "serve_llm_decode_torch.py"]
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()

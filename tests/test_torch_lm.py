@@ -142,7 +142,8 @@ def test_forward_and_loss_through_params_from_jax(arch):
     batch["labels"][0, :5] = -1                    # padded labels
     logits, _ = jbb.forward(params, jcfg, jnp.asarray(batch["tokens"]),
                             remat=False)
-    got = backbone.forward(model, cfg, _t(batch["tokens"]))
+    got, aux = backbone.forward(model, cfg, _t(batch["tokens"]))
+    assert aux.item() == 0.0                       # no MoE layer
     np.testing.assert_allclose(got.detach().numpy(), _np(logits), rtol=0,
                                atol=TOL)
     want = japi.train_loss(params, jcfg, {k: jnp.asarray(v) for k, v in
@@ -238,10 +239,18 @@ def test_unported_lm_flags_raise(flags, item):
               "--device", "cpu"] + flags)
 
 
-@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "falcon-mamba-7b",
-                                  "recurrentgemma-2b", "pixtral-12b",
-                                  "whisper-large-v3",
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b",
                                   "llama4-scout-17b-a16e"])
+def test_moe_families_train_one_smoke_step(arch):
+    """The MoE families train through the driver (their parity with the
+    reference is tests/test_torch_moe.py)."""
+    out = main(["--arch", arch, "--smoke", "--steps", "1", "--device",
+                "cpu"])
+    assert out["steps"] == 1 and np.isfinite(out["metrics"][0]["loss"])
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-2b",
+                                  "pixtral-12b", "whisper-large-v3"])
 def test_families_outside_the_slice_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP A14"):
         main(["--arch", arch, "--smoke", "--steps", "1", "--device", "cpu"])

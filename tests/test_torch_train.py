@@ -55,11 +55,49 @@ def test_runs_without_esd_and_with_other_paths(extra):
     (["--esd-engine", "dense"], "A4"), (["--trace-out", "t.json"], "A15"),
     (["--validate-timing"], "A15"),
     (["--ckpt-every", "5"], "A10"), (["--compute-time-s", "0.1"], "A10"),
-    (["--ps-layout", "hashed"], "A2"), (["--trace-buffer", "10"], "A15"),
-    (["--smoke"], "A14"), (["--seq-len", "32"], "A14")])
+    (["--ps-layout", "hashed"], "A2"), (["--trace-buffer", "10"], "A15")])
 def test_unported_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         main(TINY + ["--esd-alpha", "1", "--device", "cpu"] + flags)
+
+
+def _records(out):
+    return [{k: v for k, v in r.items() if k != "wall_s"}
+            for r in out["metrics"]]
+
+
+@pytest.mark.parametrize("flags", [["--smoke"], ["--seq-len", "32"]])
+def test_lm_flags_are_ignored_in_dlrm_mode(flags):
+    """The reference reads --smoke and --seq-len only in LM mode; its
+    DLRM mode ignores them, and so does the port's: the records equal
+    those of the run without the flag."""
+    base = TINY + ["--esd-alpha", "1", "--exchange", "ragged", "--device",
+                   "cpu"]
+    assert _records(main(base + flags)) == _records(main(base))
+
+
+@pytest.mark.parametrize("flags", [
+    [], ["--pipeline-depth", "2", "--lookahead", "2", "--prefetch", "8",
+         "--prefetch-slots", "16"]])
+def test_batches_drawn_on_a_loader_thread(monkeypatch, flags):
+    """The host stream is drawn through PrefetchLoader (depth 2), as the
+    reference draws it; the records at depth 1, and at depth 2 with
+    prefetch, equal those of the stream drawn on the main thread."""
+    import repro_torch.launch.train as T
+
+    argv = TINY + ["--esd-alpha", "1", "--exchange", "ragged", "--device",
+                   "cpu"] + flags
+    real, made = T.PrefetchLoader, []
+
+    def spy(it, depth=2):
+        made.append(depth)
+        return real(it, depth)
+
+    monkeypatch.setattr(T, "PrefetchLoader", spy)
+    threaded = _records(main(argv))
+    assert made == [2]
+    monkeypatch.setattr(T, "PrefetchLoader", lambda it, depth=2: iter(it))
+    assert threaded == _records(main(argv))
 
 
 @pytest.mark.parametrize("flags", [
