@@ -1,8 +1,10 @@
 """Drive the PyTorch port's serving path and training step, exact and
 over the quantized wire, the paper's simulator with its auction solver,
 LM training with its flash-attention kernel, the pipelined training
-step with its prefetch plane, and the LM serving path (prefill and
-KV-cache decode) and MoE layers, on one CUDA card and check them.
+step with its prefetch plane, the LM serving path (prefill and
+KV-cache decode) and MoE layers, and elastic training under a fault
+plan with its checkpoints and resume, on one CUDA card and check
+them.
 
     python3 chip_smoke.py
 
@@ -79,7 +81,10 @@ Phases, each printing its own lines:
    prefetch plane's ids, expiry and rows equal; 8 decode steps of
    smollm-360m's and phi3.5-moe's smoke configs (f32, B 4), logits
    within 1e-5, and 3 ``run_lm`` steps of phi3.5-moe's smoke config at
-   S = 2,048, losses within 1e-4;
+   S = 2,048, losses within 1e-4; ``run_dlrm --fault-plan`` at wdl-tiny
+   (a straggler, a graceful crash, a droop and a warm rejoin; 6 steps;
+   depth 1 exact and int8, depth 2) card against CPU: integer fields
+   equal, losses and costs within 1e-5;
 5. serve — ``run_serve`` at wdl-s1 (4 workers, 2,000 QPS for 1 s), then
    for 0.5 s with ``--codec int8``;
 6. train — ``run_dlrm`` at wdl-s1 (4 workers x 256 samples, ESD alpha 1,
@@ -97,7 +102,14 @@ Phases, each printing its own lines:
    the paper's 60 iterations and 128 a worker cut): ESD alpha 1 with the
    auction (calibrated decisions: rounds, cost, ItpS and hit ratio equal
    to the CPU's) and with SSP, LAIA, HET, FAE and random; then the
-   serving simulator with the auction;
+   serving simulator with the auction; then (run after phase 12) the
+   same S1 under ``SIM_PLAN`` (a graceful crash and warm rejoin of
+   worker 3, a straggler, a droop): ESD with SSP, LAIA, random and HET
+   card against CPU, every field equal; FAE refused alike (its cache
+   models no churn) and run on the plan's window events; ESD with the
+   auction, one auction_solve launch a decision, every field equal to
+   the CPU's (``S1_FAULTS_AUCTION_CPU``); and a multi-PS run (2 shards)
+   with a PS outage, card against CPU;
 9. lm-train — ``run_lm`` at smollm-360m's full width and depth (32
    layers, d = 960, vocab 49,152, bf16), B = 4, S = 2,048, 5 steps of
    Adam: ms per step (mean of steps 1-4, each ended by a synchronise),
@@ -124,9 +136,24 @@ Phases, each printing its own lines:
    its depth cut to 2 layers: 3 ``run_lm`` steps at B = 1, S = 2,048
    (ms a step, peak memory, finite losses, one B8 and one backward
    launch a layer and step), then decode at B = 4, prompt 64, 64 greedy
-   tokens, and a nonzero router aux loss.
+   tokens, and a nonzero router aux loss;
+13. train-elastic — ``run_dlrm`` at phase 6's configuration for 12 steps
+   under ``ELASTIC_PLAN`` (at most one worker down: capacity 86, budget
+   128, ``out_rows`` 512 a worker) at depth 1, depth 2 and with
+   ``--codec int8``: finite records, ``n_active`` 3 at steps 3-6, no
+   sample for worker 1 while it is down, depth 2's records bit for bit
+   depth 1's, B1 4 launches a step, one auction_solve and one
+   ``pack_send_all`` (``_quant`` with the codec) a step, and ms a step
+   beside phase 6's; then an empty plan, its records bit for bit phase
+   6's;
+14. resume — phase 13's configuration at depth 2, 10 steps with a
+   checkpoint at step 5, resumed from it: records from step 5 bit for
+   bit; smollm-360m at full width, depth cut to 4 of 32 layers, B 4 x S
+   2,048, 4 steps with a checkpoint at step 2, resumed into other
+   weights: losses bit for bit, B8 and its backward once a layer and
+   step; each checkpoint's bytes and save and restore ms.
 
-Each run of phases 5 to 12 sets every kernel's launch counter to 0 just
+Each run of phases 5 to 14 sets every kernel's launch counter to 0 just
 before and reads the counters just after.  Then one JSON line of kernel
 records, after the script's wall time, and as the last line ``{"ok":
 true, "device": {...}}``.  Any failed check raises, so the script exits
@@ -1986,6 +2013,388 @@ def phase_lm_moe(seed: int) -> dict:
     return launches
 
 
+# phase 13's plan: a straggler, a graceful crash, a droop and a warm
+# rejoin; at most one worker down, so cap 86, budget 128, out_rows 512
+ELASTIC_PLAN = "straggle@1:0x4-8; crash@3:1g; bw@4:2x0.25-10; rejoin@7:1w"
+ELASTIC_ARGV = ["--steps", "12", "--fault-plan", ELASTIC_PLAN]
+ELASTIC_KEYS = ("loss", "miss_pull", "update_push", "evict_push", "cost",
+                "alg1_est", "n_active")
+# the tiny elastic runs of phase 4: one step down (a dead worker's penalty
+# column starts price wars of thousands of rounds on the CPU's auction)
+TINY_PLAN = "straggle@1:0x4-3; crash@2:1g; bw@3:2x0.25-5; rejoin@3:1w"
+
+
+def phase_elastic_parity(seed: int):
+    """``run_dlrm --fault-plan`` at wdl-tiny (4 workers x 8, 6 steps) on
+    the card and on the CPU from the same weights, at depth 1 (exact and
+    ``--codec int8``) and depth 2: integer fields (cache counts,
+    ``n_active``) equal, losses, costs and Alg.-1 estimates within 1e-5,
+    the tolerances of the elastic slice's CPU tests."""
+    from repro_torch.configs import DLRM_CONFIGS
+    from repro_torch.data.synthetic import WORKLOADS
+    from repro_torch.launch.train import build_parser, run_dlrm
+    from repro_torch.models.dlrm import init_params
+
+    cfg = DLRM_CONFIGS["wdl-tiny"]
+    cpu = init_params(cfg, WORKLOADS[cfg.workload],
+                      torch.Generator().manual_seed(seed), "cpu")
+    base = ["--arch", "wdl-tiny", "--workers", "4", "--batch-per-worker",
+            "8", "--steps", "6", "--esd-alpha", "1", "--exchange", "ragged",
+            "--seed", str(seed), "--fault-plan", TINY_PLAN]
+    for what, extra in (("depth 1", []), ("int8", ["--codec", "int8"]),
+                        ("depth 2", ["--pipeline-depth", "2"])):
+        outs = {dev: run_dlrm(build_parser().parse_args(
+                    base + extra + ["--device", dev]),
+                    model=copy.deepcopy(cpu).to(dev))
+                for dev in ("cpu", "cuda")}
+        rc, rg = outs["cpu"]["metrics"], outs["cuda"]["metrics"]
+        worst = 0.0
+        for a, b in zip(rc, rg, strict=True):
+            check(set(a) == set(b), f"elastic {what}: the same fields")
+            for key, v in a.items():
+                if key in ("loss", "alg1_est", "cost"):
+                    check(math.isclose(b[key], v, rel_tol=1e-5, abs_tol=0),
+                          f"elastic {what}: {key} on card vs CPU within "
+                          f"1e-5")
+                    worst = max(worst, abs(b[key] - v) / abs(v))
+                elif key != "wall_s":
+                    check(b[key] == v, f"elastic {what}: {key} equal on "
+                                       f"card and CPU")
+        check([r["n_active"] for r in rg] == [4, 4, 3, 4, 4, 4],
+              f"elastic {what}: n_active follows the plan")
+        print(f"[parity] run_dlrm --fault-plan '{TINY_PLAN}' {what}, card "
+              f"vs CPU, wdl-tiny, 6 steps: integer fields equal, losses "
+              f"{[r['loss'] for r in rg]}, max rel err of losses and costs "
+              f"{worst:.3g} (tolerance 1e-5)")
+
+
+def phase_train_elastic(seed: int) -> dict:
+    """Phase 13: ``run_dlrm --fault-plan`` at wdl-s1 (phase 6's
+    configuration, 12 steps) at depth 1, at depth 2 and with ``--codec
+    int8``: finite records, ``n_active`` 3 at steps 3-6, no sample for
+    worker 1 while it is down, depth 2's records bit for bit depth 1's,
+    and B1, the exchange's pack and the fused auction launched; then an
+    empty plan, whose 10 records equal phase 6's bit for bit."""
+    from repro_torch.elastic import FaultPlan
+    from repro_torch.kernels import auction as A
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.train import build_parser, run_dlrm
+
+    plan = FaultPlan.parse(ELASTIC_PLAN, 4)
+    check(plan.max_inactive() == 1, "the plan has one worker down at most")
+    total: dict = {}
+    outs = {}
+    for name, extra in (("depth 1", []),
+                        ("depth 2", ["--pipeline-depth", "2"]),
+                        ("int8", ["--codec", "int8"])):
+        received = []       # samples each worker received, a step
+        real = S.esd_decide
+        if name == "depth 1":
+            def spy(*a, **kw):
+                out = real(*a, **kw)
+                received.append(torch.bincount(
+                    out[0].reshape(-1).long(), minlength=4).tolist())
+                return out
+            S.esd_decide = spy
+        args = build_parser().parse_args(TRAIN_ARGV + ELASTIC_ARGV + extra
+                                         + ["--seed", str(seed)])
+        A.ROUNDS_LOG = []
+        _zero_launches()
+        try:
+            out = run_dlrm(args)      # raises if a step's exchange overflowed
+        finally:
+            S.esd_decide = real
+            launches = {k: v for k, v in _read_launches().items() if v}
+            solves, A.ROUNDS_LOG = A.ROUNDS_LOG, None
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        outs[name] = out
+        recs = out["metrics"]
+        per_step = {k: round(v / len(recs), 3) for k, v in launches.items()}
+        pack = "pack_send_all_quant" if name == "int8" else "pack_send_all"
+        print(f"[train-elastic] wdl-s1 '{ELASTIC_PLAN}', {name}: wall "
+              f"{out['wall_ms_mean']:.3f} ms a step (mean after the first "
+              f"{out['pipeline_depth']}); {out['stage_clock']} ms decide "
+              f"{out['decide_ms_mean']:.3f}, advance "
+              f"{out['advance_ms_mean']:.3f}, train "
+              f"{out['train_ms_mean']:.3f}; losses "
+              f"{[r['loss'] for r in recs]}; n_active "
+              f"{[r['n_active'] for r in recs]}; launches {per_step} per "
+              f"step")
+        print(f"[train-elastic] {name} step ms (decide, advance, train): "
+              + str([tuple(round(x * 1e3, 2) for x in t) for t in zip(
+                  *(out["stage_s"][s] for s in ("decide", "advance",
+                                                "train")))]))
+        check(all(np.isfinite([r["loss"] for r in recs]))
+              and all(np.isfinite([r["cost"] for r in recs])),
+              f"elastic {name}: every loss and cost finite")
+        check([r["n_active"] for r in recs]
+              == [3 if 3 <= i <= 6 else 4 for i in range(12)],
+              f"elastic {name}: n_active 3 at steps 3-6")
+        check(per_step.get("pooled_lookup") == 4.0
+              and per_step.get("auction_solve") == 1.0
+              and per_step.get(pack) == 1.0,
+              f"elastic {name}: B1 once per worker and step, one "
+              f"auction_solve and one {pack} launch a step ({per_step})")
+        print(f"[train-elastic] {name} auction rounds per step, per "
+              f"worker: {[r.sum(dim=1).tolist() for r in solves]}")
+        if received:
+            print(f"[train-elastic] samples received per worker a step: "
+                  f"{received}")
+            check(all(r[1] == 0 for r in received[3:7]),
+                  "worker 1 receives no samples while it is down")
+    keys = ELASTIC_KEYS
+    check([[r[k] for k in keys] for r in outs["depth 2"]["metrics"]]
+          == [[r[k] for k in keys] for r in outs["depth 1"]["metrics"]],
+          "elastic depth 2: every record bit for bit depth 1's")
+    one, _ = TRAIN_DEPTH1[None]
+    print(f"[train-elastic] the raised cap (out_rows 512 a worker, phase 6 "
+          f"256): train {outs['depth 1']['train_ms_mean']:.3f} ms a step "
+          f"against phase 6's {one['train_ms_mean']:.3f}; advance "
+          f"{outs['depth 1']['advance_ms_mean']:.3f} against "
+          f"{one['advance_ms_mean']:.3f}; wall ms a step depth 1 "
+          f"{outs['depth 1']['wall_ms_mean']:.3f}, depth 2 "
+          f"{outs['depth 2']['wall_ms_mean']:.3f}")
+    # an empty plan runs the elastic stages with neutral tensors
+    args = build_parser().parse_args(TRAIN_ARGV + ["--fault-plan", " ; ",
+                                                   "--seed", str(seed)])
+    _zero_launches()
+    out = run_dlrm(args)
+    for k, v in _read_launches().items():
+        total[k] = total.get(k, 0) + v
+    keys = ELASTIC_KEYS[:-1]
+    check([[r[k] for k in keys] for r in out["metrics"]]
+          == [[r[k] for k in keys] for r in one["metrics"]],
+          "an empty plan: every record bit for bit phase 6's")
+    print("[train-elastic] an empty plan: the 10 records equal phase 6's "
+          "bit for bit")
+    return {k: v for k, v in total.items() if v}
+
+
+RESUME_LM_LAYERS = 4     # smollm-360m's 32 layers cut to 4
+
+
+def phase_resume(seed: int) -> dict:
+    """Phase 14: resume.  ``run_dlrm`` at phase 13's configuration at
+    depth 2, 10 steps with a checkpoint at step 5, then a second run
+    resumed from it: its records from step 5 on equal the uninterrupted
+    run's bit for bit.  ``run_lm`` at smollm-360m's full width, its depth
+    cut to 4 layers, B 4 x S 2,048: 4 steps with a checkpoint at step 2,
+    then resumed from a model of other weights: losses bit for bit, B8
+    and its backward launched once a layer and step.  Prints each
+    checkpoint's bytes and its save and restore ms (host clock, after a
+    synchronise)."""
+    import repro_torch.launch.train as T
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+
+    ckdir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    times: dict = {"save": [], "restore": []}
+    real = {"save": T.save_checkpoint, "restore": T.restore_checkpoint}
+
+    def timed(kind):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real[kind](*a, **kw)
+            torch.cuda.synchronize()
+            times[kind].append((time.perf_counter() - t) * 1e3)
+            return out
+        return run
+
+    total: dict = {}
+
+    def count():
+        for k, v in _read_launches().items():
+            total[k] = total.get(k, 0) + v
+
+    T.save_checkpoint, T.restore_checkpoint = timed("save"), timed("restore")
+    try:
+        d = ckdir / "dlrm"
+        argv = TRAIN_ARGV + ["--fault-plan", ELASTIC_PLAN, "--pipeline-depth",
+                             "2", "--ckpt-dir", str(d), "--ckpt-every", "5",
+                             "--seed", str(seed)]
+        _zero_launches()
+        full = T.run_dlrm(T.build_parser().parse_args(argv))["metrics"]
+        count()
+        size = (d / "ckpt_00000005.npz").stat().st_size
+        (d / "ckpt_00000010.npz").unlink()
+        _zero_launches()
+        resumed = T.run_dlrm(T.build_parser().parse_args(
+            argv + ["--resume"]))["metrics"]
+        count()
+        keys = ELASTIC_KEYS
+        check([r["step"] for r in resumed] == list(range(5, 10))
+              and [[r[k] for k in keys] for r in resumed]
+              == [[r[k] for k in keys] for r in full[5:]],
+              "resumed DLRM records from step 5 bit for bit the "
+              "uninterrupted run's")
+        print(f"[resume] wdl-s1 '{ELASTIC_PLAN}', depth 2: checkpoint at "
+              f"step 5 of {size} bytes, save {times['save'][0]:.1f} ms, "
+              f"restore {times['restore'][0]:.1f} ms; the resumed run's 5 "
+              f"records equal the uninterrupted run's bit for bit (losses "
+              f"{[r['loss'] for r in resumed]})")
+        dlrm_times = (size, times["save"][0], times["restore"][0])
+        times["save"].clear()
+        times["restore"].clear()
+
+        d = ckdir / "lm"
+        cfg = dataclasses.replace(get_config("smollm-360m"),
+                                  n_layers=RESUME_LM_LAYERS)
+        argv = ["--arch", "smollm-360m", "--seq-len", "2048",
+                "--batch-per-worker", "4", "--steps", "4", "--seed",
+                str(seed), "--device", "cuda", "--ckpt-dir", str(d),
+                "--ckpt-every", "2"]
+        runs = []
+        for extra, weights in (([], seed), (["--resume"], seed + 1)):
+            model = api.init_model(cfg, generator=torch.Generator(
+                device="cuda").manual_seed(weights), device="cuda")
+            _zero_launches()
+            out = T.run_lm(T.build_parser().parse_args(argv + extra),
+                           model=model, cfg=cfg)
+            launches = {k: v for k, v in _read_launches().items() if v}
+            count()
+            n = cfg.n_layers * len(out["metrics"])
+            check(launches == {"flash_attention": n,
+                               "flash_attention_bwd": n},
+                  f"LM resume: B8 and its backward once a layer and step "
+                  f"({launches})")
+            runs.append(out["metrics"])
+            if not extra:
+                lm_size = (d / "ckpt_00000002.npz").stat().st_size
+                (d / "ckpt_00000004.npz").unlink()
+        full, resumed = runs
+        check([r["step"] for r in resumed] == [2, 3]
+              and [r["loss"] for r in resumed]
+              == [r["loss"] for r in full[2:]],
+              "resumed LM losses bit for bit the uninterrupted run's")
+        print(f"[resume] {cfg.name} at full width, {cfg.n_layers} of 32 "
+              f"layers ({cfg.dtype}), B 4, S 2048, 4 steps: checkpoint at "
+              f"step 2 of {lm_size} bytes, save {times['save'][0]:.1f} ms, "
+              f"restore {times['restore'][0]:.1f} ms; losses "
+              f"{[r['loss'] for r in full]}, resumed "
+              f"{[r['loss'] for r in resumed]} (bit for bit)")
+        print(f"[resume] checkpoint bytes, save ms, restore ms: DLRM "
+              f"{dlrm_times}, LM ({lm_size}, {times['save'][0]:.1f}, "
+              f"{times['restore'][0]:.1f})")
+    finally:
+        T.save_checkpoint, T.restore_checkpoint = (real["save"],
+                                                   real["restore"])
+        shutil.rmtree(ckdir, ignore_errors=True)
+    return {k: v for k, v in total.items() if v}
+
+
+# phase 8's fault plan on its 8 workers, and the ESD auction's result
+# under it on the CPU: scripts/auction_rounds.py --device cpu --fault-plan
+SIM_PLAN = "crash@2:3g; rejoin@5:3w; straggle@1:0x4-6; bw@3:5x0.25-7"
+S1_FAULTS_AUCTION_CPU = dict(
+    rounds=1_637_169, cost=1.2810092544000002, itps=8.275521496441675,
+    hit_ratio=0.22006564189747585,
+    elastic={"events": [
+        {"kind": "straggle", "step": 1, "target": 0, "factor": 4.0,
+         "until": 6},
+        {"kind": "crash", "step": 2, "target": 3, "graceful": True},
+        {"kind": "bw", "step": 3, "target": 5, "factor": 0.25, "until": 7},
+        {"kind": "rejoin", "step": 5, "target": 3, "warm": True}],
+        "flush_push_ops": 1529, "handoff_rows": 2053,
+        "handoff_time_s": 0.0666894336, "min_active": 7},
+    per_iter_cost=[0.1747255296, 0.27795456, 0.2620063744,
+                   0.22484090880000002, 0.21465006080000001, 0.1268318208],
+    alg1_cost=6.364035942399999,
+    ingredient={"5Gbps": {"miss_pull": 17212, "update_push": 9451,
+                          "evict_push": 0},
+                "0.5Gbps": {"miss_pull": 15819, "update_push": 8731,
+                            "evict_push": 0}})
+
+
+def phase_simulate_faults(seed: int) -> dict:
+    """Phase 8 under ``SIM_PLAN`` (S1 at phase 8's cut sizes, calibrated
+    decisions): ESD with SSP, LAIA, random and HET on the card and on the
+    CPU, every ``SimResult`` field equal; FAE, whose cache models no
+    churn, refused alike and run on the plan's window events; ESD with
+    the auction (one auction_solve launch a decision) against the CPU's
+    result at seed 0 (``S1_FAULTS_AUCTION_CPU``); and a multi-PS run (2
+    shards) with a PS outage, card against CPU."""
+    from repro_torch.core.simulator import SimConfig, simulate
+    from repro_torch.data.synthetic import WORKLOADS
+    from repro_torch.elastic import FaultPlan
+    from repro_torch.kernels import auction as A
+
+    base = dict(workload=WORKLOADS["S1"], n_workers=8, batch_per_worker=32,
+                cache_ratio=0.08, embedding_dim=512, iters=8, warmup=2,
+                seed=seed)
+    window = "straggle@1:0x4-6; bw@3:5x0.25-7"
+    launches: dict = {}
+
+    def same(a, b):
+        for f in dataclasses.fields(a):
+            u, v = getattr(a, f.name), getattr(b, f.name)
+            ok = (np.array_equal(u, v) if isinstance(u, np.ndarray)
+                  else u == v)
+            check(ok, f"simulate under faults: {f.name} equal on card and "
+                      f"CPU")
+
+    for name, kw, spec, n_ps in (
+            ("esd-ssp", dict(mechanism="esd", opt="ssp"), SIM_PLAN, 1),
+            ("laia", dict(mechanism="laia"), SIM_PLAN, 1),
+            ("random", dict(mechanism="random"), SIM_PLAN, 1),
+            ("het", dict(mechanism="het"), SIM_PLAN, 1),
+            ("fae", dict(mechanism="fae"), window, 1),
+            ("esd-ssp n_ps 2", dict(mechanism="esd", opt="ssp"),
+             "ps_outage@2:1-6; crash@3:6; rejoin@6:6w", 2)):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            t = time.perf_counter()
+            res[dev] = simulate(SimConfig(
+                device=dev, faults=FaultPlan.parse(spec, 8, n_ps),
+                n_ps=n_ps, **base, **kw))
+            wall = time.perf_counter() - t if dev == "cuda" else wall
+        same(res["cuda"], res["cpu"])
+        r = res["cuda"]
+        print(f"[simulate-faults] S1 {name} '{spec}': cost {r.cost!r}, itps "
+              f"{r.itps!r}, hit ratio {r.hit_ratio!r}, elastic {r.elastic}; "
+              f"every field equal on card and CPU; wall {wall:.1f} s")
+    try:
+        simulate(SimConfig(device="cuda", faults=FaultPlan.parse(SIM_PLAN, 8),
+                           mechanism="fae", **base))
+        check(False, "FAE refuses a plan with membership churn")
+    except ValueError as e:
+        check("does not support membership churn" in str(e),
+              f"FAE refuses churn with the reference's message ({e})")
+    A.ROUNDS_LOG = []
+    _zero_launches()
+    t = time.perf_counter()
+    try:
+        res = simulate(SimConfig(device="cuda", mechanism="esd",
+                                 opt="auction",
+                                 faults=FaultPlan.parse(SIM_PLAN, 8), **base))
+    finally:
+        wall = time.perf_counter() - t
+        run = {k: v for k, v in _read_launches().items() if v}
+        log, A.ROUNDS_LOG = A.ROUNDS_LOG, None
+    for k, v in run.items():
+        launches[k] = launches.get(k, 0) + v
+    rounds = [int(r.sum()) for r in log]
+    check(run.get("auction_solve") == len(rounds) == 8
+          and "auction_bids" not in run,
+          "simulate esd-auction under faults: one auction_solve launch a "
+          "decision")
+    got = dict(rounds=sum(rounds), cost=res.cost, itps=res.itps,
+               hit_ratio=res.hit_ratio, elastic=res.elastic,
+               per_iter_cost=res.per_iter_cost.tolist(),
+               alg1_cost=res.alg1_cost, ingredient=res.ingredient)
+    if seed == 0 and S1_FAULTS_AUCTION_CPU is not None:
+        check(got == S1_FAULTS_AUCTION_CPU,
+              f"simulate esd-auction under faults: every field equal to "
+              f"the CPU's ({got} against {S1_FAULTS_AUCTION_CPU})")
+    print(f"[simulate-faults] S1 esd-auction '{SIM_PLAN}': {got}; rounds a "
+          f"decision {rounds}; wall {wall:.1f} s"
+          + ("; equal to the CPU's" if seed == 0
+             and S1_FAULTS_AUCTION_CPU is not None else ""))
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2008,6 +2417,7 @@ def main(argv=None) -> int:
     phase_lm_parity(args.seed)
     phase_lm_decode_parity(args.seed)
     phase_train_pipeline_parity(args.seed)
+    phase_elastic_parity(args.seed)
     # launches on the main paths: each run counted from zero, then summed
     launches: dict = {}
     for run in (lambda: phase_serve(args.seed),
@@ -2019,7 +2429,10 @@ def main(argv=None) -> int:
                 lambda: phase_lm_train(args.seed),
                 lambda: phase_train_pipeline(args.seed),
                 lambda: phase_lm_serve(args.seed),
-                lambda: phase_lm_moe(args.seed)):
+                lambda: phase_lm_moe(args.seed),
+                lambda: phase_simulate_faults(args.seed),
+                lambda: phase_train_elastic(args.seed),
+                lambda: phase_resume(args.seed)):
         t = time.perf_counter()
         for k, v in run().items():
             launches[k] = launches.get(k, 0) + v

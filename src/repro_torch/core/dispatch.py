@@ -244,24 +244,42 @@ def exchange_budget(cap: int, m: int) -> int:
     return min(m, 1 << max(cap - 1, 0).bit_length())
 
 
-def esd_cost_matrix(samples: torch.Tensor, state, t_tran: torch.Tensor
-                    ) -> torch.Tensor:
-    """One worker's (m, n) Alg. 1 cost matrix under ``state`` (single PS,
-    no column bias), through the pooled-lookup kernel."""
-    return cost_matrix_sparse_kernel(samples, state.latest, state.dirty,
-                                     t_tran)
+def esd_cost_matrix(samples: torch.Tensor, state, t_tran: torch.Tensor,
+                    col_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One worker's (m, n) Alg. 1 cost matrix under ``state`` (single PS),
+    through the pooled-lookup kernel.
+
+    ``col_bias`` (elastic clusters, :func:`repro_torch.elastic.
+    cost_column_bias`): an (n,) per-worker additive term — straggler
+    excess compute, or the finite dead-worker penalty — added after the
+    kernel in the cost's dtype.  ``None`` and an all-zero bias give the
+    same bits (costs are >= 0, so ``C + 0.0`` is identity)."""
+    C = cost_matrix_sparse_kernel(samples, state.latest, state.dirty, t_tran)
+    if col_bias is not None:
+        C = C + col_bias[None, :].to(C.dtype)
+    return C
 
 
 def esd_decide(samples: torch.Tensor, state, t_tran: torch.Tensor,
                alpha: float, cap_slack: float = 0.0,
-               with_cost: bool = False):
+               with_cost: bool = False,
+               col_bias: Optional[torch.Tensor] = None,
+               cap: Optional[int] = None):
     """Alg. 1 + Alg. 2 for every worker: samples (n, m, F), one row
     block per worker -> assign (n, m) int32, and with ``with_cost`` also
-    each worker's Alg.-1 objective of its assignment (n,) f32."""
+    each worker's Alg.-1 objective of its assignment (n,) f32.
+
+    Elastic clusters: ``col_bias`` biases the cost columns (see
+    :func:`esd_cost_matrix`) and ``cap`` overrides the default
+    ``dispatch_cap(m, n, cap_slack)`` — a churn-tolerant driver raises
+    the static capacity so the survivors of the worst planned
+    simultaneous loss can absorb every sample."""
     n, m, _ = samples.shape
-    C = torch.stack([esd_cost_matrix(samples[i], state, t_tran)
+    C = torch.stack([esd_cost_matrix(samples[i], state, t_tran, col_bias)
                      for i in range(n)])                          # (n, m, n)
-    assign = hybrid_dispatch(C, m, alpha, cap=dispatch_cap(m, n, cap_slack))
+    if cap is None:
+        cap = dispatch_cap(m, n, cap_slack)
+    assign = hybrid_dispatch(C, m, alpha, cap=cap)
     if with_cost:
         alg1 = torch.gather(C, 2, assign.long()[:, :, None])[:, :, 0].sum(1)
         return assign, alg1

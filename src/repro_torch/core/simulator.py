@@ -79,8 +79,18 @@ both packages give the same results from one seed.  ``SimConfig.device``
 (``"cuda"`` unless the caller asks for the CPU; resolved once when
 :func:`simulate` starts, raising without a card) is where
 ``opt="auction"`` runs: the eps-scaled auction, each decision one launch
-of the CUDA kernel :func:`repro_torch.kernels.auction.auction_solve`.  Elastic
-operation (``SimConfig.faults``, ROADMAP A10) is not ported yet.
+of the CUDA kernel :func:`repro_torch.kernels.auction.auction_solve`.
+
+Faults (``SimConfig.faults``, a :class:`repro_torch.elastic.FaultPlan`):
+each iteration applies the plan's crash and rejoin events to the cache
+engine (a graceful crash flushes its dirty rows and hands its clean
+inventory to the survivors; a warm rejoin is seeded by its peers), runs
+the dispatch on the step's effective link times with the straggler and
+dead-worker cost bias and the capacity the survivors need, and prices
+the flush and handoff traffic, the straggler's compute and the dead
+workers' silence into the iteration's time; ``SimResult.elastic``
+counts it.  An empty plan gives the static cluster's results bit for
+bit.
 """
 from __future__ import annotations
 
@@ -95,7 +105,8 @@ from ..device import resolve_device
 from ..exchange.plan import compile_plan
 from ..obs.metrics import MetricsRegistry
 from ..ps import make_partition
-from .baselines import FAECache, HETCache, laia_dispatch, random_dispatch
+from .baselines import (FAECache, HETCache, laia_dispatch, random_dispatch,
+                        random_dispatch_active)
 from .cache import ClusterCache, EvictPlan, IterStats, SparseClusterCache
 from .cost import (batch_unique_np, cost_from_state_cols,
                    cost_from_state_cols_ps, cost_matrix_np,
@@ -188,8 +199,11 @@ class SimConfig:
     # while first-seen (demand) misses stay on the critical path.  False
     # keeps the timing model bitwise (the miss split is still reported).
     prefetch: bool = False
-    # fault injection (the reference's elastic.FaultPlan): not ported yet
-    # (ROADMAP A10); anything but None raises
+    # fault injection (repro_torch.elastic.FaultPlan): scripted/stochastic
+    # worker crash/rejoin, straggler slowdown, bandwidth droop, PS-shard
+    # outage.  None (default) is the unchanged static-cluster path; an
+    # *empty* plan runs the elastic code path with neutral values and is
+    # bitwise-equal to None (pinned in tests).
     faults: "object | None" = None
     # quantized wire (repro_torch.quant): codec for the embedding-row
     # transmissions (PS miss pulls / update+evict pushes) — folds the
@@ -254,8 +268,8 @@ class SimResult:
     exchange: dict | None = None
     # stage breakdown + lookahead-window dedup accounting (always set)
     pipeline: dict | None = None
-    # fault/churn accounting: always None until elastic operation is
-    # ported (ROADMAP A10)
+    # fault/churn accounting (SimConfig.faults set): events applied, flush
+    # pushes, handoff rows/time, worst-case surviving worker count
     elastic: dict | None = None
     # quantized-wire accounting (SimConfig.codec / codec_policy set):
     # per-link codec census + embedding fp32-vs-wire byte totals
@@ -332,10 +346,6 @@ def simulate(cfg: SimConfig,
     if cfg.serve is not None:
         from ..serve.sim import simulate_serve
         return simulate_serve(cfg, registry)
-    if cfg.faults is not None:
-        raise NotImplementedError(
-            "SimConfig.faults: elastic operation is not ported yet "
-            "(ROADMAP A10)")
     reg = registry if registry is not None else MetricsRegistry()
     n, m, k = cfg.n_workers, cfg.batch_per_worker, cfg.k
     bw = cfg.bandwidths if cfg.bandwidths is not None else DEFAULT_BANDWIDTHS(n)
@@ -399,7 +409,33 @@ def simulate(cfg: SimConfig,
     if cfg.prefetch and cfg.lookahead <= 0:
         raise ValueError("prefetch timing needs lookahead > 0 (the window "
                          "plan is what announces future misses)")
+    if cfg.prefetch and cfg.faults is not None:
+        raise ValueError("prefetch timing under a fault plan is not "
+                         "modeled")
     cache = _make_cache(cfg, hot_ids, vocab=vocab, part=part)
+
+    faults = cfg.faults
+    elastic_acc = None
+    if faults is not None:
+        from ..elastic import (cost_column_bias, departure_handoff,
+                               effective_t, rejoin_handoff)
+        if faults.n_workers != n:
+            raise ValueError(f"FaultPlan is for {faults.n_workers} workers, "
+                             f"simulating {n}")
+        if faults.n_ps > 1 and (part is None or faults.n_ps != part.n_ps):
+            raise ValueError(f"FaultPlan targets {faults.n_ps} PS shards, "
+                             f"simulating {1 if part is None else part.n_ps}")
+        churn = any(e.kind in ("crash", "rejoin") for e in faults.events)
+        if churn and not hasattr(cache, "crash"):
+            raise ValueError(f"mechanism {cfg.mechanism!r}'s cache model "
+                             "does not support membership churn")
+        elastic_acc = {"events": [e.to_dict() for e in faults.events
+                                  if e.step < cfg.iters],
+                       "flush_push_ops": reg.counter("elastic.flush_push_ops"),
+                       "handoff_rows": reg.counter("elastic.handoff_rows"),
+                       "handoff_time_s": reg.counter("elastic.handoff_time_s"),
+                       "min_active": reg.gauge("elastic.min_active")}
+        elastic_acc["min_active"].set(n)
 
     stream = cfg.workload.stream(cfg.seed + 1, k)
     if cfg.lookahead > 0:
@@ -464,6 +500,50 @@ def simulate(cfg: SimConfig,
         if use_ps:
             samples = part.to_linear(samples)
 
+        # elastic: apply this step's membership transitions to the cache,
+        # derive the step's effective link times / bandwidths, and price
+        # the flush + handoff traffic the transitions imply
+        cs = None
+        t_it, tps_it, bw_it, handoff_t = t_tran, t_ps, bw, 0.0
+        if faults is not None:
+            cs = faults.state_at(it)
+            elastic_acc["min_active"].set(
+                min(elastic_acc["min_active"].value, cs.n_active))
+            bw_it = bw * cs.bw_factor
+            if use_ps:
+                tps_it = effective_t(t_ps, cs)
+            else:
+                t_it = effective_t(t_tran, cs)
+            for ev in faults.events_at(it):
+                if ev.kind == "crash":
+                    res = cache.crash(ev.target, graceful=ev.graceful)
+                    flushed = len(res["flushed"])
+                    if flushed:
+                        # the leaver drains its dirty rows to the PS over
+                        # its own link (per-PS: shards in parallel)
+                        elastic_acc["flush_push_ops"].inc(flushed)
+                        if use_ps:
+                            handoff_t += float(
+                                (res["flushed_ps"] * tps_it[ev.target]).max())
+                        else:
+                            handoff_t += flushed * float(t_it[ev.target])
+                    if ev.graceful and len(res["inventory"]):
+                        hp = departure_handoff(cache, ev.target,
+                                               res["inventory"], cs.active,
+                                               row_bytes=cfg.d_tran)
+                    else:
+                        hp = None
+                else:  # rejoin
+                    hp = (rejoin_handoff(cache, ev.target, cs.active,
+                                         row_bytes=cfg.d_tran)
+                          if ev.warm else None)
+                if hp is not None and hp.rows:
+                    hp_t = float(exchange_worker_times(hp.link_bytes(),
+                                                       bw_it).max())
+                    handoff_t += hp_t
+                    elastic_acc["handoff_rows"].inc(hp.rows)
+                    elastic_acc["handoff_time_s"].inc(hp_t)
+
         t0 = time.perf_counter()
         alg1 = None
         if cfg.mechanism == "esd":
@@ -472,25 +552,42 @@ def simulate(cfg: SimConfig,
                 # (linearized) ids and weight by the owning PS's t
                 ids_, mask, uids, inv = batch_unique_np(samples)
                 latU, dirU = cache.state_columns(uids)
-                C = cost_from_state_cols_ps(inv, mask, latU, dirU, t_ps,
+                C = cost_from_state_cols_ps(inv, mask, latU, dirU, tps_it,
                                             part.shard_of_linear(uids))
             elif cfg.engine == "sparse":
                 # touched-ids Alg. 1: gather state columns for the batch's
                 # unique ids only — no dense snapshot, no O(n*V) work
                 ids_, mask, uids, inv = batch_unique_np(samples)
                 latU, dirU = cache.state_columns(uids)
-                C = cost_from_state_cols(inv, mask, latU, dirU, t_tran)
+                C = cost_from_state_cols(inv, mask, latU, dirU, t_it)
             else:
                 latest, dirty = cache.snapshot()
-                C = cost_matrix_np(samples, latest, dirty, t_tran)
-            assign = hybrid_dispatch(C, esd_cap, cfg.alpha, opt=cfg.opt,
+                C = cost_matrix_np(samples, latest, dirty, t_it)
+            cap_it = esd_cap
+            if faults is not None:
+                # straggler excess compute + finite dead-worker penalty on
+                # the cost columns; capacity raised so the survivors can
+                # absorb every sample (neutral state: bias is exactly 0.0
+                # and cap_it == esd_cap — the bitwise-pinned path)
+                bias = cost_column_bias(tps_it if use_ps else t_it,
+                                        samples.shape[1], cs.active,
+                                        cs.compute_factor, cfg.compute_time_s)
+                C = C + bias[None, :].astype(C.dtype)
+                cap_it = max(esd_cap, -(-k // cs.n_active))
+            assign = hybrid_dispatch(C, cap_it, cfg.alpha, opt=cfg.opt,
                                      variant=cfg.hybrid_variant,
                                      device=cfg.device)
             alg1 = float(C[np.arange(k), assign].sum())
         elif cfg.mechanism == "laia":
-            assign = laia_dispatch(samples, cache.latest_in_cache, m)
+            if faults is None:
+                assign = laia_dispatch(samples, cache.latest_in_cache, m)
+            else:
+                assign = laia_dispatch(samples, cache.latest_in_cache,
+                                       max(m, -(-k // cs.n_active)),
+                                       active=cs.active)
         else:  # het / fae / random all use random dispatch
-            assign = random_dispatch(k, n, rng)
+            assign = (random_dispatch(k, n, rng) if faults is None
+                      else random_dispatch_active(k, cs.active, rng))
         dec_t = time.perf_counter() - t0
         if cfg.decision_model == "calibrated":
             dec_t = (calibrated_decision_time(m, cfg.alpha)
@@ -502,11 +599,11 @@ def simulate(cfg: SimConfig,
         if use_ps:
             # cost = total traffic over every (worker, PS) link; a worker's
             # wall time is its slowest link (shards transfer in parallel)
-            cost = stats.cost_ps(t_ps)
-            comm = stats.per_worker_time_ps(t_ps)
+            cost = stats.cost_ps(tps_it)
+            comm = stats.per_worker_time_ps(tps_it)
         else:
-            cost = stats.cost(t_tran)
-            comm = stats.per_worker_cost(t_tran)
+            cost = stats.cost(t_it)
+            comm = stats.per_worker_cost(t_it)
 
         # prefetch timing: announced-miss pulls ran in a prefetch stage
         # overlapped with the previous train step, so only demand misses
@@ -516,12 +613,12 @@ def simulate(cfg: SimConfig,
         if cfg.prefetch and stats.miss_prefetched is not None:
             if use_ps:
                 pre_ops = np.asarray(stats.miss_prefetched_ps, np.float64)
-                pre_t = float((pre_ops * t_ps).max(axis=1).max())
-                comm = ((stats._ops_ps() - pre_ops) * t_ps).max(axis=1)
+                pre_t = float((pre_ops * tps_it).max(axis=1).max())
+                comm = ((stats._ops_ps() - pre_ops) * tps_it).max(axis=1)
             else:
                 pre = np.asarray(stats.miss_prefetched, np.float64)
-                pre_t = float((pre * t_tran).max())
-                comm = comm - pre * t_tran
+                pre_t = float((pre * t_it).max())
+                comm = comm - pre * t_it
 
         # sample-exchange time from the compiled plan's byte accounting:
         # ragged ships the bucketed schedule, padded one uniform block.
@@ -533,7 +630,8 @@ def simulate(cfg: SimConfig,
         if cfg.exchange is not None:
             t_plan0 = time.perf_counter()
             plan = compile_plan(assign, n, m,
-                                row_bytes=samples.shape[1] * 4, cap=m)
+                                row_bytes=samples.shape[1] * 4, cap=m,
+                                active=None if cs is None else cs.active)
             plan_t = time.perf_counter() - t_plan0
             if cfg.decision_model == "measured":
                 # plan compilation is part of the decision stage (it is
@@ -541,8 +639,13 @@ def simulate(cfg: SimConfig,
                 dec_t += plan_t
             rows_link = (plan.buckets if cfg.exchange == "ragged"
                          else np.full((n, n), plan.padded_block, np.int64))
+            if cs is not None and not cs.active.all():
+                # no blocks move toward dead destinations (the ragged
+                # buckets are already zero there; the padded baseline
+                # re-bases on the surviving columns)
+                rows_link = rows_link * cs.active[None, :]
             link_bytes = rows_link * plan.row_bytes
-            exch_t = float(exchange_worker_times(link_bytes, bw).max())
+            exch_t = float(exchange_worker_times(link_bytes, bw_it).max())
             if it >= cfg.warmup:
                 exch_acc["payload_bytes"].inc(plan.stats.payload_bytes)
                 exch_acc["wire_bytes"].inc(int(link_bytes.sum()))
@@ -551,7 +654,16 @@ def simulate(cfg: SimConfig,
         # two pipeline stages: training (compute + PS sync + sample
         # exchange) and the dispatch decision (+ plan) for the next
         # iteration.  Pipelined they overlap (max); synchronous they sum.
-        train_stage = cfg.compute_time_s + comm.max() + exch_t
+        if faults is None:
+            train_stage = cfg.compute_time_s + comm.max() + exch_t
+        else:
+            # per-worker compute priced at the straggler factor; dead
+            # workers contribute nothing; flush/handoff traffic extends
+            # the step it happens in.  Neutral state: factor 1.0 and the
+            # max over (c + comm_j) equal the static formula bitwise.
+            per_w = cfg.compute_time_s * cs.compute_factor + comm
+            train_stage = (float(np.where(cs.active, per_w, 0.0).max())
+                           + exch_t + handoff_t)
         if cfg.pipeline_depth >= 2:
             iter_time = max(train_stage, dec_t, pre_t)
         else:
@@ -650,6 +762,13 @@ def simulate(cfg: SimConfig,
         pipeline["miss_demand_total"] = dem_total
         pipeline["prefetch_hit_rate"] = pre_total / max(pre_total + dem_total,
                                                         1)
+    elastic = None
+    if elastic_acc is not None:
+        elastic = {"events": elastic_acc["events"],
+                   "flush_push_ops": elastic_acc["flush_push_ops"].value,
+                   "handoff_rows": elastic_acc["handoff_rows"].value,
+                   "handoff_time_s": elastic_acc["handoff_time_s"].value,
+                   "min_active": elastic_acc["min_active"].value}
     return SimResult(
         cost=float(per_iter_cost.sum()),
         itps=float(len(per_iter_time) / per_iter_time.sum()),
@@ -661,7 +780,7 @@ def simulate(cfg: SimConfig,
         alg1_cost=float(np.sum(h_alg1.samples)) if h_alg1.samples else None,
         exchange=exchange,
         pipeline=pipeline,
-        elastic=None,
+        elastic=elastic,
         quant=quant,
         metrics=reg.snapshot(),
     )

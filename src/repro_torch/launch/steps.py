@@ -4,8 +4,8 @@ the stages of the DLRM ESD training step.
 The counterpart of the JAX package's ``launch/steps.py``
 (``make_train_step``, ``make_serve_step`` and ``make_prefill_step`` for
 the LM, and ``make_esd_exchange``,
-``raise_on_overflow``, ``make_dlrm_esd_stages`` and
-``make_dlrm_repair_stage`` for the non-elastic, single-PS case).  The
+``raise_on_overflow``, ``make_dlrm_esd_stages`` with its elastic
+variants and ``make_dlrm_repair_stage``, for the single-PS case).  The
 reference's stages run one shard per device under ``shard_map``; here
 the ``n`` workers share one device and a stage's global ``(k, ...)``
 batch is split by rows, worker ``i`` holding rows ``[i * m, (i + 1) *
@@ -21,6 +21,7 @@ from ..core.dispatch import (changed_samples_mask, dispatch_cap,
                              esd_cost_matrix, esd_decide, esd_reassign,
                              esd_state_update_sparse, exchange_budget,
                              need_ids_list)
+from ..elastic import mask_state
 from ..exchange.ragged import ragged_exchange_many
 from ..models import api, backbone
 from ..quant.codecs import get_codec
@@ -34,20 +35,22 @@ def make_train_step(cfg, model, optimizer):
     """The LM train step (the reference's with ``remat=False``, as its LM
     driver runs it): ``step(batch) -> loss`` takes the loss and its
     gradients through ``api.train_loss`` and copies ``optimizer``'s new
-    values into ``model``'s parameters in place."""
+    values into ``model``'s parameters in place.  ``step.state["opt"]``
+    is the optimizer's state (a checkpoint reads and replaces it)."""
     params = list(model.parameters())
-    opt_state = optimizer.init(params)
+    state = {"opt": optimizer.init(params)}
 
     def step(batch):
-        nonlocal opt_state
         loss = api.train_loss(model, cfg, batch)
         grads = torch.autograd.grad(loss, params)
-        new, opt_state = optimizer.update(list(grads), opt_state, params)
+        new, state["opt"] = optimizer.update(list(grads), state["opt"],
+                                             params)
         with torch.no_grad():
             for p, q in zip(params, new):
                 p.copy_(q)
         return loss.detach()
 
+    step.state = state
     return step
 
 
@@ -155,9 +158,10 @@ def raise_on_overflow(counts: dict) -> None:
 def make_dlrm_esd_stages(n: int, m: int, t_tran: torch.Tensor, alpha: float,
                          *, exchange: str = "padded",
                          cap_slack: float = 0.0,
-                         capacity: int | None = None, codec=None):
+                         capacity: int | None = None, codec=None,
+                         elastic: bool = False, max_failures: int = 0):
     """Stage functions of the DLRM ESD step (reference
-    ``make_dlrm_esd_stages``, non-elastic, single PS, sparse engine):
+    ``make_dlrm_esd_stages``, single PS, sparse engine):
 
       decide(esd_state, sparse)                    -> (assign (k,), alg1)
       advance(esd_state, sparse, dense, labels, assign, staged=None)
@@ -175,15 +179,48 @@ def make_dlrm_esd_stages(n: int, m: int, t_tran: torch.Tensor, alpha: float,
     and -1 after (pair with the PAD-masked loss).  ``codec`` (needs
     ``exchange="ragged"``) sends the dense features over the quantized
     wire.  Returns ``(decide, advance, realized_cost, out_rows)``.
+
+    ``elastic=True`` (:mod:`repro_torch.elastic`, needs
+    ``exchange="ragged"``) gives the churn-tolerant stages, which take
+    per-step tensors of fixed shape, so membership churn changes values,
+    never shapes:
+
+      decide(esd_state, sparse, t_arr, col_bias, active)
+      advance(esd_state, sparse, dense, labels, assign, active)
+      realized_cost(esd_state, sparse, assign, t_arr, col_bias, active)
+
+    ``t_arr`` is the step's effective link times (bandwidth droop
+    folded in), ``col_bias`` the per-worker cost bias (straggler excess
+    compute; finite dead-worker penalty), ``active`` the (n,) bool
+    membership mask: dead workers' state rows are masked in decide AND
+    before the cache update, so their stale planes never feed phase A
+    (a rejoin is cold).  The capacity is raised to ``ceil(m / (n -
+    max_failures))`` so the survivors of the worst planned simultaneous
+    loss can absorb every sample; a dead worker's exchanged block comes
+    back all PAD (pair with the PAD-masked loss).  With neutral tensors
+    (all active, zero bias, nominal t) the outputs are bitwise the
+    non-elastic ragged stages'.
     """
     if cap_slack > 0.0 and exchange != "ragged":
         raise ValueError("cap_slack > 0 needs exchange='ragged' (the padded "
                          "all_to_all requires equal m/n groups)")
+    cap = dispatch_cap(m, n, cap_slack)
+    if elastic:
+        if exchange != "ragged":
+            raise ValueError("elastic stages need exchange='ragged' (a dead "
+                             "worker breaks the padded equal-groups "
+                             "all_to_all)")
+        if not 0 <= max_failures < n:
+            raise ValueError(f"max_failures {max_failures} outside [0, {n})")
+        # survivors of the worst planned loss must absorb every sample
+        cap = max(cap, -(-m // (n - max_failures)))
+        budget = m // n if cap == m // n else exchange_budget(cap, m)
+        out_rows = m if cap == m // n else n * budget
+    else:
+        budget = m // n if cap_slack <= 0.0 else exchange_budget(cap, m)
+        out_rows = m if cap_slack <= 0.0 else n * budget
     if get_codec(codec) is not None and exchange != "ragged":
         raise ValueError("codec exchange needs exchange='ragged'")
-    cap = dispatch_cap(m, n, cap_slack)
-    budget = m // n if cap_slack <= 0.0 else exchange_budget(cap, m)
-    out_rows = m if cap_slack <= 0.0 else n * budget
     if exchange == "ragged":
         route = make_esd_exchange(exchange, n, m, budget=budget,
                                   out_rows=out_rows, codec=codec)
@@ -193,12 +230,16 @@ def make_dlrm_esd_stages(n: int, m: int, t_tran: torch.Tensor, alpha: float,
     def split(a):
         return a.reshape((n, m) + a.shape[1:])
 
+    def flat(x):
+        return x.reshape((n * out_rows,) + x.shape[2:])
+
     def decide(esd_state, sparse):
         assign, alg1 = esd_decide(split(sparse), esd_state, t_tran, alpha,
                                   cap_slack=cap_slack, with_cost=True)
         return assign.reshape(-1), alg1.sum()
 
-    def advance(esd_state, sparse, dense, labels, assign, staged=None):
+    def exchange_update(esd_state, sparse, dense, labels, assign,
+                        staged=None):
         (s2, d2, l2), overflow = route(
             (split(sparse), split(dense), split(labels)), split(assign))
         need = need_ids_list(s2)
@@ -206,18 +247,41 @@ def make_dlrm_esd_stages(n: int, m: int, t_tran: torch.Tensor, alpha: float,
                                                     capacity, staged=staged)
         counts = dict(counts)
         counts["exchange_overflow"] = overflow
-        flat = lambda x: x.reshape((n * out_rows,) + x.shape[2:])
         return (flat(s2), flat(d2), flat(l2)), new_state, counts
 
-    def realized_cost(esd_state, sparse, assign):
+    def realized(esd_state, sparse, assign, t, col_bias=None):
         s, a = split(sparse), split(assign).long()
         total = torch.zeros((), dtype=torch.float32, device=sparse.device)
         for i in range(n):
-            C = esd_cost_matrix(s[i], esd_state, t_tran)
+            C = esd_cost_matrix(s[i], esd_state, t, col_bias)
             total = total + torch.gather(C, 1, a[i][:, None])[:, 0].sum()
         return total
 
-    return decide, advance, realized_cost, out_rows
+    def realized_cost(esd_state, sparse, assign):
+        return realized(esd_state, sparse, assign, t_tran)
+
+    if not elastic:
+        return decide, exchange_update, realized_cost, out_rows
+
+    # -- elastic variants: per-step churn tensors, fixed shapes ------------
+    def decide_e(esd_state, sparse, t_arr, col_bias, active):
+        state = mask_state(esd_state, active)
+        assign, alg1 = esd_decide(split(sparse), state, t_arr, alpha,
+                                  cap_slack=cap_slack, with_cost=True,
+                                  col_bias=col_bias, cap=cap)
+        return assign.reshape(-1), alg1.sum()
+
+    def advance_e(esd_state, sparse, dense, labels, assign, active):
+        # mask BEFORE the update: a dead worker's stale planes must not
+        # survive into the committed state (its rejoin is cold)
+        return exchange_update(mask_state(esd_state, active), sparse, dense,
+                               labels, assign)
+
+    def realized_cost_e(esd_state, sparse, assign, t_arr, col_bias, active):
+        return realized(mask_state(esd_state, active), sparse, assign,
+                        t_arr, col_bias)
+
+    return decide_e, advance_e, realized_cost_e, out_rows
 
 
 def make_dlrm_repair_stage(n: int, m: int, t_tran: torch.Tensor, *,

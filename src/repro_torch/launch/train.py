@@ -65,8 +65,30 @@ MoE layer adds the router's load-balance loss at weight 0.01); the SSM,
 hybrid, VLM and audio families raise (ROADMAP A14.4 to A14.6).  Every
 step logs the loss and its wall time after a synchronise.
 
+Elastic operation: ``--fault-plan`` (the DSL of
+:meth:`repro_torch.elastic.FaultPlan.parse`, or ``@plan.json``; needs
+ESD and ``--exchange ragged``) runs the elastic stages.  Each step's
+effective link times (bandwidth droop), cost-column bias (a straggler's
+excess compute at ``--compute-time-s`` a step; a dead worker's finite
+penalty) and membership mask come from the plan, computed on the host
+and uploaded once before the run; a dead worker's cache state is masked
+before decide and before the update, the capacity is raised so the
+survivors absorb every sample (``ceil(m / (n - max_failures))``), the
+loss is the PAD-masked one, and every record carries ``n_active``.
+Checkpoints: ``--ckpt-dir`` and ``--ckpt-every`` write the reference's
+npz layout (:mod:`repro_torch.checkpoint`: ``params``, ``opt``, the
+post-advance cache state ``esd`` and the codec's residual ``qres``; the
+LM ``params`` and ``opt``) after a step's train and before the next
+step's, so at depth >= 2 a checkpoint holds the step it names;
+``--resume`` restores the newest and skips the stream's first batches
+to match.  As in the reference, ``--decide-ahead`` and ``--prefetch``
+refuse a fault plan.
+
 Flags of the reference that this port does not carry yet raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+``NotImplementedError`` naming the ROADMAP item that brings them:
+``--n-ps``, ``--ps-layout`` and ``--ps-hetero`` (A2), ``--esd-engine
+dense`` (A4), ``--trace-out``, ``--trace-buffer`` and
+``--validate-timing`` (A15).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch wdl-s1 \\
@@ -86,6 +108,10 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch wdl-tiny \\
       --workers 4 --batch-per-worker 8 --steps 3 --esd-alpha 1 \\
       --exchange ragged --codec int8 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch wdl-tiny \\
+      --workers 4 --batch-per-worker 8 --steps 6 --esd-alpha 1 \\
+      --exchange ragged --device cpu --ckpt-dir build/ckpt \\
+      --fault-plan "straggle@1:0x4-4; crash@2:1g; rejoin@4:1w"
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --seq-len 2048 --batch-per-worker 4 --steps 5
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
@@ -103,14 +129,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..checkpoint import (load_train_tree, restore_checkpoint,
+                          save_checkpoint, train_tree)
 from ..configs import DLRM_CONFIGS, get_config
 from ..core.cost import transmission_time_codec
 from ..core.dispatch import esd_sparse_init
 from ..core.simulator import DEFAULT_BANDWIDTHS
 from ..data.loader import PrefetchLoader
 from ..data.synthetic import WORKLOADS, token_stream
-from ..models import api
-from ..models.dlrm import bce_loss, bce_loss_masked, init_params
+from ..elastic import FaultPlan, cost_column_bias, effective_t
+from ..models import api, backbone
+from ..models.dlrm import bce_loss, bce_loss_masked, init_params, ref_paths
 from ..obs import MetricsRegistry, log_step
 from ..optim import get_optimizer
 from ..pipeline.prefetch import (PrefetchPlane, prefetch_candidates,
@@ -132,11 +161,6 @@ __all__ = ["build_parser", "make_train_step", "run_dlrm", "run_lm", "main"]
 def _unported(args) -> None:
     """Raise on every flag of the reference this slice does not carry."""
     todo = [
-        (args.fault_plan is not None, "--fault-plan", "A10"),
-        (args.ckpt_dir is not None, "--ckpt-dir", "A10"),
-        (args.resume, "--resume", "A10"),
-        (args.ckpt_every != 50, "--ckpt-every", "A10"),
-        (args.compute_time_s != 0.010, "--compute-time-s", "A10"),
         (args.n_ps > 1, "--n-ps > 1", "A2"),
         (args.ps_hetero, "--ps-hetero", "A2"),
         (args.ps_layout != "contiguous", "--ps-layout", "A2"),
@@ -167,15 +191,19 @@ def make_train_step(model, loss_fn, optimizer, codec=None):
     through; each table's gradient goes up through
     :func:`quantize_with_feedback`, its residual carried from step to
     step (zeros at the start), and the optimizer sees the pushed
-    ``g_hat``.  ``codec=None`` is the fp32 step, unchanged."""
+    ``g_hat``.  ``codec=None`` is the fp32 step, unchanged.
+
+    ``step.state`` holds what a checkpoint reads and replaces: ``"opt"``,
+    the optimizer's state, and ``"qres"``, each table's residual by its
+    parameter name (empty without a codec)."""
     model.requires_grad_(True)
     names = [name for name, _ in model.named_parameters()]
     params = list(model.parameters())
-    opt_state = optimizer.init(params)
     codec = get_codec(codec)
     tables = ([i for i, name in enumerate(names) if name in ("embed", "wide")]
               if codec is not None else [])
-    residual = {i: torch.zeros_like(params[i]) for i in tables}
+    state = {"opt": optimizer.init(params),
+             "qres": {names[i]: torch.zeros_like(params[i]) for i in tables}}
 
     def loss_of(sparse, dense, labels):
         if not tables:
@@ -185,18 +213,19 @@ def make_train_step(model, loss_fn, optimizer, codec=None):
                        sparse, dense, labels)
 
     def step(sparse, dense, labels):
-        nonlocal opt_state
         loss = loss_of(sparse, dense, labels)
         grads = list(torch.autograd.grad(loss, params))
+        res = state["qres"]
         for i in tables:
-            grads[i], residual[i] = quantize_with_feedback(
-                grads[i], residual[i], codec)
-        new, opt_state = optimizer.update(grads, opt_state, params)
+            grads[i], res[names[i]] = quantize_with_feedback(
+                grads[i], res[names[i]], codec)
+        new, state["opt"] = optimizer.update(grads, state["opt"], params)
         with torch.no_grad():
             for p, q in zip(params, new):
                 p.copy_(q)
         return loss.detach()
 
+    step.state = state
     return step
 
 
@@ -222,6 +251,10 @@ def _pipeline_guards(args, use_esd: bool) -> bool:
             raise SystemExit("--decide-ahead subsumes --stale-decide (the "
                              "chain decides on progressively stale states "
                              "already); pick one")
+        if args.fault_plan:
+            raise SystemExit("--decide-ahead with --fault-plan is not wired "
+                             "(the elastic stages feed per-step fault arrays "
+                             "to an in-order decide stream)")
     use_prefetch = args.prefetch > 0
     if use_prefetch:
         if not use_esd:
@@ -230,6 +263,8 @@ def _pipeline_guards(args, use_esd: bool) -> bool:
         if args.lookahead <= 0:
             raise SystemExit("--prefetch needs --lookahead > 0 (the window "
                              "meta is what names the future misses)")
+        if args.fault_plan:
+            raise SystemExit("--prefetch with --fault-plan is not wired")
         if args.prefetch_slots < args.prefetch:
             raise SystemExit("--prefetch-slots must be >= --prefetch (one "
                              "step's pulls must fit the plane)")
@@ -262,6 +297,18 @@ def run_dlrm(args, model=None) -> dict:
             raise SystemExit("--cap-slack > 0 needs --exchange ragged (the "
                              "padded all_to_all requires equal m/n groups)")
     use_prefetch = _pipeline_guards(args, use_esd)
+    plan = None
+    if args.fault_plan:
+        if not use_esd:
+            raise SystemExit("--fault-plan needs ESD (--esd-alpha): faults "
+                             "act through the dispatch stages")
+        if args.exchange != "ragged":
+            raise SystemExit("--fault-plan needs --exchange ragged (a dead "
+                             "worker breaks the padded equal-groups "
+                             "all_to_all)")
+        plan = FaultPlan.parse(args.fault_plan, n, args.n_ps)
+    if args.resume and args.ckpt_dir is None:
+        raise SystemExit("--resume needs --ckpt-dir")
     codec = get_codec(args.codec)
     if codec is not None and use_esd and args.exchange != "ragged":
         raise SystemExit("--codec with ESD needs --exchange ragged (the "
@@ -283,10 +330,12 @@ def run_dlrm(args, model=None) -> dict:
     if model is None:
         model = init_params(cfg, wl, torch.Generator(device=device)
                             .manual_seed(args.seed), device)
-    # PAD-masked loss only when PAD rows can appear (capacity slack)
+    # PAD-masked loss only when PAD rows can appear: capacity slack skews
+    # batches, and under a fault plan a dead worker's exchanged block
+    # comes back all PAD
     step = make_train_step(
-        model, bce_loss_masked if args.cap_slack > 0.0 else bce_loss,
-        optimizer, codec)
+        model, bce_loss_masked if args.cap_slack > 0.0 or plan is not None
+        else bce_loss, optimizer, codec)
     # depth >= 2 on a card: the decide/advance chain on its own stream
     streams = ChainStreams(device, enabled=use_esd and depth > 1)
 
@@ -351,16 +400,66 @@ def run_dlrm(args, model=None) -> dict:
                 rec[key] = float(info[key])
         if "n_reassigned" in info:
             rec["n_reassigned"] = int(info["n_reassigned"])
+        if plan is not None:
+            rec["n_active"] = plan.state_at(i).n_active
         rec = reg.record_step(i, rec)
         if args.verbose and (i % args.log_every == 0 or i == args.steps - 1):
             log_step(rec)
         return rec
 
+    esd = pf_plane = None
+    if use_esd:
+        # with a fault plan the elastic stages take three per-step tensors
+        # (link times, cost bias, active mask) of fixed shape
+        decide, advance, realized, out_rows = make_dlrm_esd_stages(
+            n, m, t_tran, args.esd_alpha, exchange=args.exchange,
+            cap_slack=args.cap_slack, capacity=capacity, codec=codec,
+            elastic=plan is not None,
+            max_failures=plan.max_inactive() if plan is not None else 0)
+        with streams.chain():
+            # L = out_rows * W ids per worker after the exchange
+            esd = esd_sparse_init(n, V, capacity,
+                                  max_ids=out_rows * wl.width, device=device)
+            if use_prefetch:
+                pf_plane = prefetch_init(args.prefetch_slots,
+                                         cfg.embedding_dim, device)
+
+    # checkpoints hold the reference's tree {params, opt, esd, qres}
+    params = list(model.parameters())
+    paths = ref_paths(model)
+    esd_seen = {}    # step -> post-advance cache state, for checkpoints
+
+    def trained(i):
+        """Step i's train has been issued and step i+1's has not: the
+        parameters hold i + 1 updates (at depth >= 2 the record of step i
+        is built a drain later, after step i+1's train has updated them
+        in place), so a checkpoint of ``i + 1`` steps is written here."""
+        esd_snap = esd_seen.pop(i, None)
+        if args.ckpt_dir and (i + 1) % args.ckpt_every == 0:
+            save_checkpoint(args.ckpt_dir, i + 1,
+                            train_tree(params, paths, step.state, esd_snap))
+
+    start = 0
+    if args.resume:
+        restored, start = restore_checkpoint(
+            args.ckpt_dir, train_tree(params, paths, step.state, esd))
+        esd = load_train_tree(restored, params, paths, step.state)
+        _sync(device)          # restored on the caller's stream
+        if esd is not None:
+            streams.take(getattr(esd, f.name)
+                         for f in dataclasses.fields(esd))
+        if args.verbose:
+            log_step({"resumed_from_step": start})
+
     # the host batch stream, drawn on a loader thread as the reference
     # draws it, with the lookahead window's dedup meta
     host = PrefetchLoader(wl.stream(args.seed + 1, k), depth=2)
-    src = (LookaheadWindow(host, args.lookahead, key=lambda b: b[0])
-           if args.lookahead > 0 else ((b, None) for b in host))
+    src = iter(LookaheadWindow(host, args.lookahead, key=lambda b: b[0])
+               if args.lookahead > 0 else ((b, None) for b in host))
+    # resume: the stream is a pure function of the seed, so skipping the
+    # first `start` batches re-aligns it with the interrupted run
+    for _ in range(start):
+        next(src)
 
     def device_batches():
         for (sparse, dense, labels), meta in src:
@@ -371,26 +470,41 @@ def run_dlrm(args, model=None) -> dict:
                          torch.as_tensor(labels, device=device))
             yield batch, meta
 
-    esd = pf_plane = None
     if not use_esd:
         batches = device_batches()
-        for i in range(args.steps):
+        for i in range(start, args.steps):
             batch, meta = next(batches)
-            record(i, train_step(batch), None, meta, {})
+            loss = train_step(batch)
+            trained(i)
+            record(i, loss, None, meta, {})
     else:
-        decide, advance, realized, out_rows = make_dlrm_esd_stages(
-            n, m, t_tran, args.esd_alpha, exchange=args.exchange,
-            cap_slack=args.cap_slack, capacity=capacity, codec=codec)
-        with streams.chain():
-            # L = out_rows * W ids per worker after the exchange
-            esd = esd_sparse_init(n, V, capacity,
-                                  max_ids=out_rows * wl.width, device=device)
-            if use_prefetch:
-                pf_plane = prefetch_init(args.prefetch_slots,
-                                         cfg.embedding_dim, device)
         pf_cands = max(8 * args.prefetch, 256)
-        dec_step, adv_step = itertools.count(), itertools.count()
+        # each stage counts its own steps: the chain may run ahead of
+        # train, but every stage sees its steps in order
+        dec_step, adv_step, rea_step, train_i = (itertools.count(start)
+                                                 for _ in range(4))
         pull_done = None      # event after the latest prefetch pull
+        fault_arrays = None
+        if plan is not None:
+            # the plan folded into every step's link times, cost bias
+            # (stragglers, finite dead-worker penalty) and membership
+            # mask, uploaded once; a step reads its rows
+            def fault_np(i):
+                cs = plan.state_at(i)
+                t_eff = effective_t(t_np, cs)
+                bias = cost_column_bias(t_eff, wl.width, cs.active,
+                                        cs.compute_factor,
+                                        args.compute_time_s)
+                return (t_eff.astype(np.float32), bias.astype(np.float32),
+                        cs.active)
+
+            cols = list(zip(*(fault_np(i) for i in range(start, args.steps))))
+            with streams.chain():
+                table = [torch.as_tensor(np.stack(c), device=device)
+                         for c in cols]
+
+            def fault_arrays(i):
+                return tuple(c[i - start] for c in table)
 
         def on_chain(fn):
             def run(*a):
@@ -412,7 +526,8 @@ def run_dlrm(args, model=None) -> dict:
             if use_prefetch:
                 streams.wait(pull_done)
                 state = with_staged(state, staged_membership(pf_plane, V, i))
-            assign, alg1 = decide(state, batch[0][0])
+            extra = () if plan is None else fault_arrays(i)
+            assign, alg1 = decide(state, batch[0][0], *extra)
             return assign, streams.to_host(alg1)
 
         def pull(sel):
@@ -451,7 +566,11 @@ def run_dlrm(args, model=None) -> dict:
                 aux["prefetch_pulled"] = streams.to_host(sel.n_pulled)
                 pull(sel)
             else:
-                x, new_state, counts = advance(state, s, d, l, assign)
+                extra = () if plan is None else fault_arrays(i)[2:]
+                x, new_state, counts = advance(state, s, d, l, assign,
+                                               *extra)
+            if args.ckpt_dir:
+                esd_seen[i] = new_state
             aux["counts"] = {key: streams.to_host(v)
                              for key, v in counts.items()}
             # the step's chain work and host copies are done at this event
@@ -462,13 +581,17 @@ def run_dlrm(args, model=None) -> dict:
             x, ready = x
             streams.wait(ready)
             streams.give(x)
-            return streams.host_value(train_step(x))
+            loss = streams.host_value(train_step(x))
+            trained(next(train_i))
+            return loss
 
         realized_fn = repair_fn = None
         if args.stale_decide or args.decide_ahead:
             @on_chain
             def realized_fn(state, batch, assign):
-                return streams.to_host(realized(state, batch[0][0], assign))
+                extra = () if plan is None else fault_arrays(next(rea_step))
+                return streams.to_host(realized(state, batch[0][0], assign,
+                                                *extra))
         if args.decide_ahead:
             repair = make_dlrm_repair_stage(n, m, t_tran,
                                             cap_slack=args.cap_slack)
@@ -481,14 +604,15 @@ def run_dlrm(args, model=None) -> dict:
         def record_fn(t, loss, aux, info):
             if aux["ready"] is not None:
                 aux["ready"].synchronize()
-            return record(t, loss, aux["counts"], aux["meta"], info,
+            return record(start + t, loss, aux["counts"], aux["meta"], info,
                           aux.get("prefetch_pulled"))
 
         runner = PipelinedRunner(
             decide_fn, advance_fn, train_fn, esd, depth=depth,
             stale=args.stale_decide, realized_cost_fn=realized_fn,
             decide_ahead=args.decide_ahead, repair_fn=repair_fn)
-        runner.run(device_batches(), steps=args.steps, record_fn=record_fn)
+        runner.run(device_batches(), steps=args.steps - start,
+                   record_fn=record_fn)
         esd = runner.esd_state
         streams.finish()
 
@@ -577,8 +701,13 @@ def build_parser():
     ap.add_argument("--ps-layout", choices=("contiguous", "hashed"),
                     default="contiguous")
     ap.add_argument("--ps-hetero", action="store_true")
-    ap.add_argument("--fault-plan", default=None)
-    ap.add_argument("--compute-time-s", type=float, default=0.010)
+    ap.add_argument("--fault-plan", default=None,
+                    help="fault schedule: the DSL (e.g. 'crash@3:1g; "
+                         "rejoin@6:1w; straggle@2:0x4-10') or @file.json; "
+                         "needs ESD and --exchange ragged")
+    ap.add_argument("--compute-time-s", type=float, default=0.010,
+                    help="nominal compute time a step; prices a "
+                         "straggler's slowdown into the dispatch cost")
     ap.add_argument("--codec", default=None,
                     help="wire codec for embedding traffic: none (exact "
                          "fp32), fp16, int8, int4, or KIND:BLOCK for "
@@ -588,9 +717,14 @@ def build_parser():
                     help="uniform: every link uses --codec; bandwidth: "
                          "links at or above the median get fp16, slower "
                          "links get --codec (priced into Alg. 1)")
-    ap.add_argument("--ckpt-dir", type=Path, default=None)
+    ap.add_argument("--ckpt-dir", type=Path, default=None,
+                    help="write checkpoints here, in the reference's npz "
+                         "layout")
     ap.add_argument("--ckpt-every", type=int, default=50)
-    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the newest checkpoint in --ckpt-dir "
+                         "(parameters, optimizer, cache state, codec "
+                         "residual) and continue from its step")
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--verbose", action="store_true", default=True)
     ap.add_argument("--trace-out", type=Path, default=None)
@@ -613,9 +747,7 @@ def run_lm(args, model=None, cfg=None) -> dict:
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    _raise_unported([(args.ckpt_dir is not None, "--ckpt-dir", "A10"),
-                     (args.resume, "--resume", "A10"),
-                     (args.trace_out is not None, "--trace-out", "A15"),
+    _raise_unported([(args.trace_out is not None, "--trace-out", "A15"),
                      (args.validate_timing, "--validate-timing", "A15")])
     if cfg is None:
         cfg = get_config(args.arch, smoke=args.smoke)
@@ -623,11 +755,24 @@ def run_lm(args, model=None, cfg=None) -> dict:
         model = api.init_model(cfg, generator=torch.Generator(
             device=device).manual_seed(args.seed), device=device)
     step = make_lm_train_step(cfg, model, get_optimizer("adam", args.lr))
+    params = list(model.parameters())
+    paths = backbone.ref_paths(model, cfg)
+    start = 0
+    if args.resume:
+        if args.ckpt_dir is None:
+            raise SystemExit("--resume needs --ckpt-dir")
+        restored, start = restore_checkpoint(
+            args.ckpt_dir, train_tree(params, paths, step.state))
+        load_train_tree(restored, params, paths, step.state)
+        if args.verbose:
+            log_step({"resumed_from_step": start})
     B, S = args.batch_per_worker, args.seq_len
     stream = PrefetchLoader(token_stream(args.seed, cfg.vocab, B, S + 1),
                             depth=2)
+    for _ in range(start):
+        next(stream)
     reg = MetricsRegistry()
-    for i in range(args.steps):
+    for i in range(start, args.steps):
         tok = next(stream)
         t0 = time.perf_counter()
         tok = torch.as_tensor(tok, device=device)
@@ -636,6 +781,9 @@ def run_lm(args, model=None, cfg=None) -> dict:
                                   "wall_s": time.perf_counter() - t0})
         if args.verbose and (i % args.log_every == 0 or i == args.steps - 1):
             log_step(rec)
+        if args.ckpt_dir and (i + 1) % args.ckpt_every == 0:
+            save_checkpoint(args.ckpt_dir, i + 1,
+                            train_tree(params, paths, step.state))
     walls = [r["wall_s"] for r in reg.steps]
     walls = walls[1:] or walls
     step_ms = float(np.mean(walls)) * 1e3 if walls else None

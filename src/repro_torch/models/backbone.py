@@ -35,10 +35,11 @@ from .layers import (MLP, Attention, MoE, attention_decode,
                      attention_train, cache_spec, init_attention,
                      init_kv_cache, init_mlp, init_moe, mlp, moe_ffn,
                      rmsnorm)
+from .tree import to_numpy, to_ref
 
 __all__ = ["LM", "Layer", "group_layout", "init_params", "backbone_apply",
            "forward", "lm_loss", "init_cache", "decode_step",
-           "params_from_jax"]
+           "params_from_jax", "ref_paths", "params_to_jax"]
 
 ATTN_KINDS = ("full", "local", "chunked")
 
@@ -263,3 +264,35 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cpu") -> LM:
     head = None if cfg.tie_embeddings else _tensor(tree["lm_head"], device)
     return LM(_tensor(tree["embed"], device), layers,
               _tensor(tree["final_norm"], device), head)
+
+
+def ref_paths(model: LM, cfg: ModelConfig) -> list:
+    """Each of ``model.parameters()``'s place in the JAX package's tree
+    (:mod:`repro_torch.models.tree`): layer ``g P + i`` of the grouped
+    layers at index ``g`` of ``groups/l{i}/...``, the rest under
+    ``rest/l{j}/...``; a dense FFN's matrices as ``{"w"}`` leaves, an MoE
+    layer's router as ``router/w`` beside its expert stacks."""
+    n_groups, gkinds, _ = group_layout(cfg)
+    P = len(gkinds)
+    paths = []
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] != "layers":
+            paths.append(((parts[0],), None))
+            continue
+        j, rest = int(parts[1]), parts[2:]
+        if rest[0] == "ffn" and (cfg.mlp != "moe" or rest[1] in ("router",
+                                                                 "shared")):
+            rest = rest + ["w"]
+        if j < n_groups * P:
+            paths.append((("groups", f"l{j % P}", *rest), j // P))
+        else:
+            paths.append((("rest", f"l{j - n_groups * P}", *rest), None))
+    return paths
+
+
+def params_to_jax(model: LM, cfg: ModelConfig) -> dict:
+    """:func:`params_from_jax`'s inverse: the JAX package's
+    ``init_params`` pytree of ``model``'s weights, as numpy (bf16 leaves
+    as f32)."""
+    return to_numpy(to_ref(list(model.parameters()), ref_paths(model, cfg)))

@@ -15,9 +15,10 @@ from torch import nn
 from ..configs.dlrm_configs import DLRMConfig
 from ..data.synthetic import WORKLOADS, CTRWorkload
 from .layers import init_linear, linear
+from .tree import to_numpy, to_ref
 
-__all__ = ["DLRM", "init_params", "params_from_jax", "bce_loss",
-           "bce_loss_masked"]
+__all__ = ["DLRM", "init_params", "params_from_jax", "ref_paths",
+           "params_to_jax", "bce_loss", "bce_loss_masked"]
 
 
 def _mlp(layers, x):
@@ -162,6 +163,23 @@ def params_from_jax(np_params: dict, cfg: DLRMConfig, device="cpu") -> DLRM:
     return DLRM(cfg, t(np_params["embed"]),
                 [t(lp["w"]) for lp in np_params["bottom"]],
                 [t(lp["w"]) for lp in np_params["top"]], **extra)
+
+
+def ref_paths(model: DLRM) -> list:
+    """Each of ``model.parameters()``'s place in the JAX package's tree
+    (:mod:`repro_torch.models.tree`): ``embed``, ``bottom/i/w``,
+    ``top/i/w``, ``wide`` or ``cross_w`` and ``cross_b``."""
+    paths = []
+    for name, _ in model.named_parameters():
+        head, _, idx = name.partition(".")
+        paths.append(((head, int(idx), "w") if idx else (head,), None))
+    return paths
+
+
+def params_to_jax(model: DLRM) -> dict:
+    """:func:`params_from_jax`'s inverse: the JAX package's
+    ``init_params`` pytree of ``model``'s weights, as numpy."""
+    return to_numpy(to_ref(list(model.parameters()), ref_paths(model)))
 
 
 def _bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

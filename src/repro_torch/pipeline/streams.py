@@ -22,6 +22,8 @@ them:
   * ``give(tensors)``: a tensor the chain made and the train stream
     reads is recorded on the train stream, so the caching allocator
     does not hand its memory out again before the train stream is done;
+    ``take(tensors)`` the same the other way (a cache state restored
+    from a checkpoint on the caller's stream);
   * ``to_host(x)`` copies a device scalar or small tensor into pinned
     host memory without waiting; the host reads it after the event of
     its stream (:class:`HostValue` for the loss).
@@ -103,6 +105,13 @@ class ChainStreams:
         if self.enabled:
             for t in tensors:
                 t.record_stream(self.train)
+
+    def take(self, tensors: Iterable[torch.Tensor]):
+        """Record tensors the caller's stream made (a restored cache
+        state) as used by the chain."""
+        if self.enabled:
+            for t in tensors:
+                t.record_stream(self.chain_stream)
 
     def to_host(self, x):
         """A pinned host copy of ``x``, filled on the current stream

@@ -55,7 +55,9 @@ def test_port_imports_no_jax_and_no_reference():
                  "serve.sim", "device", "kernels.flash_attn",
                  "models.layers", "models.backbone", "models.api",
                  "optim.optimizers", "data.loader", "configs.base",
-                 "configs.smollm_360m"):
+                 "configs.smollm_360m", "elastic.faults",
+                 "elastic.membership", "elastic.recovery", "checkpoint",
+                 "models.tree"):
         assert f"repro_torch.{name}" in out["modules"]
     assert out["device"] == "cuda"
     assert out["train_device"] == "cuda"

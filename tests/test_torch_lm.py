@@ -231,12 +231,28 @@ def test_token_stream_equals_reference():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--ckpt-dir", "x"], "A10"), (["--resume"], "A10"),
     (["--trace-out", "t.json"], "A15"), (["--validate-timing"], "A15")])
 def test_unported_lm_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         main(["--arch", "smollm-360m", "--smoke", "--steps", "1",
               "--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("flags", [["--ckpt-dir", "CKPT"], ["--resume"]])
+def test_lm_checkpoint_flags_run(flags, tmp_path):
+    """``--ckpt-dir`` writes the reference's {params, opt} checkpoints
+    (their parity is tests/test_torch_checkpoint.py); ``--resume`` alone
+    is refused with the reference's message."""
+    argv = ["--arch", "smollm-360m", "--smoke", "--steps", "2",
+            "--seq-len", "16", "--device", "cpu", "--ckpt-every", "1"]
+    if flags == ["--resume"]:
+        with pytest.raises(SystemExit, match="--resume needs --ckpt-dir"):
+            main(argv + flags)
+        return
+    out = main(argv + ["--ckpt-dir", str(tmp_path)])
+    assert out["steps"] == 2
+    with np.load(tmp_path / "ckpt_00000002.npz") as data:
+        assert int(data["opt::t"]) == 2 and "params::embed" in data.files
 
 
 @pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b",

@@ -128,9 +128,17 @@ def test_simulate_defaults_and_unported_options():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TS.simulate(cfg)
-    with pytest.raises(NotImplementedError, match="A10"):
+    # faults are ported (tests/test_torch_simulator_elastic.py): a plan
+    # for another cluster is refused with the reference's message
+    from repro.elastic import FaultPlan as JPlan
+    from repro_torch.elastic import FaultPlan as TPlan
+    with pytest.raises(ValueError) as want:
+        JS.simulate(JS.SimConfig(workload=J_WORKLOADS["tiny"],
+                                 faults=JPlan.empty(3)))
+    with pytest.raises(ValueError) as got:
         TS.simulate(TS.SimConfig(workload=T_WORKLOADS["tiny"], device="cpu",
-                                 faults=object()))
+                                 faults=TPlan.empty(3)))
+    assert str(got.value) == str(want.value)
     assert TS.calibrated_decision_time(128, 1.0) == \
         JS.calibrated_decision_time(128, 1.0)
 

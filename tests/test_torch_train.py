@@ -50,15 +50,37 @@ def test_runs_without_esd_and_with_other_paths(extra):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--fault-plan", "crash@1:0"], "A10"), (["--ckpt-dir", "x"], "A10"),
-    (["--resume"], "A10"), (["--n-ps", "2"], "A2"), (["--ps-hetero"], "A2"),
+    (["--n-ps", "2"], "A2"), (["--ps-hetero"], "A2"),
     (["--esd-engine", "dense"], "A4"), (["--trace-out", "t.json"], "A15"),
     (["--validate-timing"], "A15"),
-    (["--ckpt-every", "5"], "A10"), (["--compute-time-s", "0.1"], "A10"),
     (["--ps-layout", "hashed"], "A2"), (["--trace-buffer", "10"], "A15")])
 def test_unported_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         main(TINY + ["--esd-alpha", "1", "--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--fault-plan", "crash@1:0"], ["--ckpt-dir", "CKPT"], ["--resume"],
+    ["--ckpt-every", "5"], ["--compute-time-s", "0.1"]])
+def test_elastic_flags_run(flags, tmp_path):
+    """The A10 flags, which raised until the elastic slice, run as the
+    reference's (their parity is tests/test_torch_elastic_slice.py);
+    ``--resume`` alone is refused with the reference's message."""
+    flags = [str(tmp_path) if f == "CKPT" else f for f in flags]
+    argv = TINY + ["--esd-alpha", "1", "--exchange", "ragged", "--device",
+                   "cpu", "--ckpt-every", "1"] + flags
+    if flags == ["--resume"]:
+        with pytest.raises(SystemExit, match="--resume needs --ckpt-dir"):
+            main(argv)
+        return
+    out = main(argv)
+    assert out["steps"] == 3
+    assert all(math.isfinite(r["loss"]) for r in out["metrics"])
+    if "--fault-plan" in flags:
+        assert [r["n_active"] for r in out["metrics"]] == [4, 3, 3]
+    if "--ckpt-dir" in flags:
+        assert sorted(p.name for p in tmp_path.iterdir()) == [
+            f"ckpt_0000000{i}.npz" for i in (1, 2, 3)]
 
 
 def _records(out):
