@@ -3,7 +3,8 @@ over the quantized wire, the paper's simulator with its auction solver,
 LM training with its flash-attention kernel, the pipelined training
 step with its prefetch plane, the LM serving path (prefill and
 KV-cache decode) and MoE layers, and elastic training under a fault
-plan with its checkpoints and resume, on one CUDA card and check
+plan with its checkpoints and resume, training over several parameter
+servers and on the dense cache engine, on one CUDA card and check
 them.
 
     python3 chip_smoke.py
@@ -28,7 +29,11 @@ Phases, each printing its own lines:
    16 and 4,096, bit for bit (and with an all-PAD bag, weights, and at
    E = 510).  Training: the decide stage's per-id cost table (U, 4)
    pooled over one S1 batch of 256 x 74 (and the pooled lookup again at
-   E = 512 on the wdl-s1 table), the row pack alone on 256 slots of ids
+   E = 512 on the wdl-s1 table; on the dense (502,000, 4) per-id table of
+   phase 16's one-call dispatch; on the per-shard table of phase 15's
+   decide, 2 shards behind the ``--ps-hetero`` links; the dense table,
+   and the per-shard one at equal links, bit for bit the compact
+   route), the row pack alone on 256 slots of ids
    (74 int32), dense features (13 f32) and labels (1 f32), and the
    exchange's one-launch pack of all three for 4 workers of 256, bit for
    bit against its per-worker plain version (balanced, with overflow,
@@ -84,7 +89,9 @@ Phases, each printing its own lines:
    S = 2,048, losses within 1e-4; ``run_dlrm --fault-plan`` at wdl-tiny
    (a straggler, a graceful crash, a droop and a warm rejoin; 6 steps;
    depth 1 exact and int8, depth 2) card against CPU: integer fields
-   equal, losses and costs within 1e-5;
+   equal, losses and costs within 1e-5; ``run_dlrm --n-ps 3 --ps-layout
+   hashed --ps-hetero`` and ``--esd-engine dense`` at depth 2, card
+   against CPU alike;
 5. serve — ``run_serve`` at wdl-s1 (4 workers, 2,000 QPS for 1 s), then
    for 0.5 s with ``--codec int8``;
 6. train — ``run_dlrm`` at wdl-s1 (4 workers x 256 samples, ESD alpha 1,
@@ -151,10 +158,27 @@ Phases, each printing its own lines:
    bit; smollm-360m at full width, depth cut to 4 of 32 layers, B 4 x S
    2,048, 4 steps with a checkpoint at step 2, resumed into other
    weights: losses bit for bit, B8 and its backward once a layer and
-   step; each checkpoint's bytes and save and restore ms.
+   step; each checkpoint's bytes and save and restore ms;
+15. train-ps — ``run_dlrm`` at phase 6's configuration over 2 parameter
+   servers behind the ``--ps-hetero`` links (the tables PS-stacked, ids
+   and cache planes PS-linearized, Alg. 1 priced per shard through B1):
+   contiguous and hashed at depth 1 and 2 (depth 2 bit for bit depth
+   1), hashed with ``--codec int8``, and contiguous under
+   ``PS_PLAN`` (a PS outage: Alg. 1's estimate rises in its window
+   only); 4 B1 launches, one auction_solve and one pack_send_all
+   (``_quant`` with the codec) a step, ms a step beside phase 6's;
+16. train-dense — ``run_dlrm --esd-engine dense`` at phase 6's
+   configuration at depth 1 and 2, every record bit for bit phase 6's
+   (the sparse engine), and with the README's prefetch configuration
+   (one staged_gather a step); then ``esd_dispatch`` with the dense
+   cost (B1 over the (502,000, 4) per-id table) on the run's final
+   state: 4 B1 launches, one auction_solve and one pack_send_all, the
+   compact cost's assignment and exchange.
 
-Each run of phases 5 to 14 sets every kernel's launch counter to 0 just
-before and reads the counters just after.  Then one JSON line of kernel
+Each run of phases 5 to 16 sets every kernel's launch counter to 0 just
+before and reads the counters just after.  B1's per-shard and dense
+inputs get a line each (time, plain and ``embedding_bag`` times, bound,
+launches).  Then one JSON line of kernel
 records, after the script's wall time, and as the last line ``{"ok":
 true, "device": {...}}``.  Any failed check raises, so the script exits
 non-zero; it also fails without a CUDA device and when the package is
@@ -359,14 +383,26 @@ def _read_launches() -> dict:
     return {k: v for counts in _launch_counters() for k, v in counts.items()}
 
 
+# B1's inputs on this slice's paths beside the decide's compact table:
+# "per-shard" (phase 15's multi-PS decide) and "dense" (phase 16's
+# one-call dispatch with the dense cost); phase 3 fills their records,
+# phases 15 and 16 their launches
+B1_INPUTS: dict = {}
+
+
 def phase_train_kernels(seed: int) -> dict:
     """B1, B2 and the exchange's one-launch pack at the training step's
     shapes."""
     from repro_torch.core.simulator import DEFAULT_BANDWIDTHS
     from repro_torch.data.synthetic import WORKLOADS
     from repro_torch.kernels import emb_lookup as K
+    from repro_torch.core.simulator import hetero_ps_bandwidths
     from repro_torch.kernels import exchange_pack as P
-    from repro_torch.kernels.ops import cost_table_sparse
+    from repro_torch.kernels.ops import (cost_matrix_sparse_kernel,
+                                         cost_matrix_sparse_ps_kernel,
+                                         cost_table_dense, cost_table_sparse,
+                                         cost_table_sparse_ps)
+    from repro_torch.ps import make_partition
 
     wl = WORKLOADS["S1"]
     V, n, m = wl.vocab, 4, 256
@@ -413,6 +449,40 @@ def phase_train_kernels(seed: int) -> dict:
     table, inv, w = cost_table_sparse(samples, latest, dirty, t_tran)
     rec["pooled_lookup"] = pooled(f"(decide, U={table.shape[0]})", table,
                                   inv, w)
+    compact = K.pooled_lookup(table, inv, w)
+    # phase 16's one-call dispatch with the dense cost: the (V, 4) per-id
+    # table of all 502,000 ids, pooled over the samples' own ids; the
+    # same per-id values in the same order as the compact route
+    table_d, ids_d, w_d = cost_table_dense(samples, latest, dirty, t_tran)
+    B1_INPUTS["dense"] = pooled(f"(dense table, V={table_d.shape[0]})",
+                                table_d, ids_d, w_d)
+    check(torch.equal(K.pooled_lookup(table_d, ids_d, w_d), compact),
+          "B1 over the dense (V, 4) table gives the compact route's bits")
+    del table_d
+    # phase 15's decide: 2 shards, the --ps-hetero links, the per-shard
+    # table at the batch's PS-linearized ids
+    part = make_partition(V, 2)
+    Vs = part.linear_size
+    lat_ps = torch.rand((n, Vs), generator=g, device=dev) < 0.3
+    dirty_ps = lat_ps & (torch.rand((n, Vs), generator=g, device=dev) < 0.5)
+    lin = part.to_linear(samples)
+    t_ps = torch.tensor((512 * 4.0) / hetero_ps_bandwidths(n, 2),
+                        dtype=torch.float32, device=dev)
+    table_ps, inv_ps, w_ps = cost_table_sparse_ps(lin, lat_ps, dirty_ps,
+                                                  t_ps, part)
+    B1_INPUTS["per-shard"] = pooled(
+        f"(decide, 2 PS, hetero links, U={table_ps.shape[0]})", table_ps,
+        inv_ps, w_ps)
+    # equal links on both shards: the per-shard route is the compact one
+    even = t_tran[:, None].repeat(1, 2).contiguous()
+    check(torch.equal(cost_matrix_sparse_ps_kernel(lin, lat_ps, dirty_ps,
+                                                   even, part),
+                      cost_matrix_sparse_kernel(lin, lat_ps, dirty_ps,
+                                                t_tran)),
+          "B1 over the per-shard table at equal links gives the compact "
+          "route's bits")
+    print("[kernel] pooled_lookup: the dense (502,000, 4) table and the "
+          "per-shard table at equal links give the compact route's bits")
     # the same kernel at E = 512 on the wdl-s1 table
     big = torch.randn((V, 512), generator=g, device=dev) * 0.01
     wts = torch.rand(samples.shape, generator=g, device=dev)
@@ -977,12 +1047,20 @@ PIPE_PARITY = {"depth 2": ["--pipeline-depth", "2"],
                    "--prefetch-slots", "64"]}
 
 
-def phase_train_pipeline_parity(seed: int):
-    """``run_dlrm`` pipelined at wdl-tiny (4 workers x 8, 5 steps), its
-    chain on a stream of its own on the card, against the same run on the
-    CPU from the same weights: every integer field equal, losses and
-    Alg.-1 costs within 1e-5, the final prefetch plane's ids and expiry
-    equal and its rows bit for bit."""
+# the multi-PS and dense-engine runs of phase 4
+PS_PARITY = {"3 PS hashed, hetero links": ["--n-ps", "3", "--ps-layout",
+                                           "hashed", "--ps-hetero"],
+             "dense engine, depth 2": ["--esd-engine", "dense",
+                                       "--pipeline-depth", "2"]}
+
+
+def phase_train_pipeline_parity(seed: int, runs: dict = PIPE_PARITY):
+    """``run_dlrm`` at wdl-tiny (4 workers x 8, 5 steps) in each of
+    ``runs``' configurations (pipelined: its chain on a stream of its own
+    on the card) against the same run on the CPU from the same weights:
+    every integer field equal, losses and Alg.-1 costs within 1e-5, the
+    final prefetch plane's ids and expiry equal and its rows bit for
+    bit."""
     from repro_torch.configs import DLRM_CONFIGS
     from repro_torch.data.synthetic import WORKLOADS
     from repro_torch.launch.train import build_parser, run_dlrm
@@ -994,14 +1072,15 @@ def phase_train_pipeline_parity(seed: int):
     base = ["--arch", "wdl-tiny", "--workers", "4", "--batch-per-worker",
             "8", "--steps", "5", "--esd-alpha", "1", "--exchange", "ragged",
             "--seed", str(seed)]
-    for what, extra in PIPE_PARITY.items():
+    for what, extra in runs.items():
         outs = {dev: run_dlrm(build_parser().parse_args(
                     base + extra + ["--device", dev]),
                     model=copy.deepcopy(cpu).to(dev))
                 for dev in ("cpu", "cuda")}
         rc, rg = outs["cpu"]["metrics"], outs["cuda"]["metrics"]
-        check(outs["cuda"]["stage_clock"] == "device",
-              "the pipelined card run put its chain on a stream of its own")
+        check(outs["cuda"]["stage_clock"]
+              == ("device" if "--pipeline-depth" in extra else "host"),
+              "a pipelined card run put its chain on a stream of its own")
         worst = 0.0
         for a, b in zip(rc, rg, strict=True):
             check(set(a) == set(b), f"{what}: the same record fields")
@@ -2285,6 +2364,180 @@ def phase_resume(seed: int) -> dict:
     return {k: v for k, v in total.items() if v}
 
 
+# phase 15: 2 parameter servers at wdl-s1, the last behind 0.5 Gbps links
+PS_ARGV = ["--n-ps", "2", "--ps-hetero"]
+PS_PLAN = "ps_outage@3:1-7"           # shard 1 at 0.05 of its links, 3-6
+PS_RUNS = {"contiguous": PS_ARGV,
+           "contiguous, depth 2": PS_ARGV + ["--pipeline-depth", "2"],
+           "hashed": PS_ARGV + ["--ps-layout", "hashed"],
+           "hashed, depth 2": PS_ARGV + ["--ps-layout", "hashed",
+                                         "--pipeline-depth", "2"],
+           "hashed, int8": PS_ARGV + ["--ps-layout", "hashed", "--codec",
+                                      "int8"],
+           "contiguous, PS outage": PS_ARGV + ["--fault-plan", PS_PLAN]}
+RECORD_KEYS = ("loss", "miss_pull", "update_push", "evict_push", "cost",
+               "alg1_est")
+
+
+def _stage_line(out) -> str:
+    return (f"wall {out['wall_ms_mean']:.3f} ms a step; {out['stage_clock']}"
+            f" ms decide {out['decide_ms_mean']:.3f}, advance "
+            f"{out['advance_ms_mean']:.3f}, train {out['train_ms_mean']:.3f}")
+
+
+def _run_counted(argv, total: dict):
+    """``run_dlrm`` on ``argv`` with the counts set to 0 just before and
+    read just after: (summary, launches a step, auction rounds)."""
+    from repro_torch.kernels import auction as A
+    from repro_torch.launch.train import build_parser, run_dlrm
+
+    A.ROUNDS_LOG = []
+    _zero_launches()
+    try:
+        out = run_dlrm(build_parser().parse_args(argv))
+    finally:
+        launches = {k: v for k, v in _read_launches().items() if v}
+        solves, A.ROUNDS_LOG = A.ROUNDS_LOG, None
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    recs = out["metrics"]
+    per_step = {k: round(v / len(recs), 3) for k, v in launches.items()}
+    check(all(np.isfinite([r["loss"] for r in recs]))
+          and all(np.isfinite([r["cost"] for r in recs])),
+          f"{' '.join(argv[-6:])}: every loss and cost finite")
+    return out, per_step, [r.sum(dim=1).tolist() for r in solves]
+
+
+def phase_train_ps(seed: int) -> dict:
+    """Phase 15: ``run_dlrm`` at phase 6's wdl-s1 configuration over 2
+    parameter servers with the ``--ps-hetero`` links (the tables
+    PS-stacked, ids and state planes PS-linearized, Alg. 1 priced per
+    shard through B1), contiguous and hashed at depth 1 and 2, hashed
+    with ``--codec int8``, and under a PS outage: 4 B1 launches, one
+    ``auction_solve`` and one ``pack_send_all`` (``_quant`` with the
+    codec) a step, depth 2's records bit for bit depth 1's, the per-shard
+    misses on both shards."""
+    total: dict = {}
+    outs = {}
+    one, _ = TRAIN_DEPTH1[None]
+    for name, extra in PS_RUNS.items():
+        out, per_step, rounds = _run_counted(
+            TRAIN_ARGV + extra + ["--seed", str(seed)], total)
+        outs[name] = out
+        recs = out["metrics"]
+        pack = ("pack_send_all_quant" if "--codec" in extra
+                else "pack_send_all")
+        print(f"[train-ps] wdl-s1, 2 PS {name}: {_stage_line(out)} (phase "
+              f"6: wall {one['wall_ms_mean']:.3f}, decide "
+              f"{one['decide_ms_mean']:.3f}, advance "
+              f"{one['advance_ms_mean']:.3f}, train "
+              f"{one['train_ms_mean']:.3f}); losses "
+              f"{[r['loss'] for r in recs]}; cost "
+              f"{[r['cost'] for r in recs]}; alg1_est "
+              f"{[r['alg1_est'] for r in recs]}; launches {per_step} a step")
+        print(f"[train-ps] {name} auction rounds per step, per worker: "
+              f"{rounds}")
+        check(per_step.get("pooled_lookup") == 4.0
+              and per_step.get("auction_solve") == 1.0
+              and per_step.get(pack) == 1.0 and "gather_rows" not in per_step,
+              f"2 PS {name}: B1 once per worker and step, one auction_solve "
+              f"and one {pack} launch a step ({per_step})")
+        check(all(r["miss_pull"] > 0 for r in recs),
+              f"2 PS {name}: miss_pull > 0 each step")
+    for layout in ("contiguous", "hashed"):
+        a, b = outs[layout], outs[f"{layout}, depth 2"]
+        check([[r[k] for k in RECORD_KEYS] for r in b["metrics"]]
+              == [[r[k] for k in RECORD_KEYS] for r in a["metrics"]],
+              f"2 PS {layout}: depth 2's records bit for bit depth 1's")
+    alg1 = [r["alg1_est"] for r in outs["contiguous, PS outage"]["metrics"]]
+    base = [r["alg1_est"] for r in outs["contiguous"]["metrics"]]
+    check(all(alg1[i] > base[i] for i in range(3, 7))
+          and alg1[:3] == base[:3],
+          "the outage prices shard 1's misses dearer in steps 3-6 only "
+          "(the records before it bit for bit the plain run's)")
+    B1_INPUTS["per-shard"]["launches"] = total.get("pooled_lookup", 0)
+    return total
+
+
+def phase_train_dense(seed: int) -> dict:
+    """Phase 16: ``run_dlrm --esd-engine dense`` at phase 6's
+    configuration (the (4, 502,000) planes updated whole every step) at
+    depth 1 and 2, each record bit for bit phase 6's; the README's
+    prefetch configuration on the dense engine (one staged_gather a
+    step); then ``esd_dispatch`` with the dense cost (B1 over the
+    (502,000, 4) per-id table) on the run's final state and the next
+    batch: 4 B1 launches, one auction_solve and one pack_send_all, the
+    assignment and exchanged samples those of the compact cost."""
+    from repro_torch.core.dispatch import esd_dispatch
+    from repro_torch.core.simulator import DEFAULT_BANDWIDTHS
+    from repro_torch.data.synthetic import WORKLOADS
+
+    total: dict = {}
+    one, one_launch = TRAIN_DEPTH1[None]
+    finals = {}
+    for name, extra in (("depth 1", []),
+                        ("depth 2", ["--pipeline-depth", "2"]),
+                        ("README prefetch", AHEAD_ARGV)):
+        out, per_step, rounds = _run_counted(
+            TRAIN_ARGV + ["--esd-engine", "dense"] + extra
+            + ["--seed", str(seed)], total)
+        finals[name] = out
+        recs = out["metrics"]
+        check(type(out["esd_state"]).__name__ == "EsdState",
+              "the dense engine's state")
+        print(f"[train-dense] wdl-s1 {name}: {_stage_line(out)} (phase 6: "
+              f"wall {one['wall_ms_mean']:.3f}, advance "
+              f"{one['advance_ms_mean']:.3f}); launches {per_step} a step")
+        if extra == AHEAD_ARGV:
+            check(per_step.get("staged_gather") == 1.0
+                  and all(r["prefetch_bytes"] > 0 for r in recs[1:]),
+                  "dense engine, README configuration: one staged_gather "
+                  "a step, rows prefetched after step 0")
+            print(f"[train-dense] README configuration: prefetch_hit_rate "
+                  f"{[r['prefetch_hit_rate'] for r in recs]}, n_reassigned "
+                  f"{[r['n_reassigned'] for r in recs]}")
+            continue
+        check([[r[k] for k in RECORD_KEYS] for r in recs]
+              == [[r[k] for k in RECORD_KEYS] for r in one["metrics"]],
+              f"dense engine {name}: every record bit for bit phase 6's "
+              f"(the sparse engine)")
+        check(seed != 0 or rounds == TRAIN_ROUNDS[None][:len(rounds)],
+              f"dense engine {name}: the auction's rounds the CPU's")
+        check(per_step == one_launch,
+              f"dense engine {name}: the launches a step phase 6's")
+    # the one-call dispatch, the dense cost on the run's final state
+    wl = WORKLOADS["S1"]
+    n, m = 4, 256
+    state = finals["depth 1"]["esd_state"]
+    batch = next(itertools.islice(wl.stream(seed + 1, n * m), 10, None))[0]
+    samples = torch.as_tensor(batch.astype(np.int32),
+                              device="cuda").reshape(n, m, -1)
+    t = torch.tensor((512 * 4.0) / DEFAULT_BANDWIDTHS(n), dtype=torch.float32,
+                     device="cuda")
+    _zero_launches()
+    exch, assign = esd_dispatch(samples, state, t, 1.0, sparse_cost=False,
+                                exchange="ragged")
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _read_launches().items() if v}
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    check(launches == {"pooled_lookup": n, "auction_solve": 1,
+                       "pack_send_all": 1},
+          f"esd_dispatch(sparse_cost=False): 4 B1 launches, one auction and "
+          f"one pack ({launches})")
+    B1_INPUTS["dense"]["launches"] = launches["pooled_lookup"]
+    exch_c, assign_c = esd_dispatch(samples, state, t, 1.0,
+                                    exchange="ragged")
+    check(torch.equal(assign, assign_c) and torch.equal(exch, exch_c),
+          "esd_dispatch: the dense cost's assignment and exchange are the "
+          "compact cost's")
+    print(f"[train-dense] esd_dispatch at wdl-s1 (4 x 256, the dense "
+          f"(502,000, 4) cost table, ragged): launches {launches}; samples "
+          f"received a worker {torch.bincount(assign.reshape(-1).long(), minlength=n).tolist()}; "
+          f"equal to the compact cost's")
+    return total
+
+
 # phase 8's fault plan on its 8 workers, and the ESD auction's result
 # under it on the CPU: scripts/auction_rounds.py --device cpu --fault-plan
 SIM_PLAN = "crash@2:3g; rejoin@5:3w; straggle@1:0x4-6; bw@3:5x0.25-7"
@@ -2417,6 +2670,7 @@ def main(argv=None) -> int:
     phase_lm_parity(args.seed)
     phase_lm_decode_parity(args.seed)
     phase_train_pipeline_parity(args.seed)
+    phase_train_pipeline_parity(args.seed, PS_PARITY)
     phase_elastic_parity(args.seed)
     # launches on the main paths: each run counted from zero, then summed
     launches: dict = {}
@@ -2432,7 +2686,9 @@ def main(argv=None) -> int:
                 lambda: phase_lm_moe(args.seed),
                 lambda: phase_simulate_faults(args.seed),
                 lambda: phase_train_elastic(args.seed),
-                lambda: phase_resume(args.seed)):
+                lambda: phase_resume(args.seed),
+                lambda: phase_train_ps(args.seed),
+                lambda: phase_train_dense(args.seed)):
         t = time.perf_counter()
         for k, v in run().items():
             launches[k] = launches.get(k, 0) + v
@@ -2444,6 +2700,12 @@ def main(argv=None) -> int:
         check(k in ("pooled_lookup_quant", "auction_bids", "gather_rows",
                     "gather_rows_quant")
               or launches.get(k, 0) > 0, f"{k} launched on a main path")
+    for what, r in B1_INPUTS.items():
+        print(f"[kernel] pooled_lookup, the {what} table (phases 3, "
+              f"{15 if what == 'per-shard' else 16}): {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, embedding_bag "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']}), launches {r['launches']}")
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=REPLACES[k], launches=launches.get(k, 0),
                     **{"library_ms": None, **rec[k]})

@@ -6,12 +6,14 @@ and one entry a leaf, named by the leaf's path in the tree with the
 parts joined by ``::`` (``params::embed``, ``params::bottom::0::w``,
 ``opt::mu::embed``, ``esd::latest``).  A tree is nested dicts (a part is
 the key), lists and tuples (the index) and dataclasses such as
-:class:`repro_torch.core.dispatch.SparseEsdState` (the field name); a
+:class:`repro_torch.core.dispatch.SparseEsdState` or ``EsdState`` (the
+field name); a
 leaf is a torch tensor, a numpy array or a scalar, and ``None`` is no
 leaf.  The training driver writes the reference's tree,
 ``{params, opt, esd, qres}`` in the reference's layout
-(:func:`train_tree`, through the models' ``ref_paths``), so either
-package restores the other's checkpoints.
+(:func:`train_tree`, through the models' ``ref_paths``; a PS-stacked
+table is its (n_ps, max_rows, E) leaf), so either package restores the
+other's checkpoints.
 
 Leaves are copied to the host on save; a leaf numpy cannot hold
 (bfloat16) is stored as f32.  On restore each leaf takes the dtype of

@@ -13,12 +13,14 @@ numpy touched-ids functions ``cost_matrix_sparse`` and
 reference's ``cost_matrix_sparse_jnp``.
 
 PyTorch (the training step's decide stage): the per-sample id dedup, the
-per-id cost rows and the plain touched-ids Alg. 1, counterparts of the
-reference's ``dedup_mask_jnp``, ``per_id_cost_rows`` and
-``cost_matrix_sparse_jnp``.  The decide stage itself prices through the
-pooled-lookup kernel (:func:`repro_torch.kernels.ops.
-cost_matrix_sparse_kernel`); :func:`cost_matrix_sparse` is the
-reference's second formula, kept for comparison.
+per-id cost rows and the plain Alg. 1 — touched-ids, multi-PS and dense
+— counterparts of the reference's ``dedup_mask_jnp``,
+``per_id_cost_rows``, ``per_id_cost_rows_ps``, ``cost_matrix_sparse_jnp``,
+``cost_matrix_sparse_ps_jnp`` and ``cost_matrix_jnp``.  The decide stage
+itself prices through the pooled-lookup kernel
+(:mod:`repro_torch.kernels.ops`); :func:`cost_matrix_sparse`,
+:func:`cost_matrix_sparse_ps` and :func:`cost_matrix_dense` are the
+reference's second formulas, kept for comparison.
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ __all__ = ["PAD_ID", "transmission_time", "transmission_time_codec",
            "cost_from_state_cols_ps", "cost_matrix_sparse_ps_np",
            "miss_time_from_state_cols",
            "dedup_mask", "unique_padded", "per_id_cost_rows",
-           "cost_matrix_sparse"]
+           "cost_matrix_sparse", "per_id_cost_rows_ps",
+           "cost_matrix_sparse_ps", "cost_matrix_dense"]
 
 PAD_ID = -1  # padding slot inside a sample's id list
 
@@ -321,11 +324,16 @@ def per_id_cost_rows(latest_in_cache: torch.Tensor, dirty: torch.Tensor,
     t = t_tran.to(torch.float32)
     miss = (1.0 - latest_in_cache.to(torch.float32)).T * t[None, :]
     pushes = dirty.to(torch.float32) * t[:, None]              # (n, U)
-    push_tot = pushes[0]
-    for j in range(1, pushes.shape[0]):
-        push_tot = push_tot + pushes[j]
-    push = push_tot[:, None] - dirty.to(torch.float32).T * t[None, :]
+    push = _fold(pushes)[:, None] - dirty.to(torch.float32).T * t[None, :]
     return miss + push
+
+
+def _fold(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the leading axis as a left fold, rows 0..n-1."""
+    out = x[0]
+    for j in range(1, x.shape[0]):
+        out = out + x[j]
+    return out
 
 
 def cost_matrix_sparse(samples: torch.Tensor, latest_in_cache: torch.Tensor,
@@ -342,5 +350,58 @@ def cost_matrix_sparse(samples: torch.Tensor, latest_in_cache: torch.Tensor,
     lat_g = latest_in_cache[:, flat]
     dirty_g = dirty[:, flat]
     rows = per_id_cost_rows(lat_g, dirty_g, t_tran).reshape(k, F, n)
+    rows = torch.where(valid[:, :, None], rows, torch.zeros_like(rows))
+    return rows.sum(dim=1)
+
+
+def per_id_cost_rows_ps(latest_cols: torch.Tensor, dirty_cols: torch.Tensor,
+                        t_cols: torch.Tensor) -> torch.Tensor:
+    """Per-id cost rows with a per-(worker, id) link cost ``t_cols``
+    (n, U), ``t_cols[j, x] = t_ps[j, shard_of(x)]``:
+
+    v[x, j] = (1 - latest[j, x]) * t_cols[j, x]
+              + sum_{j' != j} dirty[j', x] * t_cols[j', x]
+
+    With column-constant ``t_cols`` this does the float ops of
+    :func:`per_id_cost_rows`, in its order.  (n, U) columns -> (U, n)."""
+    t = t_cols.to(torch.float32)
+    miss = (1.0 - latest_cols.to(torch.float32)).T * t.T
+    pushes = dirty_cols.to(torch.float32) * t                   # (n, U)
+    push = _fold(pushes)[:, None] - dirty_cols.to(torch.float32).T * t.T
+    return miss + push
+
+
+def cost_matrix_sparse_ps(samples: torch.Tensor,
+                          latest_in_cache: torch.Tensor,
+                          dirty: torch.Tensor, t_ps: torch.Tensor, part,
+                          linear: bool = False) -> torch.Tensor:
+    """Touched-ids multi-PS Alg. 1 in plain PyTorch, the reference's
+    ``cost_matrix_sparse_ps_jnp``: a miss or a push on an id costs the
+    link to its owning shard.  ``part`` is a
+    :class:`repro_torch.ps.PsPartition`; ``linear=True`` means samples
+    and planes are already PS-linearized.  (k, F) samples, (n, V)
+    planes, (n, n_ps) link times -> (k, n) f32."""
+    k, F = samples.shape
+    n = latest_in_cache.shape[0]
+    ids, valid = dedup_mask(samples)
+    shard = part.shard_of_linear(ids) if linear else part.shard_of(ids)
+    flat = ids.reshape(-1).long()
+    t_cols = t_ps.to(torch.float32)[:, shard.reshape(-1).long()]  # (n, k*F)
+    rows = per_id_cost_rows_ps(latest_in_cache[:, flat], dirty[:, flat],
+                               t_cols).reshape(k, F, n)
+    rows = torch.where(valid[:, :, None], rows, torch.zeros_like(rows))
+    return rows.sum(dim=1)
+
+
+def cost_matrix_dense(samples: torch.Tensor, latest_in_cache: torch.Tensor,
+                      dirty: torch.Tensor, t_tran: torch.Tensor
+                      ) -> torch.Tensor:
+    """Alg. 1 over the dense (V, n) per-id table in plain PyTorch, the
+    reference's ``cost_matrix_jnp``: every id's cost row, then the
+    sample's rows gathered, masked and summed.  (k, F) samples -> (k, n)
+    f32."""
+    ids, valid = dedup_mask(samples)
+    v = per_id_cost_rows(latest_in_cache, dirty, t_tran)         # (V, n)
+    rows = v[ids.long()]                                          # (k, F, n)
     rows = torch.where(valid[:, :, None], rows, torch.zeros_like(rows))
     return rows.sum(dim=1)

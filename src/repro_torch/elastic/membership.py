@@ -89,8 +89,10 @@ def cost_column_bias(t_tran, n_fields: int, active,
 
 
 def mask_state(state, active):
-    """Mask a cache state (:class:`repro_torch.core.dispatch.SparseEsdState`,
-    or any dataclass with the same planes) to the active workers.
+    """Mask a cache state (either engine's:
+    :class:`repro_torch.core.dispatch.SparseEsdState` or
+    :class:`repro_torch.core.dispatch.EsdState`, or any dataclass with
+    the same planes) to the active workers.
 
     Inactive rows lose ``latest`` and ``dirty`` (the PS copy is
     canonical while the worker is away — its unsynced gradients are

@@ -5,7 +5,8 @@ The counterpart of the JAX package's ``launch/steps.py``
 (``make_train_step``, ``make_serve_step`` and ``make_prefill_step`` for
 the LM, and ``make_esd_exchange``,
 ``raise_on_overflow``, ``make_dlrm_esd_stages`` with its elastic
-variants and ``make_dlrm_repair_stage``, for the single-PS case).  The
+variants, multi-PS and both cache engines, and
+``make_dlrm_repair_stage``).  The
 reference's stages run one shard per device under ``shard_map``; here
 the ``n`` workers share one device and a stage's global ``(k, ...)``
 batch is split by rows, worker ``i`` holding rows ``[i * m, (i + 1) *
@@ -19,8 +20,8 @@ import torch
 
 from ..core.dispatch import (changed_samples_mask, dispatch_cap,
                              esd_cost_matrix, esd_decide, esd_reassign,
-                             esd_state_update_sparse, exchange_budget,
-                             need_ids_list)
+                             esd_state_update, esd_state_update_sparse,
+                             exchange_budget, need_ids_list, need_matrix)
 from ..elastic import mask_state
 from ..exchange.ragged import ragged_exchange_many
 from ..models import api, backbone
@@ -156,12 +157,12 @@ def raise_on_overflow(counts: dict) -> None:
 
 
 def make_dlrm_esd_stages(n: int, m: int, t_tran: torch.Tensor, alpha: float,
-                         *, exchange: str = "padded",
-                         cap_slack: float = 0.0,
+                         *, part=None, exchange: str = "padded",
+                         cap_slack: float = 0.0, sparse_esd: bool = True,
                          capacity: int | None = None, codec=None,
                          elastic: bool = False, max_failures: int = 0):
     """Stage functions of the DLRM ESD step (reference
-    ``make_dlrm_esd_stages``, single PS, sparse engine):
+    ``make_dlrm_esd_stages``):
 
       decide(esd_state, sparse)                    -> (assign (k,), alg1)
       advance(esd_state, sparse, dense, labels, assign, staged=None)
@@ -171,14 +172,25 @@ def make_dlrm_esd_stages(n: int, m: int, t_tran: torch.Tensor, alpha: float,
     ``sparse``/``dense``/``labels`` are the global (k, ...) batch, k = n
     * m.  ``decide`` is Alg. 1 + Alg. 2 per worker; ``advance`` moves the
     samples over the selected wire path and runs the cache-state
-    machine; ``staged``, the prefetch plane's (V,) membership, splits
-    the step's misses into ``prefetch_hit`` and ``demand_miss`` counts
-    (accounting only).  With ``cap_slack > 0`` (needs
+    machine: the sparse engine (:func:`esd_state_update_sparse` over
+    :func:`need_ids_list`) or, with ``sparse_esd=False``, the dense one
+    (:func:`esd_state_update` over :func:`need_matrix`); ``staged``, the
+    prefetch plane's (V,) membership, splits the step's misses into
+    ``prefetch_hit`` and ``demand_miss`` counts (accounting only).
+    With ``cap_slack > 0`` (needs
     ``exchange="ragged"``) the exchanged arrays come back with
     ``out_rows = n * exchange_budget`` rows per worker, valid rows first
     and -1 after (pair with the PAD-masked loss).  ``codec`` (needs
     ``exchange="ragged"``) sends the dense features over the quantized
     wire.  Returns ``(decide, advance, realized_cost, out_rows)``.
+
+    Multi-PS: with ``part`` (a :class:`repro_torch.ps.PsPartition`) and
+    (n, n_ps) link times every stage takes the batch's global ids to
+    the PS-linearized space (``part.to_linear``) first: Alg. 1 prices a
+    miss or a push at the owning shard's link, the exchanged ids (what
+    train gathers from the PS-stacked tables) and the state planes
+    (``part.linear_size`` wide) are linear, and the counts carry the
+    per-(worker, PS) ``*_ps`` breakdown.
 
     ``elastic=True`` (:mod:`repro_torch.elastic`, needs
     ``exchange="ragged"``) gives the churn-tolerant stages, which take
@@ -189,8 +201,8 @@ def make_dlrm_esd_stages(n: int, m: int, t_tran: torch.Tensor, alpha: float,
       advance(esd_state, sparse, dense, labels, assign, active)
       realized_cost(esd_state, sparse, assign, t_arr, col_bias, active)
 
-    ``t_arr`` is the step's effective link times (bandwidth droop
-    folded in), ``col_bias`` the per-worker cost bias (straggler excess
+    ``t_arr`` is the step's effective link times (bandwidth droop, a PS
+    outage folded in), ``col_bias`` the per-worker cost bias (straggler excess
     compute; finite dead-worker penalty), ``active`` the (n,) bool
     membership mask: dead workers' state rows are masked in decide AND
     before the cache update, so their stale planes never feed phase A
@@ -230,30 +242,40 @@ def make_dlrm_esd_stages(n: int, m: int, t_tran: torch.Tensor, alpha: float,
     def split(a):
         return a.reshape((n, m) + a.shape[1:])
 
+    def ids(sparse):
+        """The batch's ids per worker, PS-linearized under ``part``."""
+        s = split(sparse)
+        return part.to_linear(s) if part is not None else s
+
     def flat(x):
         return x.reshape((n * out_rows,) + x.shape[2:])
 
     def decide(esd_state, sparse):
-        assign, alg1 = esd_decide(split(sparse), esd_state, t_tran, alpha,
-                                  cap_slack=cap_slack, with_cost=True)
+        assign, alg1 = esd_decide(ids(sparse), esd_state, t_tran, alpha,
+                                  cap_slack=cap_slack, with_cost=True,
+                                  part=part)
         return assign.reshape(-1), alg1.sum()
 
     def exchange_update(esd_state, sparse, dense, labels, assign,
                         staged=None):
         (s2, d2, l2), overflow = route(
-            (split(sparse), split(dense), split(labels)), split(assign))
-        need = need_ids_list(s2)
-        new_state, counts = esd_state_update_sparse(esd_state, need,
-                                                    capacity, staged=staged)
+            (ids(sparse), split(dense), split(labels)), split(assign))
+        if sparse_esd:
+            new_state, counts = esd_state_update_sparse(
+                esd_state, need_ids_list(s2), capacity, part, staged=staged)
+        else:
+            new_state, counts = esd_state_update(
+                esd_state, need_matrix(s2, esd_state.latest.shape[1]),
+                capacity, staged=staged)
         counts = dict(counts)
         counts["exchange_overflow"] = overflow
         return (flat(s2), flat(d2), flat(l2)), new_state, counts
 
     def realized(esd_state, sparse, assign, t, col_bias=None):
-        s, a = split(sparse), split(assign).long()
+        s, a = ids(sparse), split(assign).long()
         total = torch.zeros((), dtype=torch.float32, device=sparse.device)
         for i in range(n):
-            C = esd_cost_matrix(s[i], esd_state, t, col_bias)
+            C = esd_cost_matrix(s[i], esd_state, t, col_bias, part=part)
             total = total + torch.gather(C, 1, a[i][:, None])[:, 0].sum()
         return total
 
@@ -266,9 +288,9 @@ def make_dlrm_esd_stages(n: int, m: int, t_tran: torch.Tensor, alpha: float,
     # -- elastic variants: per-step churn tensors, fixed shapes ------------
     def decide_e(esd_state, sparse, t_arr, col_bias, active):
         state = mask_state(esd_state, active)
-        assign, alg1 = esd_decide(split(sparse), state, t_arr, alpha,
+        assign, alg1 = esd_decide(ids(sparse), state, t_arr, alpha,
                                   cap_slack=cap_slack, with_cost=True,
-                                  col_bias=col_bias, cap=cap)
+                                  col_bias=col_bias, cap=cap, part=part)
         return assign.reshape(-1), alg1.sum()
 
     def advance_e(esd_state, sparse, dense, labels, assign, active):
@@ -285,9 +307,9 @@ def make_dlrm_esd_stages(n: int, m: int, t_tran: torch.Tensor, alpha: float,
 
 
 def make_dlrm_repair_stage(n: int, m: int, t_tran: torch.Tensor, *,
-                           cap_slack: float = 0.0):
+                           part=None, cap_slack: float = 0.0):
     """Commit-time repair for the decide-ahead chain (reference
-    ``make_dlrm_repair_stage``, single PS), per worker:
+    ``make_dlrm_repair_stage``), per worker:
 
       repair(committed_state, decide_state, sparse, assign)
           -> (assign' (k,), n_reassigned)
@@ -296,16 +318,20 @@ def make_dlrm_repair_stage(n: int, m: int, t_tran: torch.Tensor, *,
     between the decide-time state and the committed one
     (:func:`changed_samples_mask`) and re-places only those with the
     capped greedy (:func:`esd_reassign`) against the committed state's
-    cost matrix; every other sample keeps its stale worker.
-    ``n_reassigned`` is the flagged count over all workers (0-dim
-    int32).
+    cost matrix; every other sample keeps its stale worker.  With
+    ``part`` the ids are PS-linearized first and the cost priced per
+    shard.  ``n_reassigned`` is the flagged count over all workers
+    (0-dim int32).
     """
     cap = dispatch_cap(m, n, cap_slack)
 
     def repair(committed_state, decide_state, sparse, assign):
         s = sparse.reshape((n, m) + sparse.shape[1:])
+        if part is not None:
+            s = part.to_linear(s)
         flagged = changed_samples_mask(s, decide_state, committed_state)
-        C = torch.stack([esd_cost_matrix(s[i], committed_state, t_tran)
+        C = torch.stack([esd_cost_matrix(s[i], committed_state, t_tran,
+                                         part=part)
                          for i in range(n)])                      # (n, m, n)
         a2, n_re = esd_reassign(C, assign.reshape(n, m), flagged, cap)
         return a2.reshape(-1), n_re

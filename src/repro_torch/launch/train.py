@@ -65,6 +65,22 @@ MoE layer adds the router's load-balance loss at weight 0.01); the SSM,
 hybrid, VLM and audio families raise (ROADMAP A14.4 to A14.6).  Every
 step logs the loss and its wall time after a synchronise.
 
+Multi-PS (the paper's "one or more parameter servers"): ``--n-ps P``
+partitions the vocabulary over P servers (``--ps-layout contiguous``
+row ranges, or ``hashed``, id mod P), the tables are PS-stacked
+((P, max_rows, E), :func:`repro_torch.models.dlrm.ps_stack_tables`),
+ids, the exchanged samples and the cache planes live in the
+PS-linearized space, and every link time is per (worker, PS): the
+defaults repeated, or with ``--ps-hetero`` the last PS behind 0.5 Gbps
+links (:func:`repro_torch.core.simulator.hetero_ps_bandwidths`).
+Alg. 1 prices a miss or a push at the owning shard's link through the
+pooled-lookup kernel, and a record's ``cost`` sums the per-(worker, PS)
+counts times their link times.  ``--esd-engine dense`` keeps the cache
+state as dense (n, V) planes (:class:`repro_torch.core.dispatch.
+EsdState`): every id every step, the same counts as the sparse engine.
+As in the reference, the dense engine and the prefetch plane refuse
+``--n-ps > 1``, and ``--ps-hetero`` needs it.
+
 Elastic operation: ``--fault-plan`` (the DSL of
 :meth:`repro_torch.elastic.FaultPlan.parse`, or ``@plan.json``; needs
 ESD and ``--exchange ragged``) runs the elastic stages.  Each step's
@@ -74,7 +90,8 @@ penalty) and membership mask come from the plan, computed on the host
 and uploaded once before the run; a dead worker's cache state is masked
 before decide and before the update, the capacity is raised so the
 survivors absorb every sample (``ceil(m / (n - max_failures))``), the
-loss is the PAD-masked one, and every record carries ``n_active``.
+loss is the PAD-masked one, and every record carries ``n_active``; a
+``ps_outage`` event slows one shard's links (``--n-ps > 1``).
 Checkpoints: ``--ckpt-dir`` and ``--ckpt-every`` write the reference's
 npz layout (:mod:`repro_torch.checkpoint`: ``params``, ``opt``, the
 post-advance cache state ``esd`` and the codec's residual ``qres``; the
@@ -86,9 +103,7 @@ refuse a fault plan.
 
 Flags of the reference that this port does not carry yet raise
 ``NotImplementedError`` naming the ROADMAP item that brings them:
-``--n-ps``, ``--ps-layout`` and ``--ps-hetero`` (A2), ``--esd-engine
-dense`` (A4), ``--trace-out``, ``--trace-buffer`` and
-``--validate-timing`` (A15).
+``--trace-out``, ``--trace-buffer`` and ``--validate-timing`` (A15).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch wdl-s1 \\
@@ -108,6 +123,12 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch wdl-tiny \\
       --workers 4 --batch-per-worker 8 --steps 3 --esd-alpha 1 \\
       --exchange ragged --codec int8 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch wdl-tiny \\
+      --workers 4 --batch-per-worker 8 --steps 3 --esd-alpha 1 \\
+      --exchange ragged --n-ps 3 --ps-layout hashed --ps-hetero --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch wdl-tiny \\
+      --workers 4 --batch-per-worker 8 --steps 3 --esd-alpha 1 \\
+      --exchange ragged --esd-engine dense --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch wdl-tiny \\
       --workers 4 --batch-per-worker 8 --steps 6 --esd-alpha 1 \\
       --exchange ragged --device cpu --ckpt-dir build/ckpt \\
@@ -133,13 +154,14 @@ from ..checkpoint import (load_train_tree, restore_checkpoint,
                           save_checkpoint, train_tree)
 from ..configs import DLRM_CONFIGS, get_config
 from ..core.cost import transmission_time_codec
-from ..core.dispatch import esd_sparse_init
-from ..core.simulator import DEFAULT_BANDWIDTHS
+from ..core.dispatch import esd_init, esd_sparse_init
+from ..core.simulator import DEFAULT_BANDWIDTHS, hetero_ps_bandwidths
 from ..data.loader import PrefetchLoader
 from ..data.synthetic import WORKLOADS, token_stream
 from ..elastic import FaultPlan, cost_column_bias, effective_t
 from ..models import api, backbone
-from ..models.dlrm import bce_loss, bce_loss_masked, init_params, ref_paths
+from ..models.dlrm import (bce_loss, bce_loss_masked, init_params,
+                           ps_stack_tables, ref_paths)
 from ..obs import MetricsRegistry, log_step
 from ..optim import get_optimizer
 from ..pipeline.prefetch import (PrefetchPlane, prefetch_candidates,
@@ -148,6 +170,7 @@ from ..pipeline.prefetch import (PrefetchPlane, prefetch_candidates,
 from ..pipeline.runner import PipelinedRunner
 from ..pipeline.streams import ChainStreams
 from ..pipeline.window import LookaheadWindow
+from ..ps import make_partition
 from ..quant.codecs import (codec_name, get_codec, quantize_with_feedback,
                             resolve_link_codecs, row_wire_bytes, ste)
 from ..device import resolve_device
@@ -161,10 +184,6 @@ __all__ = ["build_parser", "make_train_step", "run_dlrm", "run_lm", "main"]
 def _unported(args) -> None:
     """Raise on every flag of the reference this slice does not carry."""
     todo = [
-        (args.n_ps > 1, "--n-ps > 1", "A2"),
-        (args.ps_hetero, "--ps-hetero", "A2"),
-        (args.ps_layout != "contiguous", "--ps-layout", "A2"),
-        (args.esd_engine == "dense", "--esd-engine dense", "A4"),
         (args.trace_out is not None, "--trace-out", "A15"),
         (args.validate_timing, "--validate-timing", "A15"),
         (args.trace_buffer != 65536, "--trace-buffer", "A15"),
@@ -263,6 +282,10 @@ def _pipeline_guards(args, use_esd: bool) -> bool:
         if args.lookahead <= 0:
             raise SystemExit("--prefetch needs --lookahead > 0 (the window "
                              "meta is what names the future misses)")
+        if args.n_ps > 1:
+            raise SystemExit("--prefetch with --n-ps > 1 is not wired (the "
+                             "staging plane gathers from the unstacked "
+                             "table)")
         if args.fault_plan:
             raise SystemExit("--prefetch with --fault-plan is not wired")
         if args.prefetch_slots < args.prefetch:
@@ -288,6 +311,7 @@ def run_dlrm(args, model=None) -> dict:
     V = wl.vocab
     depth = args.pipeline_depth
     use_esd = args.esd_alpha is not None
+    sparse_esd = args.esd_engine == "sparse"
     capacity = int(args.capacity_ratio * V)
     capacity = capacity if capacity < V else None     # None: no LRU cut
     if args.cap_slack > 0.0:
@@ -317,9 +341,26 @@ def run_dlrm(args, model=None) -> dict:
         raise SystemExit("--codec-policy bandwidth needs --codec (it picks "
                          "which codec the slow links drop to)")
 
+    # multi-PS: partition the vocabulary, run ids, planes and tables in
+    # the PS-linearized space, and price each op at the owning shard's link
+    part = make_partition(V, args.n_ps, args.ps_layout) if args.n_ps > 1 \
+        else None
+    if part is not None and use_esd and not sparse_esd:
+        raise SystemExit("--n-ps > 1 requires --esd-engine sparse "
+                         "(the dense engine has no per-PS accounting)")
+    if args.ps_hetero and part is None:
+        raise SystemExit("--ps-hetero needs --n-ps > 1 (there is no "
+                         "per-shard link to skew with a single PS)")
+    V_space = part.linear_size if part is not None else V
+
     # each link's row time at its codec's payload + metadata bytes (no
-    # codec: 4 bytes an element)
-    bw = DEFAULT_BANDWIDTHS(n)
+    # codec: 4 bytes an element); (n, n_ps) with several servers
+    if part is not None:
+        bw = (hetero_ps_bandwidths(n, part.n_ps) if args.ps_hetero
+              else np.repeat(DEFAULT_BANDWIDTHS(n)[:, None], part.n_ps,
+                             axis=1))
+    else:
+        bw = DEFAULT_BANDWIDTHS(n)
     link_codecs = resolve_link_codecs(args.codec_policy, bw, codec)
     t_tran = torch.tensor(
         transmission_time_codec(cfg.embedding_dim, bw, link_codecs),
@@ -330,6 +371,9 @@ def run_dlrm(args, model=None) -> dict:
     if model is None:
         model = init_params(cfg, wl, torch.Generator(device=device)
                             .manual_seed(args.seed), device)
+    if part is not None:
+        # the tables re-homed onto the servers: (n_ps, max_rows, E)
+        model = ps_stack_tables(model, part)
     # PAD-masked loss only when PAD rows can appear: capacity slack skews
     # batches, and under a fault plan a dead worker's exchanged block
     # comes back all PAD
@@ -379,7 +423,10 @@ def run_dlrm(args, model=None) -> dict:
             raise_on_overflow(counts)
             base_ops = ("miss_pull", "update_push", "evict_push")
             ops = {op: counts[op].cpu().numpy() for op in base_ops}
-            rec["cost"] = float(sum((ops[o] * t_np).sum() for o in ops))
+            # ops x link times, per (worker, PS) with several servers
+            per = "_ps" if part is not None else ""
+            rec["cost"] = float(sum((counts[op + per].cpu().numpy()
+                                     * t_np).sum() for op in base_ops))
             rec.update({op: int(v.sum()) for op, v in ops.items()})
             # the miss split: with the staging plane on, a miss whose row
             # was staged left the critical path (prefetch off: every
@@ -412,14 +459,15 @@ def run_dlrm(args, model=None) -> dict:
         # with a fault plan the elastic stages take three per-step tensors
         # (link times, cost bias, active mask) of fixed shape
         decide, advance, realized, out_rows = make_dlrm_esd_stages(
-            n, m, t_tran, args.esd_alpha, exchange=args.exchange,
-            cap_slack=args.cap_slack, capacity=capacity, codec=codec,
-            elastic=plan is not None,
+            n, m, t_tran, args.esd_alpha, part=part, exchange=args.exchange,
+            cap_slack=args.cap_slack, sparse_esd=sparse_esd,
+            capacity=capacity, codec=codec, elastic=plan is not None,
             max_failures=plan.max_inactive() if plan is not None else 0)
         with streams.chain():
             # L = out_rows * W ids per worker after the exchange
-            esd = esd_sparse_init(n, V, capacity,
-                                  max_ids=out_rows * wl.width, device=device)
+            esd = (esd_sparse_init(n, V_space, capacity,
+                                   max_ids=out_rows * wl.width, device=device)
+                   if sparse_esd else esd_init(n, V, device))
             if use_prefetch:
                 pf_plane = prefetch_init(args.prefetch_slots,
                                          cfg.embedding_dim, device)
@@ -473,8 +521,10 @@ def run_dlrm(args, model=None) -> dict:
     if not use_esd:
         batches = device_batches()
         for i in range(start, args.steps):
-            batch, meta = next(batches)
-            loss = train_step(batch)
+            (sparse, dense, labels), meta = next(batches)
+            if part is not None:
+                sparse = part.to_linear(sparse)
+            loss = train_step((sparse, dense, labels))
             trained(i)
             record(i, loss, None, meta, {})
     else:
@@ -525,7 +575,8 @@ def run_dlrm(args, model=None) -> dict:
             i = next(dec_step)
             if use_prefetch:
                 streams.wait(pull_done)
-                state = with_staged(state, staged_membership(pf_plane, V, i))
+                state = with_staged(state,
+                                    staged_membership(pf_plane, V_space, i))
             extra = () if plan is None else fault_arrays(i)
             assign, alg1 = decide(state, batch[0][0], *extra)
             return assign, streams.to_host(alg1)
@@ -555,7 +606,7 @@ def run_dlrm(args, model=None) -> dict:
             if use_prefetch:
                 # split this step's misses against the plane as staged by
                 # steps < i, then pull rows for the window's future misses
-                memb = staged_membership(pf_plane, V, i)
+                memb = staged_membership(pf_plane, V_space, i)
                 x, new_state, counts = advance(state, s, d, l, assign, memb)
                 cids, cexp = prefetch_candidates(meta, i, pf_cands)
                 sel = prefetch_select(
@@ -593,7 +644,7 @@ def run_dlrm(args, model=None) -> dict:
                 return streams.to_host(realized(state, batch[0][0], assign,
                                                 *extra))
         if args.decide_ahead:
-            repair = make_dlrm_repair_stage(n, m, t_tran,
+            repair = make_dlrm_repair_stage(n, m, t_tran, part=part,
                                             cap_slack=args.cap_slack)
 
             @on_chain
@@ -667,7 +718,9 @@ def build_parser():
     ap.add_argument("--esd-alpha", type=float, default=None,
                     help="enable ESD dispatch with this HybridDis alpha")
     ap.add_argument("--esd-engine", choices=("sparse", "dense"),
-                    default="sparse")
+                    default="sparse",
+                    help="touched-ids (sparse) or full-plane (dense) cache "
+                         "engine")
     ap.add_argument("--exchange", choices=("padded", "ragged"),
                     default="padded",
                     help="sample wire path: fixed m/n all_to_all (padded) "
@@ -697,10 +750,14 @@ def build_parser():
                          "(double-buffered); logs the commit-time re-score "
                          "alg1_realized (needs --pipeline-depth >= 2)")
     ap.add_argument("--capacity-ratio", type=float, default=0.2)
-    ap.add_argument("--n-ps", type=int, default=1)
+    ap.add_argument("--n-ps", type=int, default=1,
+                    help="partition the embedding vocabulary over this many "
+                         "parameter servers")
     ap.add_argument("--ps-layout", choices=("contiguous", "hashed"),
                     default="contiguous")
-    ap.add_argument("--ps-hetero", action="store_true")
+    ap.add_argument("--ps-hetero", action="store_true",
+                    help="heterogeneous PS links: last PS 0.5 Gbps, the "
+                         "rest 5 Gbps (needs --n-ps > 1)")
     ap.add_argument("--fault-plan", default=None,
                     help="fault schedule: the DSL (e.g. 'crash@3:1g; "
                          "rejoin@6:1w; straggle@2:0x4-10') or @file.json; "

@@ -18,7 +18,14 @@ from .layers import init_linear, linear
 from .tree import to_numpy, to_ref
 
 __all__ = ["DLRM", "init_params", "params_from_jax", "ref_paths",
-           "params_to_jax", "bce_loss", "bce_loss_masked"]
+           "params_to_jax", "ps_stack_tables", "bce_loss",
+           "bce_loss_masked"]
+
+
+def _flat_table(tbl: torch.Tensor) -> torch.Tensor:
+    """A lookup view of a table: PS-stacked (n_ps, max_rows, E) flattens
+    so PS-linearized ids index it directly; flat (V, E) passes through."""
+    return tbl.reshape(-1, tbl.shape[-1]) if tbl.dim() == 3 else tbl
 
 
 def _mlp(layers, x):
@@ -30,10 +37,13 @@ def _mlp(layers, x):
 
 
 class DLRM(nn.Module):
-    """WDL / DFM / DCN over one flat ``(V, E)`` embedding table.
+    """WDL / DFM / DCN over one flat ``(V, E)`` embedding table, or its
+    PS stack (:func:`ps_stack_tables`).
 
     Weights keep the JAX package's layout: MLP weights ``(din, dout)``,
-    ``wide`` ``(V, 1)`` (wdl), ``cross_w``/``cross_b`` ``(L, d)`` (dcn).
+    ``wide`` ``(V, 1)`` (wdl), ``cross_w``/``cross_b`` ``(L, d)`` (dcn);
+    a PS-stacked ``embed`` and ``wide`` are ``(n_ps, max_rows, E)`` and
+    ``(n_ps, max_rows, 1)``.
     The parameters are built frozen, for serving; the training driver
     makes them trainable with ``model.requires_grad_(True)``, and the
     embedding gather then gives a dense ``(V, E)`` gradient, as JAX's.
@@ -65,6 +75,10 @@ class DLRM(nn.Module):
         """sparse_ids: (B, W) flat ids (W = fixed fields + multi-hot
         history slots, PAD=-1); dense: (B, n_dense) -> logits (B,).
 
+        Multi-PS: with PS-stacked tables the ids are PS-linearized, and
+        the stack flattens so row ``p * max_rows + local`` is PS ``p``'s
+        ``local`` row.
+
         ``emb_all`` injects pre-gathered (B, W, E) embedding rows (PAD rows
         already zeroed) in place of the table gather — the serving path
         reads rows from its TTL cache plane and runs the identical
@@ -76,7 +90,7 @@ class DLRM(nn.Module):
         valid = sparse_ids >= 0
         ids = torch.where(valid, sparse_ids, 0).long()
         if emb_all is None:
-            emb_all = self.embed[ids] * valid[..., None]      # (B, W, E)
+            emb_all = _flat_table(self.embed)[ids] * valid[..., None]
         fields = emb_all[:, :F]
         hist = emb_all[:, F:]
         hn = valid[:, F:].sum(dim=1, keepdim=True).clamp(min=1)
@@ -88,7 +102,7 @@ class DLRM(nn.Module):
         if cfg.kind == "wdl":
             deep_in = emb_all.sum(dim=1) / denom + d
             deep = _mlp(self.top, deep_in)[:, 0]
-            wide = (self.wide[ids][..., 0] * valid).sum(dim=1)
+            wide = (_flat_table(self.wide)[ids][..., 0] * valid).sum(dim=1)
             return deep + wide
         if cfg.kind == "dfm":
             # FM second-order via the sum-square trick (fields + pooled + dense)
@@ -147,6 +161,33 @@ def init_params(cfg: DLRMConfig, workload: CTRWorkload,
         extra["cross_b"] = torch.zeros((cfg.cross_layers, d),
                                        dtype=torch.float32, device=device)
     return DLRM(cfg, embed, bottom, top, **extra)
+
+
+def ps_stack_tables(model: DLRM, part) -> DLRM:
+    """The model with its flat (V, ...) tables re-homed onto
+    ``part.n_ps`` parameter servers: rows permute into the
+    :mod:`repro_torch.ps` (shard, local_row) layout and stack to (n_ps,
+    max_rows, ...), the padding rows zero and never gathered (lookups use
+    PS-linearized ids).  A new model: the other parameters are copies."""
+    lin = torch.as_tensor(np.asarray(part.to_linear(np.arange(part.vocab))),
+                          device=model.embed.device)
+    stacked = {}
+    for name in ("embed", "wide"):
+        tbl = getattr(model, name)
+        if tbl is None:
+            continue
+        full = torch.zeros((part.linear_size, tbl.shape[1]), dtype=tbl.dtype,
+                           device=tbl.device)
+        full[lin] = tbl.detach()
+        stacked[name] = full.reshape(part.n_ps, part.max_rows, tbl.shape[1])
+    def copy(ws):
+        return [w.detach().clone() for w in ws]
+
+    extra = {k: getattr(model, k).detach().clone()
+             for k in ("cross_w", "cross_b") if getattr(model, k) is not None}
+    out = DLRM(model.cfg, stacked["embed"], copy(model.bottom),
+               copy(model.top), wide=stacked.get("wide"), **extra)
+    return out.requires_grad_(model.embed.requires_grad)
 
 
 def params_from_jax(np_params: dict, cfg: DLRMConfig, device="cpu") -> DLRM:

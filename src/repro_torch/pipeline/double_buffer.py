@@ -63,7 +63,8 @@ def _np(x) -> np.ndarray:
 
 
 def changed_ids(state_a, state_b) -> np.ndarray:
-    """Ids whose cache-state column differs between two SparseEsdStates.
+    """Ids whose cache-state column differs between two cache states
+    (either engine's).
 
     Compares the planes the Alg.-1 cost matrix reads (``latest``,
     ``dirty``).  For consecutive states this is exactly the intervening

@@ -233,7 +233,8 @@ def staged_membership(plane: PrefetchPlane, V: int, step: int
                       ) -> torch.Tensor:
     """(V,) bool: ids with a live staged row at ``step`` (the ``staged=``
     miss split of :func:`repro_torch.core.dispatch.
-    esd_state_update_sparse`)."""
+    esd_state_update_sparse` and :func:`repro_torch.core.dispatch.
+    esd_state_update`)."""
     alive = (plane.ids >= 0) & (plane.expiry >= step)
     idx = torch.where(alive, plane.ids, V).long()
     out = torch.zeros((V + 1,), dtype=torch.bool, device=plane.ids.device)

@@ -15,7 +15,11 @@ carried between the two packages.
   port's driver tree (``train_tree`` / ``load_train_tree``), and the
   port's save of the same values is restored by the reference's
   ``restore_checkpoint``; both archives hold the same entries, and every
-  value is equal.
+  value is equal.  The same for a PS-stacked run's tree (``--n-ps 2``)
+  and a dense-engine run's (``--esd-engine dense``).
+* ``run_dlrm`` with ``--n-ps`` and with ``--esd-engine dense``, at
+  depth 1 and 2, resumed from a checkpoint: the uninterrupted run's
+  records exactly.
 """
 import dataclasses
 import zipfile
@@ -303,3 +307,117 @@ def test_lm_checkpoint_both_ways(arch, dtype, tmp_path):
             np.testing.assert_array_equal(p[key], r[key], err_msg=key)
     back, _ = JCK.restore_checkpoint(tmp_path / "port", want)
     _ref_equal(jax.tree.map(np.asarray, back), want)
+
+
+# --------------------------------------------------------------------------
+# multi-PS and the dense engine (A2, A4)
+# --------------------------------------------------------------------------
+def _ps_or_dense_trees(kind, seed):
+    """The reference's wdl-tiny tree for a 2-PS run (PS-stacked tables,
+    rowwise Adagrad per (shard, row), the sparse state on the linear
+    space) or a dense-engine run (``esd_init``), filled; and the port's
+    driver template of the same run."""
+    from repro.core.dispatch_tpu import esd_init as j_dense_init
+    from repro.ps import make_partition as j_partition
+    from repro_torch.core.dispatch import esd_init
+    from repro_torch.ps import make_partition
+
+    arch = "wdl-tiny"
+    cfg = J_DLRM[arch]
+    wl = J_WORKLOADS[cfg.workload]
+    V = wl.vocab
+    params = j_dlrm.init_params(jax.random.key(seed), cfg, wl)
+    model = dlrm.init_params(DLRM_CONFIGS[arch], WORKLOADS[cfg.workload],
+                             torch.Generator().manual_seed(seed), "cpu")
+    if kind == "ps":
+        jpart, part = j_partition(V, 2), make_partition(V, 2)
+        params = j_dlrm.ps_stack_tables(params, jpart)
+        model = dlrm.ps_stack_tables(model, part)
+        jesd = j_esd_init(N, jpart.linear_size, int(0.2 * V),
+                          max_ids=16 * wl.width)
+        esd = esd_sparse_init(N, part.linear_size, int(0.2 * V),
+                              max_ids=16 * wl.width)
+    else:
+        jesd, esd = j_dense_init(N, V), esd_init(N, V)
+    tree = {"params": params, "opt": j_adagrad(1e-2).init(params),
+            "esd": jesd,
+            "qres": {k: jnp.zeros_like(params[k]) for k in ("embed", "wide")}}
+    tree = _fill(tree, seed)
+    tree["params"] = jax.tree.map(np.asarray, params)
+    step = make_train_step(model, bce_loss, rowwise_adagrad(1e-2), "int8")
+    return tree, model, dlrm.ref_paths(model), step.state, esd
+
+
+@pytest.mark.parametrize("kind", ["ps", "dense"])
+def test_ps_and_dense_checkpoints_both_ways(kind, tmp_path):
+    """A PS-stacked run's checkpoint ((2, max_rows, E) tables, (2,
+    max_rows) accumulators, the linear-space state) and a dense-engine
+    run's (``esd::{latest, dirty, last_access, step}``): the reference's
+    restored by the port's driver tree, the port's save restored by the
+    reference, every entry equal."""
+    want, model, paths, state, esd = _ps_or_dense_trees(kind, seed=5)
+    assert want["params"]["embed"].ndim == (3 if kind == "ps" else 2)
+    JCK.save_checkpoint(tmp_path / "ref", 3, want)
+    params = list(model.parameters())
+    restored, step = TCK.restore_checkpoint(
+        tmp_path / "ref", TCK.train_tree(params, paths, state, esd))
+    assert step == 3
+    esd = TCK.load_train_tree(restored, params, paths, state)
+    assert type(esd).__name__ == type(want["esd"]).__name__
+    got = {"params": dlrm.params_to_jax(model),
+           "opt": to_numpy(opt_to_ref(state["opt"], paths)),
+           "esd": type(want["esd"])(*(getattr(esd, f.name).numpy()
+                                      for f in dataclasses.fields(esd))),
+           "qres": to_numpy(state["qres"])}
+    _ref_equal(got, want)
+    TCK.save_checkpoint(tmp_path / "port", 3,
+                        TCK.train_tree(params, paths, state, esd))
+    with np.load(tmp_path / "port" / "ckpt_00000003.npz") as p, \
+            np.load(tmp_path / "ref" / "ckpt_00000003.npz") as r:
+        assert sorted(p.files) == sorted(r.files)
+        for key in r.files:
+            assert p[key].dtype == r[key].dtype, key
+            np.testing.assert_array_equal(p[key], r[key], err_msg=key)
+    back, _ = JCK.restore_checkpoint(tmp_path / "port",
+                                     jax.tree.map(jnp.zeros_like, want))
+    _ref_equal(jax.tree.map(np.asarray, back), want)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--n-ps", "2", "--ps-hetero"],
+    ["--n-ps", "3", "--ps-layout", "hashed", "--pipeline-depth", "2"],
+    ["--esd-engine", "dense"],
+    ["--esd-engine", "dense", "--pipeline-depth", "2"]])
+def test_ps_and_dense_runs_resume_exactly(flags, tmp_path):
+    """``run_dlrm`` at wdl-tiny, 4 steps with a checkpoint at step 2,
+    resumed from it (the step-4 checkpoint removed): the records from
+    step 2 on equal the uninterrupted run's exactly.  One CPU thread, as
+    tests/test_torch_elastic_resume.py runs (a threaded reduction moves
+    a loss's last bits between runs)."""
+    from repro_torch.launch.train import main
+
+    keys = ("loss", "miss_pull", "update_push", "evict_push", "cost",
+            "alg1_est")
+    argv = ["--arch", "wdl-tiny", "--workers", "4", "--batch-per-worker",
+            "8", "--steps", "4", "--esd-alpha", "1", "--exchange", "ragged",
+            "--device", "cpu", "--ckpt-dir", str(tmp_path), "--ckpt-every",
+            "2"] + flags
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        full = main(argv)["metrics"]
+        (tmp_path / "ckpt_00000004.npz").unlink()
+        resumed = main(argv + ["--resume"])["metrics"]
+    finally:
+        torch.set_num_threads(threads)
+    assert [r["step"] for r in resumed] == [2, 3]
+    assert ([[r[k] for k in keys] for r in resumed]
+            == [[r[k] for k in keys] for r in full[2:]])
+    with np.load(tmp_path / "ckpt_00000002.npz") as ck:
+        if "--n-ps" in flags:
+            n_ps = int(flags[flags.index("--n-ps") + 1])
+            assert ck["params::embed"].shape[0] == n_ps
+            assert ck["opt::embed"].shape[0] == n_ps
+        else:
+            assert "esd::slots" not in ck.files
+            assert ck["esd::latest"].shape == (4, 4400)

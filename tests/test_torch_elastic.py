@@ -7,10 +7,10 @@ repro.elastic on the same numpy inputs, on the CPU.
   packages): equal.
 * ``effective_t`` and ``cost_column_bias`` (numpy, and the bias on a
   torch mask): exact.
-* ``mask_state`` on the sparse engine's state (torch against jnp) and
-  on the dense engine's planes (numpy; the port has no dense engine
-  yet, ROADMAP A4): exact, and every plane unchanged bit for bit with
-  all workers active.
+* ``mask_state`` on the sparse engine's state and on the dense
+  engine's (torch against jnp), and on the dense engine's planes as
+  numpy: exact, and every plane unchanged bit for bit with all workers
+  active.
 * The crash, departure and rejoin handoffs on both numpy cache engines
   (``ClusterCache``, ``SparseClusterCache``): the handoff plans and
   every cache plane after them, exact.
@@ -227,6 +227,30 @@ def test_mask_state_dense_planes_exact(active):
     for f in ("latest", "dirty", "last_access"):
         assert getattr(got, f).dtype == getattr(want, f).dtype
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+
+
+@pytest.mark.parametrize("active", [[1, 1, 1], [1, 0, 1], [0, 1, 1]])
+def test_mask_state_dense_engine_exact(active):
+    """The port's dense ``EsdState`` (torch planes) against the
+    reference's ``EsdState`` under ``jax.numpy``."""
+    rng = np.random.default_rng(sum(active) + 7)
+    planes = {"latest": rng.random((3, 40)) < 0.5,
+              "dirty": rng.random((3, 40)) < 0.5,
+              "last_access": rng.integers(0, 9, (3, 40)).astype(np.int32),
+              "step": np.int32(4)}
+    js = JD.EsdState(**{k: jnp.asarray(v) for k, v in planes.items()})
+    ts = TD.EsdState(**{k: torch.as_tensor(v) for k, v in planes.items()})
+    active = np.asarray(active, bool)
+    want = JE.mask_state(js, jnp.asarray(active))
+    for act in (active, torch.from_numpy(active)):
+        got = TE.mask_state(ts, act)
+        assert type(got) is TD.EsdState
+        for f in ("latest", "dirty", "last_access", "step"):
+            g, w = getattr(got, f).numpy(), np.asarray(getattr(want, f))
+            assert g.dtype == w.dtype, f
+            np.testing.assert_array_equal(g, w, err_msg=f)
+            if active.all():
+                assert torch.equal(getattr(got, f), getattr(ts, f))
 
 
 # --------------------------------------------------------------------------

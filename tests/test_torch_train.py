@@ -1,5 +1,6 @@
 """The port's training driver on the CPU: the entry point runs, logs
-finite losses, defaults to the card and raises on what it does not
+finite losses, defaults to the card, refuses what the reference's
+driver refuses (with its messages) and raises on what it does not
 carry yet.  Its parity with the JAX package is in
 ``test_torch_train_slice.py``."""
 import math
@@ -50,13 +51,65 @@ def test_runs_without_esd_and_with_other_paths(extra):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--n-ps", "2"], "A2"), (["--ps-hetero"], "A2"),
-    (["--esd-engine", "dense"], "A4"), (["--trace-out", "t.json"], "A15"),
-    (["--validate-timing"], "A15"),
-    (["--ps-layout", "hashed"], "A2"), (["--trace-buffer", "10"], "A15")])
+    (["--trace-out", "t.json"], "A15"), (["--validate-timing"], "A15"),
+    (["--trace-buffer", "10"], "A15")])
 def test_unported_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         main(TINY + ["--esd-alpha", "1", "--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--esd-alpha", "1", "--n-ps", "2"],
+    ["--esd-alpha", "1", "--exchange", "ragged", "--n-ps", "3",
+     "--ps-layout", "hashed", "--ps-hetero"],
+    ["--esd-alpha", "1", "--esd-engine", "dense"],
+    ["--esd-alpha", "1", "--ps-layout", "hashed"],
+    ["--n-ps", "3", "--ps-layout", "hashed"]])
+def test_ps_and_dense_engine_flags_run(flags):
+    """--n-ps, --ps-layout, --ps-hetero and --esd-engine dense are
+    ported (A2, A4): each runs (the slice's parity with the reference is
+    tests/test_torch_ps_slice.py).  Without ESD the PS-stacked tables,
+    looked up with PS-linearized ids, train as the flat ones do, and
+    --ps-layout with one PS changes nothing."""
+    out = main(TINY + ["--device", "cpu"] + flags)
+    assert out["steps"] == 3
+    assert all(math.isfinite(r["loss"]) for r in out["metrics"])
+    esd = "--esd-alpha" in flags
+    assert ("cost" in out["metrics"][0]) == esd
+    if esd:
+        assert all(r["cost"] > 0 for r in out["metrics"])
+        engine = "dense" if "dense" in flags else "sparse"
+        assert type(out["esd_state"]).__name__ == (
+            "EsdState" if engine == "dense" else "SparseEsdState")
+    if "--n-ps" not in flags:
+        plain = main(TINY + ["--device", "cpu"]
+                     + [f for f in flags if f not in ("--ps-layout",
+                                                      "hashed")])
+        assert [r["loss"] for r in out["metrics"]] == \
+            [r["loss"] for r in plain["metrics"]]
+    elif not esd:
+        flat = main(TINY + ["--device", "cpu"])
+        assert [r["loss"] for r in out["metrics"]] == \
+            [r["loss"] for r in flat["metrics"]]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--esd-alpha", "1", "--n-ps", "2", "--esd-engine", "dense"],
+    ["--ps-hetero"], ["--esd-alpha", "1", "--ps-hetero"],
+    ["--esd-alpha", "1", "--n-ps", "2", "--lookahead", "2", "--prefetch",
+     "8"]])
+def test_ps_and_dense_engine_guards(flags):
+    """The reference driver's SystemExit guards, with its messages: the
+    dense engine and the prefetch plane refuse --n-ps > 1, --ps-hetero
+    needs it."""
+    from repro.launch import train as ref_train
+
+    with pytest.raises(SystemExit) as want:
+        ref_train.main(TINY[:2] + ["--steps", "1"] + flags)
+    with pytest.raises(SystemExit) as got:
+        main(TINY + ["--device", "cpu"] + flags)
+    assert str(got.value) == str(want.value)
+    assert "--n-ps" in str(got.value)
 
 
 @pytest.mark.parametrize("flags", [
