@@ -4,8 +4,8 @@ LM training with its flash-attention kernel, the pipelined training
 step with its prefetch plane, the LM serving path (prefill and
 KV-cache decode) and MoE layers, and elastic training under a fault
 plan with its checkpoints and resume, training over several parameter
-servers and on the dense cache engine, on one CUDA card and check
-them.
+servers and on the dense cache engine, and the SSM and hybrid LMs with
+their linear-scan kernels, on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -69,7 +69,13 @@ Phases, each printing its own lines:
    backward; and the
    gradients of its autograd Function against autograd of its plain
    version (1e-4); SDPA timed as the library yardstick, the bound at 989
-   TFLOP/s bf16 (67 f32) and each kernel's TFLOP/s;
+   TFLOP/s bf16 (67 f32) and each kernel's TFLOP/s.  The linear
+   recurrence's kernels (``linear_scan`` and ``linear_scan_bwd``) at
+   falcon-mamba-7b's state (B 1, S 2,048, C 8,192 x 16), recurrentgemma-
+   2b's (C 2,560) and a ragged shape, against their plain version within
+   2e-6 of the largest output, beside the byte bound (no PyTorch call
+   computes a linear recurrence), and the autograd Function's gradients
+   against autograd of the plain version;
 4. parity — the serve step and a TTL refresh, and 3 steps of the training
    stages, exact and with ``--codec int8``, on the card against the same
    calls on the CPU at wdl-tiny; the simulator with ``opt="auction"``
@@ -91,7 +97,10 @@ Phases, each printing its own lines:
    depth 1 exact and int8, depth 2) card against CPU: integer fields
    equal, losses and costs within 1e-5; ``run_dlrm --n-ps 3 --ps-layout
    hashed --ps-hetero`` and ``--esd-engine dense`` at depth 2, card
-   against CPU alike;
+   against CPU alike; 3 ``run_lm`` steps at S 2,048 and 8 decode steps of
+   falcon-mamba's and recurrentgemma's smoke configs (f32), losses within
+   1e-4, logits within 1e-5, the scan kernels once a recurrent layer and
+   step;
 5. serve — ``run_serve`` at wdl-s1 (4 workers, 2,000 QPS for 1 s), then
    for 0.5 s with ``--codec int8``;
 6. train — ``run_dlrm`` at wdl-s1 (4 workers x 256 samples, ESD alpha 1,
@@ -173,9 +182,20 @@ Phases, each printing its own lines:
    (one staged_gather a step); then ``esd_dispatch`` with the dense
    cost (B1 over the (502,000, 4) per-id table) on the run's final
    state: 4 B1 launches, one auction_solve and one pack_send_all, the
-   compact cost's assignment and exchange.
+   compact cost's assignment and exchange;
+17. lm-ssm — falcon-mamba-7b at full width (d 4,096, d_inner 8,192, N
+   16, vocab 65,024, bf16), its 64 layers cut to ``MAMBA_LAYERS``: 3
+   ``run_lm`` steps at B 1, S 2,048 (ms a step, tokens/s, peak memory;
+   the scan's forward and backward once a layer and step, B8 never),
+   then f32 decode against an f32 prefill of B 4 x S 256 within
+   ``SSM_F32_TOL``; recurrentgemma-2b at full width and depth (26
+   layers: 18 RG-LRU, 8 local at hd 256, window 2,048, vocab 256,000,
+   bf16): 3 ``run_lm`` steps at B 1, S 2,048 (the scan once an RG-LRU
+   layer and step each way, the local layers on the blockwise route, B8
+   never), prefills of B 1 x S 4,096 (the window cuts), and decode at B
+   4, prompt 64 + 64 greedy.
 
-Each run of phases 5 to 16 sets every kernel's launch counter to 0 just
+Each run of phases 5 to 17 sets every kernel's launch counter to 0 just
 before and reads the counters just after.  B1's per-shard and dense
 inputs get a line each (time, plain and ``embedding_bag`` times, bound,
 launches).  Then one JSON line of kernel
@@ -219,7 +239,9 @@ SOURCES = {"pooled_lookup": CSRC + "emb_lookup.cu",
            "auction_bids": CSRC + "auction.cu",
            "auction_solve": CSRC + "auction.cu",
            "flash_attention": CSRC + "flash_attn_sm90.cu",
-           "flash_attention_bwd": CSRC + "flash_attn_bwd.cu"}
+           "flash_attention_bwd": CSRC + "flash_attn_bwd.cu",
+           "linear_scan": CSRC + "linear_scan.cu",
+           "linear_scan_bwd": CSRC + "linear_scan.cu"}
 REPLACES = {"pooled_lookup": "src/repro/kernels/emb_lookup.py:88",
             "pack_send_all": "src/repro/kernels/exchange_pack.py:34 with "
                              "the slot map around it: "
@@ -244,7 +266,11 @@ REPLACES = {"pooled_lookup": "src/repro/kernels/emb_lookup.py:88",
             "flash_attention": "src/repro/kernels/flash_attn.py:66",
             "flash_attention_bwd": "the gradient of src/repro/kernels/"
                                    "flash_attn.py:66 (JAX differentiates "
-                                   "src/repro/models/layers.py:141)"}
+                                   "src/repro/models/layers.py:141)",
+            "linear_scan": "src/repro/models/ssm.py:57 chunked_linear_scan "
+                           "(jnp, no Pallas kernel)",
+            "linear_scan_bwd": "its gradient (JAX differentiates "
+                               "src/repro/models/ssm.py:57)"}
 LM_ARGV = ["--arch", "smollm-360m", "--seq-len", "2048",
            "--batch-per-worker", "4", "--steps", "5", "--device", "cuda"]
 TRAIN_ARGV = ["--arch", "wdl-s1", "--workers", "4", "--batch-per-worker",
@@ -327,7 +353,7 @@ def phase_build():
     from repro_torch.kernels import _build
 
     names = ("emb_lookup", "exchange_pack", "auction", "flash_attn",
-             "flash_attn_sm90", "flash_attn_bwd")
+             "flash_attn_sm90", "flash_attn_bwd", "linear_scan")
     t = time.perf_counter()
     _build.load_libraries(*names)
     dt = time.perf_counter() - t
@@ -367,10 +393,10 @@ def phase_build():
 
 def _launch_counters():
     from repro_torch.kernels import (auction, emb_lookup, exchange_pack,
-                                     flash_attn)
+                                     flash_attn, linear_scan)
 
     return (emb_lookup.LAUNCHES, exchange_pack.LAUNCHES, auction.LAUNCHES,
-            flash_attn.LAUNCHES)
+            flash_attn.LAUNCHES, linear_scan.LAUNCHES)
 
 
 def _zero_launches():
@@ -2648,6 +2674,353 @@ def phase_simulate_faults(seed: int) -> dict:
     return launches
 
 
+# the linear recurrence's shapes on phase 17's paths: falcon-mamba-7b's
+# state (d_inner 8,192 x N 16) and recurrentgemma-2b's lru_width, B 1,
+# S 2,048; and a ragged one (C not a multiple of 32, S of a tile)
+SCAN_SHAPES = {"falcon-mamba-7b": (1, 2048, 8192 * 16),
+               "recurrentgemma-2b": (1, 2048, 2560),
+               "ragged": (3, 1000, 1000)}
+# kernel against plain, relative to the output's largest magnitude: the
+# kernel sums each thread's steps in order, the plain version by
+# doubling; with every a in (0, 1) a rounding error decays along the
+# sequence, and on the CPU either stays within 2e-7 of an f64 scan
+SCAN_TOL = 2e-6
+
+
+def phase_scan_kernels(seed: int) -> dict:
+    """``linear_scan`` and ``linear_scan_bwd`` against their plain
+    version at ``SCAN_SHAPES``, with device, call and plain ms and the
+    byte bound; the autograd Function's gradients against autograd of
+    the plain version.  The kernels' records are falcon-mamba's."""
+    from repro_torch.kernels import linear_scan as LS
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 23)
+    rec = {}
+
+    def rel_err(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    for what, (B, S, C) in SCAN_SHAPES.items():
+        # a in [0.5, 0.999): decays from 2 to 1,000 steps, as Mamba's
+        # exp(dt A) and RG-LRU's sigmoid(Lambda)^(8 r) span
+        a = 0.5 + 0.499 * torch.rand((B, S, C), generator=g, device=dev)
+        b = torch.randn((B, S, C), generator=g, device=dev)
+        h0 = torch.randn((B, C), generator=g, device=dev)
+        gh = torch.randn((B, S, C), generator=g, device=dev)
+        gl = torch.randn((B, C), generator=g, device=dev)
+        h, h_last = LS.linear_scan(a, b, h0)
+        want = LS.linear_scan_ref(a, b, h0)
+        fwd_err = max(rel_err(h, want[0]), rel_err(h_last, want[1]))
+        del want
+        got = LS.linear_scan_backward(a, h, h0, gh, gl)
+        want = LS.linear_scan_bwd_ref(a, h, h0, gh, gl)
+        bwd_err = max(rel_err(x, y) for x, y in zip(got, want))
+        torch.cuda.synchronize()
+        del got, want
+        check(fwd_err <= SCAN_TOL and bwd_err <= SCAN_TOL,
+              f"linear_scan {what} ({B}, {S}, {C}): forward and backward "
+              f"within {SCAN_TOL} of max |plain| (errors {fwd_err}, "
+              f"{bwd_err})")
+        fwd = (lambda: LS.linear_scan(a, b, h0))
+        bwd = (lambda: LS.linear_scan_backward(a, h, h0, gh, gl))
+        ms, call_ms = device_ms(fwd)
+        plain_ms, _ = device_ms(lambda: LS.linear_scan_ref(a, b, h0),
+                                reps=10)
+        bwd_ms, bwd_call = device_ms(bwd)
+        bwd_plain, _ = device_ms(
+            lambda: LS.linear_scan_bwd_ref(a, h, h0, gh, gl), reps=10)
+        n = B * S * C
+        # forward: a, b, h0 read, h, h_last written, an FMA a step;
+        # backward: a, h, g, h0, g_last read, da, db, dh0 written, an FMA
+        # and a product a step
+        b_ms, b_by = bound(3 * n * 4 + 2 * B * C * 4, 2 * n)
+        bb_ms, bb_by = bound(5 * n * 4 + 3 * B * C * 4, 3 * n)
+        n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        warps = LS.block_warps(B * -(-C // 32), n_sms)
+        print(f"[kernel] linear_scan {what} (B {B}, S {S}, C {C}, {warps} "
+              f"warps a block): max err {fwd_err:.3g} of max |h| "
+              f"(tolerance {SCAN_TOL}), {ms:.4f} ms (call {call_ms:.4f}), "
+              f"{3 * n * 4 / ms / 1e6:.1f} GB/s, plain {plain_ms:.4f} ms, "
+              f"bound {b_ms:.6f} ms ({b_by}), library none")
+        print(f"[kernel] linear_scan_bwd {what}: max err {bwd_err:.3g} of "
+              f"max |da|, |db|, |dh0|, {bwd_ms:.4f} ms (call "
+              f"{bwd_call:.4f}), {5 * n * 4 / bwd_ms / 1e6:.1f} GB/s, plain "
+              f"{bwd_plain:.4f} ms, bound {bb_ms:.6f} ms ({bb_by}), library "
+              f"none")
+        if what == "falcon-mamba-7b":
+            rec["linear_scan"] = dict(max_abs_err=fwd_err, ms=ms,
+                                      plain_ms=plain_ms, bound_ms=b_ms,
+                                      bound_by=b_by)
+            rec["linear_scan_bwd"] = dict(max_abs_err=bwd_err, ms=bwd_ms,
+                                          plain_ms=bwd_plain, bound_ms=bb_ms,
+                                          bound_by=bb_by)
+        del a, b, h0, gh, gl, h, h_last
+        torch.cuda.empty_cache()
+
+    # the autograd Function (both kernels) against autograd of the plain
+    # forward, for a loss that reads h and h_last
+    leaves = [0.5 + 0.499 * torch.rand((2, 700, 300), generator=g,
+                                       device=dev),
+              torch.randn((2, 700, 300), generator=g, device=dev),
+              torch.randn((2, 300), generator=g, device=dev)]
+    w, wl = (torch.randn(t.shape, generator=g, device=dev)
+             for t in leaves[1:])
+    grads = []
+    for fn in (LS.scan, LS.linear_scan_ref):
+        ts = [t.clone().requires_grad_() for t in leaves]
+        h, hl = fn(*ts)
+        grads.append(torch.autograd.grad((h * w).sum() + (hl * wl).sum(),
+                                         ts))
+    worst = max(rel_err(x, y) for x, y in zip(*grads))
+    check(worst <= SCAN_TOL, f"scan's gradients within {SCAN_TOL} of "
+                             f"autograd of the plain version ({worst})")
+    print(f"[kernel] scan gradients (2, 700, 300): max err {worst:.3g} of "
+          f"the largest against autograd of the plain version (tolerance "
+          f"{SCAN_TOL})")
+    return rec
+
+
+def phase_ssm_parity(seed: int):
+    """The SSM and hybrid LMs' smoke configs (f32) on the card against
+    the CPU from the same weights: 3 ``run_lm`` steps at S 2,048 (losses
+    within phase 4's 1e-4; the recurrent layers on the linear-scan
+    kernels, recurrentgemma's local layer on the blockwise route, once a
+    recurrent layer and step each, B8 never), then 8 decode steps at B 4
+    from the CPU's trained weights on both (logits within 1e-5)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import build_parser, run_lm
+    from repro_torch.models import api
+
+    for arch in ("falcon-mamba-7b", "recurrentgemma-2b"):
+        cfg = get_config(arch, smoke=True)
+        cpu = api.init_model(cfg, generator=torch.Generator().manual_seed(
+            seed), device="cpu")
+        gpu = copy.deepcopy(cpu).to("cuda")
+        argv = ["--arch", arch, "--smoke", "--seq-len", "2048",
+                "--batch-per-worker", "1", "--steps", "3", "--seed",
+                str(seed)]
+        runs = {}
+        for dev, model in (("cpu", cpu), ("cuda", gpu)):
+            n0 = _read_launches()
+            out = run_lm(build_parser().parse_args(argv + ["--device", dev]),
+                         model=model)
+            runs[dev] = [r["loss"] for r in out["metrics"]]
+            ran = {k: v - n0[k] for k, v in _read_launches().items()
+                   if v != n0[k]}
+        err = max(abs(a - b) for a, b in zip(runs["cpu"], runs["cuda"]))
+        n = 3 * sum(k in ("mamba", "rglru") for k in cfg.kinds())
+        check(all(np.isfinite(runs["cuda"])) and err <= 1e-4,
+              f"{arch} smoke losses on card vs CPU within 1e-4 (max err "
+              f"{err})")
+        check(ran == {"linear_scan": n, "linear_scan_bwd": n},
+              f"{arch} smoke steps ran the scan kernels once a recurrent "
+              f"layer and step, and no other kernel ({ran})")
+        # decode from one set of weights: Adam at lr 1e-2 moves the two
+        # runs' weights apart by up to lr where a gradient is near 0
+        gpu = copy.deepcopy(cpu).to("cuda")
+        toks = torch.as_tensor(np.random.default_rng(seed).integers(
+            0, cfg.vocab, (4, 8)))
+        caches = [api.init_decode_cache(cfg, 4, 8, d) for d in ("cpu",
+                                                                "cuda")]
+        derr = 0.0
+        for pos in range(8):
+            x, caches[0] = api.decode_step(cpu, cfg, toks[:, pos:pos + 1],
+                                           caches[0], pos)
+            y, caches[1] = api.decode_step(gpu, cfg,
+                                           toks[:, pos:pos + 1].cuda(),
+                                           caches[1], pos)
+            derr = max(derr, float((y.cpu() - x).abs().max()))
+        check(derr <= 1e-5, f"{arch} smoke decode on card vs CPU within "
+                            f"1e-5 (max err {derr})")
+        print(f"[parity] {cfg.name} (f32, {cfg.n_layers} layers): 3 LM "
+              f"steps, B 1, S 2048, card vs CPU: losses {runs['cuda']} vs "
+              f"{runs['cpu']}, max abs err {err:.3g} (tolerance 1e-4); card "
+              f"kernel launches {ran}; 8 decode steps after, B 4: logits "
+              f"max abs err {derr:.3g} (tolerance 1e-5)")
+
+
+# phase 17: falcon-mamba-7b at full width with its 64 layers cut to 8 (at
+# 64 the parameters and Adam's f32 moments alone are about 84 GB), and
+# recurrentgemma-2b at full width and depth
+MAMBA_LAYERS = 8
+# f32 decode against f32 prefill at positions 0..255 of falcon-mamba:
+# 8 layers whose scan sums in the kernel's order in the prefill and step
+# by step in decode, GEMMs against GEMVs over up to 8,192 terms; errors
+# near 1e-5 of logits up to ~10, and ``SERVE_F32_TOL``'s 1e-3 keeps the
+# margin
+SSM_F32_TOL = SERVE_F32_TOL
+
+
+def _lm_run(arch: str, cfg, seed: int, model) -> tuple[dict, dict, float]:
+    """3 ``run_lm`` steps of ``cfg`` (a variant of ``arch``) at B 1, S
+    2,048 from zeroed counters: (the summary, the launches, the peak
+    GiB)."""
+    from repro_torch.launch.train import build_parser, run_lm
+
+    args = build_parser().parse_args(
+        ["--arch", arch, "--seq-len", "2048", "--batch-per-worker", "1",
+         "--steps", "3", "--seed", str(seed), "--device", "cuda"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    out = run_lm(args, model=model, cfg=cfg)
+    launches = {k: v for k, v in _read_launches().items() if v}
+    return out, launches, _peak_gib()
+
+
+def phase_lm_ssm(seed: int) -> dict:
+    """falcon-mamba-7b (d 4,096, d_inner 8,192, N 16, dt_rank 256, vocab
+    65,024, tied, bf16) with ``MAMBA_LAYERS`` layers: 3 ``run_lm`` steps
+    at B 1, S 2,048 (the scan's forward and backward once a layer and
+    step, B8 never), then in f32 a prefill of B 4 x S 256 against decode
+    of the same tokens, teacher-forced, within ``SSM_F32_TOL``.
+    recurrentgemma-2b (d 2,560, 10 heads over 1, hd 256, d_ff 7,680
+    geglu, lru_width 2,560, window 2,048, vocab 256,000, bf16) at its 26
+    layers: 3 ``run_lm`` steps at B 1, S 2,048 (the scan once an RG-LRU
+    layer and step each way; its local layers on the blockwise route, B8
+    never), a prefill of B 1 x S 4,096 (the window cuts), then the
+    decode example at B 4, prompt 64 + 64 greedy."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import api
+
+    dev = torch.device("cuda")
+    ex = _decode_example()
+    total: dict = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def seeded():
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    # falcon-mamba-7b
+    arch = "falcon-mamba-7b"
+    cfg = dataclasses.replace(get_config(arch), n_layers=MAMBA_LAYERS)
+    model = api.init_model(cfg, generator=seeded(), device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    out, launches, peak = _lm_run(arch, cfg, seed, model)
+    add(launches)
+    losses = [r["loss"] for r in out["metrics"]]
+    print(f"[lm-ssm] {cfg.name} at full width, {cfg.n_layers} of 64 layers "
+          f"({n_params / 1e9:.3f} B parameters, d {cfg.d_model}, d_inner "
+          f"{cfg.expand * cfg.d_model}, N {cfg.ssm_state}, {cfg.dtype}), B "
+          f"1, S 2048, 3 steps: {out['step_ms_mean']:.3f} ms per step (mean "
+          f"of steps 1..), {out['tokens_per_s']:.1f} tokens/s; losses "
+          f"{losses}; step s {[r['wall_s'] for r in out['metrics']]}; peak "
+          f"memory {peak:.2f} GiB; launches {launches}")
+    n = 3 * cfg.n_layers
+    check(all(np.isfinite(losses)), "every falcon-mamba loss finite")
+    check(launches == {"linear_scan": n, "linear_scan_bwd": n},
+          f"the scan forward and backward once a layer and step, B8 never "
+          f"({launches})")
+    del model, out
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = api.init_model(cfg32, generator=seeded(), device=dev)
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab, (4, 256))
+    _zero_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = make_prefill_step(cfg32)(model, {"tokens": torch.as_tensor(
+        toks, device=dev)})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    got = torch.empty_like(want)
+
+    def keep(pos, logits):
+        got[:, pos] = logits[:, 0]
+
+    dargs = ex["build_parser"]().parse_args(
+        ["--batch", "4", "--prompt-len", "256", "--gen-len", "1",
+         "--device", "cuda"])
+    dec = ex["run"](dargs, cfg=cfg32, model=model, prompts=toks,
+                    on_logits=keep)
+    launches = {k: v for k, v in _read_launches().items() if v}
+    add(launches)
+    err = float((got - want).abs().max())
+    check(launches == {"linear_scan": cfg.n_layers},
+          f"the f32 prefill ran the scan once a layer, decode no kernel "
+          f"({launches})")
+    check(err <= SSM_F32_TOL, f"falcon-mamba f32 decode logits at positions "
+                              f"0..255 within {SSM_F32_TOL} of the "
+                              f"prefill's (max err {err})")
+    print(f"[lm-ssm] {cfg.name} f32: prefill B 4 x S 256 {prefill_ms:.3f} "
+          f"ms (first call); decode B 4 teacher-forced over the same 256 "
+          f"tokens: p50 {dec['step_p50_ms']:.3f} ms a step, logits max abs "
+          f"err {err:.3g} against the prefill's (tolerance {SSM_F32_TOL}; "
+          f"|logits| up to {float(want.abs().max()):.3g}); launches "
+          f"{launches}")
+    del model, want, got
+    torch.cuda.empty_cache()
+
+    # recurrentgemma-2b
+    arch = "recurrentgemma-2b"
+    cfg = get_config(arch)
+    model = api.init_model(cfg, generator=seeded(), device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_rec = sum(k == "rglru" for k in cfg.kinds())
+    out, launches, peak = _lm_run(arch, cfg, seed, model)
+    add(launches)
+    losses = [r["loss"] for r in out["metrics"]]
+    print(f"[lm-ssm] {cfg.name} at full width and depth ({cfg.n_layers} "
+          f"layers: {n_rec} RG-LRU, {cfg.n_layers - n_rec} local; "
+          f"{n_params / 1e9:.3f} B parameters, {cfg.dtype}), B 1, S 2048, "
+          f"3 steps: {out['step_ms_mean']:.3f} ms per step (mean of steps "
+          f"1..), {out['tokens_per_s']:.1f} tokens/s; losses {losses}; step "
+          f"s {[r['wall_s'] for r in out['metrics']]}; peak memory "
+          f"{peak:.2f} GiB; launches {launches}")
+    check(all(np.isfinite(losses)), "every recurrentgemma loss finite")
+    check(launches == {"linear_scan": 3 * n_rec,
+                       "linear_scan_bwd": 3 * n_rec},
+          f"the scan once an RG-LRU layer and step each way, B8 never: the "
+          f"local layers (hd 256) take the blockwise route ({launches})")
+    del out
+
+    toks = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (1, 4096)), device=dev)
+    prefill = make_prefill_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    times = []
+    for _ in range(3):
+        t = time.perf_counter()
+        logits = prefill(model, {"tokens": toks})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    finite = bool(torch.isfinite(logits).all())
+    del logits
+    prefill_peak = _peak_gib()
+    dargs = ex["build_parser"]().parse_args(
+        ["--batch", "4", "--prompt-len", "64", "--gen-len", "64", "--device",
+         "cuda"])
+    torch.cuda.reset_peak_memory_stats()
+    dec = ex["run"](dargs, cfg=cfg, model=model)
+    launches = {k: v for k, v in _read_launches().items() if v}
+    add(launches)
+    seq = dec["sequences"]
+    check(finite, "recurrentgemma's S 4,096 prefill logits finite")
+    check(launches == {"linear_scan": 3 * n_rec},
+          f"3 prefills ran the scan once an RG-LRU layer each, B8 never, "
+          f"and decode no kernel ({launches})")
+    check(seq.shape == (4, 128) and bool(((seq >= 0) & (seq < cfg.vocab))
+                                         .all()),
+          "recurrentgemma decode emitted tokens of the vocabulary")
+    print(f"[lm-ssm] {cfg.name}: prefill B 1 x S 4096 (window 2048) "
+          f"{times[0]:.3f} ms first, {statistics.median(times[1:]):.3f} ms "
+          f"(median of 2 after), peak {prefill_peak:.2f} GiB; decode B 4, "
+          f"prompt 64 + 64 greedy: p50 {dec['step_p50_ms']:.3f} ms, p99 "
+          f"{dec['step_p99_ms']:.3f} ms a step, {dec['tok_per_s']:.1f} "
+          f"tok/s, peak {_peak_gib():.2f} GiB; launches {launches}")
+    del model
+    torch.cuda.empty_cache()
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2663,6 +3036,7 @@ def main(argv=None) -> int:
     rec.update(phase_quant_kernels(args.seed))
     rec.update(phase_auction_kernels(args.seed))
     rec.update(phase_flash_kernels(args.seed))
+    rec.update(phase_scan_kernels(args.seed))
     phase_parity(args.seed)
     phase_train_parity(args.seed)
     phase_train_parity(args.seed, codec="int8")
@@ -2672,6 +3046,7 @@ def main(argv=None) -> int:
     phase_train_pipeline_parity(args.seed)
     phase_train_pipeline_parity(args.seed, PS_PARITY)
     phase_elastic_parity(args.seed)
+    phase_ssm_parity(args.seed)
     # launches on the main paths: each run counted from zero, then summed
     launches: dict = {}
     for run in (lambda: phase_serve(args.seed),
@@ -2688,7 +3063,8 @@ def main(argv=None) -> int:
                 lambda: phase_train_elastic(args.seed),
                 lambda: phase_resume(args.seed),
                 lambda: phase_train_ps(args.seed),
-                lambda: phase_train_dense(args.seed)):
+                lambda: phase_train_dense(args.seed),
+                lambda: phase_lm_ssm(args.seed)):
         t = time.perf_counter()
         for k, v in run().items():
             launches[k] = launches.get(k, 0) + v

@@ -4,8 +4,10 @@
       [--arch smollm-360m] [--device cpu]
 
 The port's counterpart of ``examples/serve_llm_decode.py``: the reduced
-(smoke) variant of an attention architecture (dense or MoE; the SSM,
-hybrid and audio families raise, ROADMAP A14.4 and A14.6) with random
+(smoke) variant of an LM architecture (dense, MoE, SSM such as
+``falcon-mamba-7b`` or hybrid such as ``recurrentgemma-2b``, whose
+recurrent layers decode from an O(1) state; the audio family raises,
+ROADMAP A14.6) with random
 weights from seed 0, a batch of seeded prompts fed token by token into
 the cache (teacher-forced), then greedy continuations, through
 ``launch.steps.make_serve_step``.  ``--device`` defaults to ``cuda``

@@ -1,13 +1,14 @@
 """Profile the PyTorch port's LM training step on one CUDA card.
 
     python3 scripts/profile_lm_torch.py [--arch smollm-360m] [--batch 4] \
-        [--seq-len 2048] [--steps 6] [--warm 3]
+        [--seq-len 2048] [--steps 6] [--warm 3] [--layers N]
 
 Builds the step as ``repro_torch.launch.train.run_lm`` does (full width
-and depth, bf16, Adam at lr 1e-2, random weights from ``--seed``), runs
-``--warm`` steps unprofiled, then profiles the rest with
-``torch.profiler`` (CPU and CUDA activity), the forward (loss), the
-backward and the optimizer each inside a ``record_function`` range.
+and depth, or ``--layers`` of them, bf16, Adam at lr 1e-2, random
+weights from ``--seed``), runs ``--warm`` steps unprofiled, then
+profiles the rest with ``torch.profiler`` (CPU and CUDA activity), the
+forward (loss), the backward and the optimizer each inside a
+``record_function`` range.
 Prints, per phase, the host time (after a synchronise) of the
 unprofiled steps after the first and of the profiled ones, and the time
 in which the device ran any of its kernels (the union of kernel
@@ -15,14 +16,17 @@ intervals inside the phase's host span: each phase ends with a
 synchronise, and autograd launches the backward's kernels from a thread
 of its own, outside the range's device-side span); the same share over
 the whole profiled window; the device time a step of the flash kernel
-B8's forward, of its backward kernel beside it, and of the matrix
-products (cuBLAS's ``nvjet`` kernels among them); and the kernels that took most device time.  Writes the table
+B8's forward, of its backward kernel beside it, of the linear-scan
+kernels (the SSM and hybrid LMs' recurrence) and of the matrix products
+(cuBLAS's ``nvjet`` kernels among them); and the kernels that took most
+device time.  Writes the table
 to ``--out`` when given.  Needs a CUDA device; exits non-zero without
 one.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 import sys
 import time
@@ -47,6 +51,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--warm", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -64,6 +70,8 @@ def main(argv=None) -> int:
                          text=True, check=True, timeout=60).stdout.strip()
     dev = torch.device("cuda")
     cfg = get_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = api.init_model(cfg, generator=torch.Generator(device=dev)
                            .manual_seed(args.seed), device=dev)
     params = list(model.parameters())
@@ -104,7 +112,8 @@ def main(argv=None) -> int:
         wall_us = (time.perf_counter() - t0) * 1e6
 
     n_prof = args.steps - args.warm
-    lines = [smi, f"[profile] {cfg.name}, B {args.batch}, S {args.seq_len}, "
+    lines = [smi, f"[profile] {cfg.name} ({cfg.n_layers} layers), B "
+             f"{args.batch}, S {args.seq_len}, "
              f"{cfg.dtype}, steps {args.warm}..{args.steps - 1} profiled, "
              f"losses {losses}"]
     events = prof.events()
@@ -145,6 +154,8 @@ def main(argv=None) -> int:
              or "flash_attention_kernel" in n),
             ("B8's backward kernel (D, dK/dV, dQ)",
              lambda n: "flash_bwd_" in n),
+            ("linear-scan kernels (forward, backward)",
+             lambda n: "linear_scan" in n),
             ("matrix products", lambda n: "flash" not in n and any(
                 w in n.lower() for w in ("gemm", "cutlass", "xmma",
                                          "sm90", "nvjet")))):

@@ -66,6 +66,10 @@ SIGNATURES = {
         "flash_attention_bwd_launch": [_P] * 10 + [_I] * 8 + [_L] * 14
                                       + [_P],
     },
+    "linear_scan": {
+        "linear_scan_launch": [_P] * 5 + [_I] * 4 + [_P],
+        "linear_scan_bwd_launch": [_P] * 8 + [_I] * 4 + [_P],
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -7,13 +7,15 @@ hd), every query row's softmax attention over the keys at positions
 f32 running max, sum and accumulator.  Returns ``out`` (B, Sq, KV, G, hd)
 in q's dtype and the row log-sum-exp ``lse`` (B, KV, G, Sq) in f32, which
 the backward reads.  Positions are 0 .. S-1 on both sides, as the LM's
-``attention_train`` passes them; the mask is causal or none (the local
-and chunked masks of ``models/layers.py::_pair_mask`` take the naive
-path).  Replaces the Pallas TPU kernel ``repro/kernels/flash_attn.py:
-flash_attention``.  The card has two kernels for it, chosen by dtype
-(:func:`kernel_route`), openly and never as a fallback: bf16 runs on the
-tensor cores (``csrc/flash_attn_sm90.cu``: ``wgmma`` fed by TMA, P
-rounded to bf16 for the P V product), f32 on the CUDA cores
+``attention_train`` passes them; the mask is causal or none, at hd in
+``HEAD_DIMS`` (the local and chunked masks of
+``models/layers.py::_pair_mask``, and other head widths, take the
+model's blockwise route).  Replaces the Pallas TPU kernel
+``repro/kernels/flash_attn.py:flash_attention``.  The card has two
+kernels for it, chosen by dtype (:func:`kernel_route`), openly and
+never as a fallback: bf16 runs on the tensor cores
+(``csrc/flash_attn_sm90.cu``: ``wgmma`` fed by TMA, P rounded to bf16
+for the P V product), f32 on the CUDA cores
 (``csrc/flash_attn.cu``, read through any strides).  Each source states
 what bounds it and how its design answers it.
 
@@ -41,15 +43,16 @@ import torch
 
 from .emb_lookup import _on_cuda, _raise_on
 
-__all__ = ["LAUNCHES", "ROUTE_LAUNCHES", "BLOCK", "kernel_route",
-           "tma_layout_fault", "flash_attention", "flash_attention_ref",
-           "flash_attention_backward", "flash_attention_bwd", "flash_attn"]
+__all__ = ["LAUNCHES", "ROUTE_LAUNCHES", "BLOCK", "HEAD_DIMS",
+           "kernel_route", "tma_layout_fault", "flash_attention",
+           "flash_attention_ref", "flash_attention_backward",
+           "flash_attention_bwd", "flash_attn"]
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 ROUTE_LAUNCHES = {"wgmma": 0, "cuda_cores": 0}
 NEG = -1e30
 BLOCK = 512          # key tile of the plain version and of the backward
-_HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128)
 
 
 def _shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -139,8 +142,8 @@ def kernel_route(dtypes, hd: int, layouts=()) -> str:
                                                   torch.float32):
         raise TypeError(f"flash_attention takes bf16 or f32 q, k, v of one "
                         f"dtype, got {', '.join(map(str, dtypes))}")
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention takes hd in {_HEAD_DIMS}, got "
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention takes hd in {HEAD_DIMS}, got "
                          f"{hd}")
     if dtypes[0] == torch.float32:
         return "cuda_cores"

@@ -68,7 +68,9 @@ def make_serve_step(cfg):
 def make_prefill_step(cfg):
     """``prefill_step(params, batch) -> logits``: the forward's logits
     (B, S, V) for ``batch["tokens"]``, without autograd.  At S >= 2,048
-    (a multiple of 512) every full-attention layer runs B8's forward.
+    (a multiple of 512) every full-attention layer at hd 32, 64 or 128
+    runs B8's forward, and every ``mamba`` and ``rglru`` layer the
+    linear-scan kernel at any S.
     The VLM prefix and the audio encoder wait for ROADMAP A14.5 and
     A14.6, and raise here."""
     api._lm_only(cfg)

@@ -60,10 +60,14 @@ tokens on the one device, drawn from a seeded Zipf token stream
 (``--seed``, inputs ``[:, :-1]``, labels ``[:, 1:]``), trained by Adam
 through :func:`repro_torch.launch.steps.make_train_step`.  At
 ``--seq-len`` 2048 and above (a multiple of 512) every layer's attention
-runs through the flash kernel B8.  The dense and MoE families run (an
-MoE layer adds the router's load-balance loss at weight 0.01); the SSM,
-hybrid, VLM and audio families raise (ROADMAP A14.4 to A14.6).  Every
-step logs the loss and its wall time after a synchronise.
+runs through the flash kernel B8 (full attention at hd 32, 64 or 128;
+the local and chunked masks and other head widths take the reference's
+blockwise scan).  The dense, MoE, SSM and hybrid families run (an MoE
+layer adds the router's load-balance loss at weight 0.01; every
+``mamba`` and ``rglru`` layer runs its recurrence through the
+linear-scan kernel, forward and backward); the VLM and audio families
+raise (ROADMAP A14.5, A14.6).  Every step logs the loss and its wall
+time after a synchronise.
 
 Multi-PS (the paper's "one or more parameter servers"): ``--n-ps P``
 partitions the vocabulary over P servers (``--ps-layout contiguous``
@@ -793,8 +797,9 @@ def build_parser():
 
 
 def run_lm(args, model=None, cfg=None) -> dict:
-    """Next-token training of a dense or MoE LM for ``args.steps``
-    steps; returns the summary: the per-step records (``metrics``: loss,
+    """Next-token training of a dense, MoE, SSM or hybrid LM for
+    ``args.steps`` steps; returns the summary: the per-step records
+    (``metrics``: loss,
     wall_s), the mean ms per step and tokens per second over the steps
     after the first (which builds the kernel and warms the allocator).
     The other families raise where their model is built.  ``model``

@@ -10,9 +10,9 @@ families:
   decode_step(params, cfg, token, cache, pos) -> (logits, cache)
   make_train_batch(rng, cfg, batch, seq_len) -> {tokens, labels} (numpy)
 
-The dense and MoE families run, and a VLM decodes its text tokens; SSM
-and hybrid layers raise in the backbone (ROADMAP A14.4), the VLM prefix
-(A14.5) and the audio encoder-decoder (A14.6) here.
+The dense, MoE, SSM and hybrid families run, and a VLM decodes its text
+tokens; the VLM prefix (ROADMAP A14.5) and the audio encoder-decoder
+(A14.6) raise here.
 """
 from __future__ import annotations
 

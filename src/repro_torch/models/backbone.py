@@ -1,17 +1,19 @@
-"""Decoder backbone of the attention LM families (dense and MoE): train,
-prefill and decode.
+"""Decoder backbone of the LM families (dense, MoE, SSM and hybrid):
+train, prefill and decode.
 
-The counterpart of the JAX package's ``models/backbone.py`` for
-attention stacks (smollm, yi, minitron, granite; phi3.5-moe and
-llama4-scout with their MoE layers): an ``LM`` module holds the tied or
+The counterpart of the JAX package's ``models/backbone.py``: attention
+stacks (smollm, yi, minitron, granite; phi3.5-moe and llama4-scout with
+their MoE layers), Mamba stacks (falcon-mamba) and RG-LRU layers beside
+local attention (recurrentgemma).  An ``LM`` module holds the tied or
 untied embedding, the layers and the final norm; :func:`forward`,
 :func:`lm_loss` and :func:`decode_step` are functions over it.  Layers
 follow ``cfg.layer_pattern`` cycled over ``cfg.n_layers``; where the
 reference stacks each pattern group's parameters and scans over the
 groups, the port keeps one module per layer and loops over them in
 Python (no remat: the reference's LM driver trains with
-``remat=False``).  The decode cache is a list with one KV-cache dict a
-layer.
+``remat=False``).  The decode cache is a list with one dict a layer: a
+KV cache for attention, the conv window and state for ``mamba`` and
+``rglru``.
 
 Public surface:
   init_params(cfg, generator=, device=)  -> LM
@@ -21,7 +23,7 @@ Public surface:
   decode_step(params, cfg, token, cache, pos) -> (logits, cache)
   params_from_jax(tree, cfg)             -> LM with the reference's weights
 
-SSM and hybrid layers (ROADMAP A14.4) and the VLM prefix (A14.5) raise.
+The VLM prefix (ROADMAP A14.5) waits in :mod:`.api`.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
+from . import ssm
 from .layers import (MLP, Attention, MoE, attention_decode,
                      attention_train, cache_spec, init_attention,
                      init_kv_cache, init_mlp, init_moe, mlp, moe_ffn,
@@ -42,6 +45,10 @@ __all__ = ["LM", "Layer", "group_layout", "init_params", "backbone_apply",
            "params_from_jax", "ref_paths", "params_to_jax"]
 
 ATTN_KINDS = ("full", "local", "chunked")
+KINDS = ATTN_KINDS + ("mamba", "rglru")
+# the recurrent layers' mixers: kind -> (attribute and reference name,
+# module)
+_MIXERS = {"mamba": ("mamba", ssm.Mamba), "rglru": ("rec", ssm.RGLRU)}
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -49,13 +56,21 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 class Layer(nn.Module):
-    """One attention layer: ``norm1``, ``attn``, ``norm2``, ``ffn`` (an
-    :class:`MLP`, or an :class:`MoE` when ``cfg.mlp`` is ``moe``)."""
+    """One layer: ``norm1`` and its mixer, then ``norm2`` and ``ffn`` (an
+    :class:`MLP`, or an :class:`MoE` when ``cfg.mlp`` is ``moe``).  The
+    mixer is ``attn`` (an :class:`Attention`), ``rec`` (an
+    :class:`~.ssm.RGLRU`) or ``mamba`` (a :class:`~.ssm.Mamba`, whose
+    layer has no FFN half: ``norm2`` and ``ffn`` None)."""
 
-    def __init__(self, norm1, attn: Attention, norm2, ffn: MLP | MoE):
+    def __init__(self, norm1, mixer: Attention | ssm.RGLRU | ssm.Mamba,
+                 norm2=None, ffn: MLP | MoE | None = None):
         super().__init__()
-        self.norm1, self.norm2 = nn.Parameter(norm1), nn.Parameter(norm2)
-        self.attn, self.ffn = attn, ffn
+        self.norm1 = nn.Parameter(norm1)
+        self.norm2 = None if norm2 is None else nn.Parameter(norm2)
+        name = next((n for n, cls in _MIXERS.values()
+                     if isinstance(mixer, cls)), "attn")
+        setattr(self, name, mixer)
+        self.ffn = ffn
 
 
 class LM(nn.Module):
@@ -72,19 +87,21 @@ class LM(nn.Module):
 
 
 def _check_kind(cfg: ModelConfig, kind: str):
-    if kind not in ATTN_KINDS:
-        raise NotImplementedError(
-            f"{kind!r} layers ({cfg.family} family) are not ported to "
-            f"repro_torch yet (ROADMAP A14.4)")
+    if kind not in KINDS:
+        raise ValueError(f"unknown layer kind {kind!r} ({cfg.name})")
 
 
 def _init_layer(cfg: ModelConfig, kind: str, *, generator, device) -> Layer:
     _check_kind(cfg, kind)
     dt = _dtype(cfg)
     zeros = torch.zeros((cfg.d_model,), dtype=torch.float32, device=device)
-    attn = init_attention(cfg, dt, generator=generator, device=device)
+    if kind == "mamba":
+        return Layer(zeros, ssm.init_mamba(cfg, dt, generator=generator,
+                                           device=device))
+    init_mixer = ssm.init_rglru if kind == "rglru" else init_attention
+    mixer = init_mixer(cfg, dt, generator=generator, device=device)
     init_ffn = init_moe if cfg.mlp == "moe" else init_mlp
-    return Layer(zeros, attn, zeros.clone(),
+    return Layer(zeros, mixer, zeros.clone(),
                  init_ffn(cfg, dt, generator=generator, device=device))
 
 
@@ -138,7 +155,13 @@ def _ffn(p: Layer, x, cfg: ModelConfig):
 
 def _apply_layer(p: Layer, x, kind: str, cfg: ModelConfig, positions):
     h = rmsnorm(x, p.norm1, cfg.norm_eps)
-    x = x + attention_train(p.attn, h, cfg, _attn_kind(cfg, kind), positions)
+    if kind == "mamba":
+        return x + ssm.mamba_block(p.mamba, h, cfg), None
+    if kind == "rglru":
+        x = x + ssm.rglru_block(p.rec, h, cfg)
+    else:
+        x = x + attention_train(p.attn, h, cfg, _attn_kind(cfg, kind),
+                                positions)
     return _ffn(p, x, cfg)
 
 
@@ -185,24 +208,38 @@ def lm_loss(params: LM, cfg: ModelConfig, tokens, labels):
 # --------------------------------------------------------------------------
 # decode (serve step)
 # --------------------------------------------------------------------------
+def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int,
+                      seq_len: int, device) -> dict:
+    _check_kind(cfg, kind)
+    dt = _dtype(cfg)
+    if kind == "mamba":
+        return ssm.init_mamba_cache(cfg, batch, dt, device)
+    if kind == "rglru":
+        return ssm.init_rglru_cache(cfg, batch, dt, device)
+    return init_kv_cache(cfg, cache_spec(kind, cfg.window, seq_len), batch,
+                         dt, device)
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device) -> list:
-    """One KV cache a layer (:func:`.layers.init_kv_cache`): ``seq_len``
-    slots for full attention, ``min(window, seq_len)`` for local and
-    chunked layers."""
-    caches = []
-    for kind in cfg.kinds():
-        _check_kind(cfg, kind)
-        caches.append(init_kv_cache(cfg, cache_spec(kind, cfg.window,
-                                                    seq_len),
-                                    batch, _dtype(cfg), device))
-    return caches
+    """One cache a layer: a KV cache (:func:`.layers.init_kv_cache`) of
+    ``seq_len`` slots for full attention and ``min(window, seq_len)`` for
+    local and chunked layers; the conv window and the f32 state for
+    ``mamba`` and ``rglru`` layers (:mod:`.ssm`)."""
+    return [_init_layer_cache(cfg, kind, batch, seq_len, device)
+            for kind in cfg.kinds()]
 
 
 def _apply_layer_decode(p: Layer, x, kind: str, cfg: ModelConfig,
                         layer_cache: dict, pos: int):
     h = rmsnorm(x, p.norm1, cfg.norm_eps)
-    y, layer_cache = attention_decode(p.attn, h, layer_cache, pos, cfg,
-                                      _attn_kind(cfg, kind))
+    if kind == "mamba":
+        y, layer_cache = ssm.mamba_step(p.mamba, h, layer_cache, cfg)
+        return x + y, layer_cache
+    if kind == "rglru":
+        y, layer_cache = ssm.rglru_step(p.rec, h, layer_cache, cfg)
+    else:
+        y, layer_cache = attention_decode(p.attn, h, layer_cache, pos, cfg,
+                                          _attn_kind(cfg, kind))
     x, _ = _ffn(p, x + y, cfg)
     return x, layer_cache
 
@@ -235,15 +272,25 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cpu") -> LM:
     ``g P + i`` is ``groups/l{i}`` at index ``g``; the rest follow.  One
     tied ``embed`` serves the gather and the head.  An MoE layer's
     ``ffn`` is ``{router/w, wi, wg, wo}``, with ``shared/{wi,wg,wo}/w``
-    for llama4."""
+    for llama4; a ``mamba`` layer is ``{norm1, mamba}``, an ``rglru``
+    layer's mixer ``rec``, their linears ``{"w"}`` leaves."""
     n_groups, gkinds, rkinds = group_layout(cfg)
 
     def layer(lp, kind, at=None):
         _check_kind(cfg, kind)
         t = (lambda a: _tensor(a if at is None else np.asarray(a)[at],
                                device))
-        a, f = lp["attn"], lp["ffn"]
-        attn = Attention(t(a["wq"]), t(a["wk"]), t(a["wv"]), t(a["wo"]))
+        if kind in _MIXERS:
+            name, cls = _MIXERS[kind]
+            mp = lp[name]
+            mixer = cls(**{n: t(mp[n]["w"] if n in cls.LINEARS else mp[n])
+                           for n in cls.LEAVES})
+            if kind == "mamba":
+                return Layer(t(lp["norm1"]), mixer)
+        else:
+            a = lp["attn"]
+            mixer = Attention(t(a["wq"]), t(a["wk"]), t(a["wv"]), t(a["wo"]))
+        f = lp["ffn"]
 
         def dense(f):
             return MLP(t(f["wi"]["w"]), t(f["wo"]["w"]),
@@ -255,7 +302,7 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cpu") -> LM:
                       else None)
         else:
             ffn = dense(f)
-        return Layer(t(lp["norm1"]), attn, t(lp["norm2"]), ffn)
+        return Layer(t(lp["norm1"]), mixer, t(lp["norm2"]), ffn)
 
     layers = [layer(tree["groups"][f"l{i}"], kind, g)
               for g in range(n_groups) for i, kind in enumerate(gkinds)]
@@ -270,10 +317,12 @@ def ref_paths(model: LM, cfg: ModelConfig) -> list:
     """Each of ``model.parameters()``'s place in the JAX package's tree
     (:mod:`repro_torch.models.tree`): layer ``g P + i`` of the grouped
     layers at index ``g`` of ``groups/l{i}/...``, the rest under
-    ``rest/l{j}/...``; a dense FFN's matrices as ``{"w"}`` leaves, an MoE
-    layer's router as ``router/w`` beside its expert stacks."""
+    ``rest/l{j}/...``; a dense FFN's matrices and the SSM mixers'
+    linears as ``{"w"}`` leaves, an MoE layer's router as ``router/w``
+    beside its expert stacks."""
     n_groups, gkinds, _ = group_layout(cfg)
     P = len(gkinds)
+    mixers = dict(_MIXERS.values())
     paths = []
     for name, _ in model.named_parameters():
         parts = name.split(".")
@@ -283,6 +332,8 @@ def ref_paths(model: LM, cfg: ModelConfig) -> list:
         j, rest = int(parts[1]), parts[2:]
         if rest[0] == "ffn" and (cfg.mlp != "moe" or rest[1] in ("router",
                                                                  "shared")):
+            rest = rest + ["w"]
+        elif rest[0] in mixers and rest[1] in mixers[rest[0]].LINEARS:
             rest = rest + ["w"]
         if j < n_groups * P:
             paths.append((("groups", f"l{j % P}", *rest), j // P))

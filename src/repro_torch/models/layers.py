@@ -1,5 +1,6 @@
 """Core layers: the bias-free linear layer, RMSNorm, RoPE, GQA attention
-for training (naive, and flash through kernel B8) and for decode over a
+for training (naive; at long sequences through kernel B8, or blockwise
+for the masked kinds and other head widths) and for decode over a
 ring-buffered KV cache, the dense MLPs and the sort-based MoE.
 
 The counterpart of the JAX package's ``models/layers.py`` for the DLRM
@@ -20,10 +21,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..kernels.flash_attn import HEAD_DIMS as B8_HEAD_DIMS
 from ..kernels.flash_attn import flash_attn
 
 __all__ = ["linear", "init_linear", "rmsnorm", "rope", "Attention",
-           "init_attention", "attention_naive", "attention_flash",
+           "init_attention", "attention_naive", "flash_route",
+           "attention_blockwise", "attention_flash",
            "attention_train", "CacheSpec", "cache_spec", "init_kv_cache",
            "attention_decode", "MLP", "init_mlp", "mlp", "MoE", "init_moe",
            "moe_ffn", "FLASH_MIN_SEQ", "FLASH_BLOCK"]
@@ -159,16 +162,64 @@ def attention_naive(q, k, v, kind, window, q_pos, kv_pos,
     return _gqa_out(probs, v)
 
 
-def attention_flash(q, k, v, kind: str = "full"):
-    """Blockwise online-softmax attention through kernel B8
-    (:func:`repro_torch.kernels.flash_attn.flash_attn`), positions 0 ..
-    S-1 on both sides.  B8 masks causally or not at all, so only ``full``
-    attention takes it; the local and chunked masks are ROADMAP A14.8."""
-    if kind != "full":
-        raise NotImplementedError(
-            f"{kind} attention at S >= {FLASH_MIN_SEQ} needs a masked flash "
-            f"kernel, not ported to repro_torch yet (ROADMAP A14.8)")
-    return flash_attn(q, k, v, causal=True)
+def flash_route(kind: str, hd: int) -> str:
+    """The long-sequence route of :func:`attention_flash`: ``"b8"`` (the
+    flash kernel, causal, positions 0 .. S-1) for ``full`` attention at a
+    head width B8 takes, else ``"blockwise"`` (the reference's scan, for
+    the local and chunked masks and any other hd).  Chosen by mask and hd
+    only."""
+    return "b8" if kind == "full" and hd in B8_HEAD_DIMS else "blockwise"
+
+
+def attention_blockwise(q, k, v, kind: str, window: int, q_pos, kv_pos,
+                        block: int = FLASH_BLOCK):
+    """The reference's blockwise online-softmax attention (its
+    ``attention_flash``): a loop over key blocks of ``block`` carrying the
+    f32 running max ``m`` and sum ``l`` and the accumulator ``acc`` in q's
+    dtype, the mask computed per block from the positions (never an (S,
+    S) tensor), every block computed.  q: (B, Sq, KV, G, hd), k/v: (B,
+    Sk, KV, hd) -> (B, Sq, KV, G, hd).  Autograd differentiates it."""
+    B, Sq, KV, G, hd = q.shape
+    Sk = k.shape[1]
+    if Sk % block:
+        raise ValueError(f"attention_blockwise needs Sk ({Sk}) a multiple "
+                         f"of block ({block})")
+    m = torch.full((B, KV, G, Sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Sq, KV, G, hd), dtype=q.dtype, device=q.device)
+    for k0 in range(0, Sk, block):
+        logits = torch.einsum("bskgh,btkh->bkgst", q,
+                              k[:, k0:k0 + block]).float() / math.sqrt(hd)
+        mask = _pair_mask(kind, window, q_pos, kv_pos[k0:k0 + block])
+        logits = torch.where(mask, logits, NEG_INF)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bkgst,btkh->bskgh", p.to(q.dtype),
+                          v[:, k0:k0 + block])
+        acc = acc * corr.permute(0, 3, 1, 2)[..., None].to(q.dtype) + pv
+        m = m_new
+    denom = l.permute(0, 3, 1, 2)[..., None]                   # (B,Sq,KV,G,1)
+    return acc / torch.clamp(denom, min=1e-30).to(q.dtype)
+
+
+def attention_flash(q, k, v, kind: str = "full", window: int = 0,
+                    q_pos=None, kv_pos=None, block: int = FLASH_BLOCK):
+    """Long-sequence attention, by :func:`flash_route`: ``full`` at hd
+    32, 64 or 128 through kernel B8
+    (:func:`repro_torch.kernels.flash_attn.flash_attn`, causal, positions
+    0 .. S-1 on both sides, ``block`` unused), every other mask and hd
+    through :func:`attention_blockwise` at the given positions (0 .. S-1
+    when None)."""
+    if flash_route(kind, q.shape[-1]) == "b8":
+        return flash_attn(q, k, v, causal=True)
+    if q_pos is None:
+        q_pos = torch.arange(q.shape[1], device=q.device)
+    if kv_pos is None:
+        kv_pos = torch.arange(k.shape[1], device=q.device)
+    return attention_blockwise(q, k, v, kind, window, q_pos, kv_pos, block)
 
 
 def attention_train(p: Attention, x, cfg: ModelConfig, kind, positions,
@@ -180,7 +231,8 @@ def attention_train(p: Attention, x, cfg: ModelConfig, kind, positions,
     kind = "full" if kind == "nope" else kind
     S = x.shape[1]
     if S >= FLASH_MIN_SEQ and not bidirectional and S % FLASH_BLOCK == 0:
-        out = attention_flash(q, k, v, kind)
+        out = attention_flash(q, k, v, kind, cfg.window, positions,
+                              positions)
     else:
         out = attention_naive(q, k, v, kind, cfg.window, positions,
                               positions, bidirectional=bidirectional)

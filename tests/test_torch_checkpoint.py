@@ -15,11 +15,14 @@ carried between the two packages.
   port's driver tree (``train_tree`` / ``load_train_tree``), and the
   port's save of the same values is restored by the reference's
   ``restore_checkpoint``; both archives hold the same entries, and every
-  value is equal.  The same for a PS-stacked run's tree (``--n-ps 2``)
-  and a dense-engine run's (``--esd-engine dense``).
+  value is equal (the SSM and hybrid smoke trees too: falcon-mamba's
+  Mamba leaves, recurrentgemma's RG-LRU leaves grouped and rest).  The
+  same for a PS-stacked run's tree (``--n-ps 2``) and a dense-engine
+  run's (``--esd-engine dense``).
 * ``run_dlrm`` with ``--n-ps`` and with ``--esd-engine dense``, at
   depth 1 and 2, resumed from a checkpoint: the uninterrupted run's
-  records exactly.
+  records exactly; ``run_lm`` of falcon-mamba and recurrentgemma smoke
+  likewise.
 """
 import dataclasses
 import zipfile
@@ -263,8 +266,19 @@ def test_dlrm_checkpoint_port_to_reference(arch, tmp_path):
     _ref_equal(jax.tree.map(np.asarray, got), want)
 
 
+# recurrentgemma smoke at 5 layers: one (rglru, rglru, local) group, and
+# two rest layers (rglru, rglru), as the full model's 8 groups and 2 rest
+LM_LAYERS = {"recurrentgemma-2b": 5}
+
+
+def _lm_cfg(get, arch, dtype):
+    cfg = dataclasses.replace(get(arch, smoke=True), dtype=dtype)
+    return dataclasses.replace(cfg, n_layers=LM_LAYERS.get(arch,
+                                                           cfg.n_layers))
+
+
 def _ref_lm_tree(arch, dtype, seed):
-    cfg = dataclasses.replace(j_get_config(arch, smoke=True), dtype=dtype)
+    cfg = _lm_cfg(j_get_config, arch, dtype)
     params = j_api.init_model(jax.random.key(seed), cfg)
     opt = _fill(j_adam(1e-3).init(params), seed)
     opt["t"] = np.int32(5)
@@ -273,10 +287,13 @@ def _ref_lm_tree(arch, dtype, seed):
 
 @pytest.mark.parametrize("arch,dtype", [("smollm-360m", "float32"),
                                         ("smollm-360m", "bfloat16"),
-                                        ("phi3.5-moe-42b-a6.6b", "float32")])
+                                        ("phi3.5-moe-42b-a6.6b", "float32"),
+                                        ("falcon-mamba-7b", "float32"),
+                                        ("recurrentgemma-2b", "float32"),
+                                        ("recurrentgemma-2b", "bfloat16")])
 def test_lm_checkpoint_both_ways(arch, dtype, tmp_path):
     want = _ref_lm_tree(arch, dtype, seed=4)
-    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=dtype)
+    cfg = _lm_cfg(get_config, arch, dtype)
     # the reference's save, restored by the port into a fresh model
     JCK.save_checkpoint(tmp_path / "ref", 2, want)
     model = backbone.init_params(cfg, generator=torch.Generator()
@@ -421,3 +438,30 @@ def test_ps_and_dense_runs_resume_exactly(flags, tmp_path):
         else:
             assert "esd::slots" not in ck.files
             assert ck["esd::latest"].shape == (4, 4400)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-2b"])
+def test_ssm_lm_runs_resume_exactly(arch, tmp_path):
+    """``run_lm`` of the SSM and hybrid smoke configs, 3 steps with a
+    checkpoint after each, resumed from step 2's (step 3's removed): the
+    last loss equals the uninterrupted run's exactly; the archive holds
+    the reference's leaf names.  One CPU thread, as above."""
+    from repro_torch.launch.train import main
+
+    argv = ["--arch", arch, "--smoke", "--seq-len", "32",
+            "--batch-per-worker", "2", "--steps", "3", "--device", "cpu",
+            "--ckpt-dir", str(tmp_path), "--ckpt-every", "1"]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        full = main(argv)["metrics"]
+        (tmp_path / "ckpt_00000003.npz").unlink()
+        resumed = main(argv + ["--resume"])["metrics"]
+    finally:
+        torch.set_num_threads(threads)
+    assert [r["step"] for r in resumed] == [2]
+    assert resumed[0]["loss"] == full[2]["loss"]
+    leaf = ("params::groups::l0::mamba::A_log" if arch == "falcon-mamba-7b"
+            else "params::groups::l1::rec::Lambda")
+    with np.load(tmp_path / "ckpt_00000002.npz") as ck:
+        assert leaf in ck.files and "opt::t" in ck.files

@@ -144,6 +144,16 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad, match):
 
 
 def test_local_attention_at_flash_length_raises():
-    q, k, v = map(torch.from_numpy, _qkv(0, 1, 8, 8, 1, 1, 32))
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        tl.attention_flash(q, k, v, "local")
+    """``attention_flash`` with the local mask raised until the blockwise
+    route (ROADMAP A14.8); it now takes that route, never B8, and matches
+    the reference's scan."""
+    q, k, v = _qkv(0, 1, 8, 8, 1, 1, 32)
+    pos = jnp.arange(8)
+    want = jl.attention_flash(*map(jnp.asarray, (q, k, v)), "local", 4, pos,
+                              pos, block=4)
+    n0 = dict(tf.LAUNCHES)
+    got = tl.attention_flash(*map(torch.from_numpy, (q, k, v)), "local", 4,
+                             block=4)
+    assert tf.LAUNCHES == n0 and tl.flash_route("local", 32) == "blockwise"
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=FWD_TOL)

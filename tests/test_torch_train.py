@@ -230,10 +230,11 @@ def test_codec_flag_guards(flags, why):
 
 
 def test_lm_arch_raises():
-    """LM training runs the dense families (tests/test_torch_lm*.py); the
-    others are still ROADMAP A14."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        main(["--arch", "falcon-mamba-7b", "--smoke", "--device", "cpu"])
+    """LM training runs the dense, MoE, SSM and hybrid families
+    (tests/test_torch_lm*.py, test_torch_ssm*.py); the VLM prefix is
+    still ROADMAP A14.5."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A14.5"):
+        main(["--arch", "pixtral-12b", "--smoke", "--device", "cpu"])
 
 
 def test_realized_cost_rescores_the_decision():
