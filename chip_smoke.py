@@ -4,8 +4,9 @@ LM training with its flash-attention kernel, the pipelined training
 step with its prefetch plane, the LM serving path (prefill and
 KV-cache decode) and MoE layers, and elastic training under a fault
 plan with its checkpoints and resume, training over several parameter
-servers and on the dense cache engine, and the SSM and hybrid LMs with
-their linear-scan kernels, on one CUDA card and check them.
+servers and on the dense cache engine, the SSM and hybrid LMs with
+their linear-scan kernels, and the VLM prefix and the audio
+encoder-decoder, on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -58,7 +59,8 @@ Phases, each printing its own lines:
    attention at the LM path's
    shape (smollm-360m: B = 4, S = 2,048, 5 KV heads x 3, hd = 64,
    causal; the prefill's too) and around it (non-causal, hd 128, hd
-   32; phi3.5-moe's training shape, B = 1, 8 KV heads x 4, hd 128): bf16
+   32; phi3.5-moe's and pixtral-12b's training shape, B = 1, 8 KV heads
+   x 4, hd 128, and pixtral's prefill, B = 4): bf16
    on the
    ``wgmma`` kernel (max abs err 1e-2, or up to 2e-2 where it is within
    1.5x ``scaled_dot_product_attention``'s error against the same plain
@@ -100,7 +102,11 @@ Phases, each printing its own lines:
    against CPU alike; 3 ``run_lm`` steps at S 2,048 and 8 decode steps of
    falcon-mamba's and recurrentgemma's smoke configs (f32), losses within
    1e-4, logits within 1e-5, the scan kernels once a recurrent layer and
-   step;
+   step; the loss and 3 ``make_train_step`` steps of pixtral-12b's smoke
+   config (16 patches + 2,032 tokens: B8's route) and whisper-large-v3's
+   (64 frames, 64 tokens) on ``make_train_batch``'s draws, and 8 decode
+   steps of each (f32), card against CPU, losses within 1e-4, logits
+   within 1e-5;
 5. serve — ``run_serve`` at wdl-s1 (4 workers, 2,000 QPS for 1 s), then
    for 0.5 s with ``--codec int8``;
 6. train — ``run_dlrm`` at wdl-s1 (4 workers x 256 samples, ESD alpha 1,
@@ -193,9 +199,23 @@ Phases, each printing its own lines:
    bf16): 3 ``run_lm`` steps at B 1, S 2,048 (the scan once an RG-LRU
    layer and step each way, the local layers on the blockwise route, B8
    never), prefills of B 1 x S 4,096 (the window cuts), and decode at B
-   4, prompt 64 + 64 greedy.
+   4, prompt 64 + 64 greedy;
+18. lm-vlm-audio — pixtral-12b at full width (d 5,120, 32 heads over 8,
+   hd 128, vocab 131,072, bf16): 3 ``make_train_step`` steps at
+   ``PIXTRAL_TRAIN_LAYERS`` of its 40 layers, B 1, 256 patches + 1,792
+   tokens (B8 and its backward once a layer and step; ms a step,
+   tokens/s, peak memory), then at full depth 4 prefills of B 4 x
+   (256 + 1,792) (B8 once a layer) and decode of text tokens at B 4,
+   prompt 64 + 64 greedy; whisper-large-v3 at full width and depth (32
+   + 32 layers, d 1,280, 20 heads, vocab 51,866, bf16): 3 steps at B 1,
+   1,500 frames, 448 tokens, 3 prefills at B 4, decode at B 4 over the
+   1,500 encoded frames (cross K/V filled by ``encode``), 64 steps, no
+   kernel (the encoder is bidirectional: the naive route); then in f32
+   at the smoke configs whisper's decode over filled cross K/V against
+   ``decode_train`` and pixtral's prefill with a prefix, card against
+   CPU, within ``VLM_AUDIO_F32_TOL``.
 
-Each run of phases 5 to 17 sets every kernel's launch counter to 0 just
+Each run of phases 5 to 18 sets every kernel's launch counter to 0 just
 before and reads the counters just after.  B1's per-shard and dense
 inputs get a line each (time, plain and ``embedding_bag`` times, bound,
 launches).  Then one JSON line of kernel
@@ -1684,6 +1704,7 @@ def phase_flash_kernels(seed: int) -> dict:
             (2, 1024, 5, 3, 64, False, torch.bfloat16),
             (2, 2048, 2, 4, 128, True, torch.bfloat16),
             (1, 2048, 8, 4, 128, True, torch.bfloat16),
+            (4, 2048, 8, 4, 128, True, torch.bfloat16),
             (2, 2048, 4, 2, 32, True, torch.bfloat16)):
         q, k, v = qkv(B, S, KV, G, hd, dtype)
         out, lse = FA.flash_attention(q, k, v, causal)
@@ -3021,6 +3042,356 @@ def phase_lm_ssm(seed: int) -> dict:
     return total
 
 
+def _train_batch(cfg, rng, B: int, S: int, dev) -> dict:
+    """``api.make_train_batch``'s draws, on ``dev``."""
+    from repro_torch.models import api
+
+    return {k: torch.as_tensor(v, device=dev)
+            for k, v in api.make_train_batch(rng, cfg, B, S).items()}
+
+
+# phase 4's VLM and audio smoke parity: (B, S) of the steps; pixtral's S
+# counts its 16 patches (16 + 2,032 tokens: B8's route), whisper's is its
+# 64 frames (and 64 decoder tokens)
+VLM_AUDIO_SMOKE = {"pixtral-12b": (1, 2048), "whisper-large-v3": (2, 64)}
+
+
+def phase_vlm_audio_parity(seed: int):
+    """pixtral-12b's and whisper-large-v3's smoke configs (f32) on the
+    card against the CPU from the same weights and ``make_train_batch``
+    draws: the loss and 3 ``make_train_step`` steps (Adam, lr 1e-2;
+    within phase 4's 1e-4; pixtral at 16 patches + 2,032 tokens, B8 once
+    a layer a forward and its backward once a layer a step; whisper at 64
+    frames and 64 tokens, no kernel), then 8 decode steps at B 4 from one
+    set of weights (logits within 1e-5; whisper over zero cross K/V)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_serve_step, make_train_step
+    from repro_torch.models import api
+    from repro_torch.optim import get_optimizer
+
+    for arch, (B, S) in VLM_AUDIO_SMOKE.items():
+        cfg = get_config(arch, smoke=True)
+        cpu = api.init_model(cfg, generator=torch.Generator().manual_seed(
+            seed), device="cpu")
+        gpu = copy.deepcopy(cpu).to("cuda")
+        runs, ran = {}, {}
+        for dev, model in (("cpu", cpu), ("cuda", gpu)):
+            batch = _train_batch(cfg, np.random.default_rng(seed), B, S, dev)
+            n0 = _read_launches()
+            with torch.no_grad():
+                first = float(api.train_loss(model, cfg, batch))
+            step = make_train_step(cfg, model, get_optimizer("adam", 1e-2))
+            runs[dev] = [first] + [float(step(batch)) for _ in range(3)]
+            ran = {k: v - n0[k] for k, v in _read_launches().items()
+                   if v != n0[k]}
+        err = max(abs(a - b) for a, b in zip(runs["cpu"], runs["cuda"]))
+        n = cfg.n_layers if cfg.family == "vlm" else 0
+        want = ({"flash_attention": 4 * n, "flash_attention_bwd": 3 * n}
+                if n else {})
+        check(all(np.isfinite(runs["cuda"])) and err <= 1e-4,
+              f"{arch} smoke loss and 3 steps on card vs CPU within 1e-4 "
+              f"(max err {err})")
+        check(ran == want, f"{arch} smoke: B8 once a layer a forward and "
+                           f"its backward once a layer a step on the VLM, "
+                           f"no kernel on the audio model ({ran})")
+        gpu = copy.deepcopy(cpu).to("cuda")
+        toks = torch.as_tensor(np.random.default_rng(seed).integers(
+            0, cfg.vocab, (4, 8)))
+        step = make_serve_step(cfg)
+        caches = [api.init_decode_cache(cfg, 4, 8, d) for d in ("cpu",
+                                                                "cuda")]
+        derr = 0.0
+        for pos in range(8):
+            a, caches[0] = step(cpu, caches[0], toks[:, pos:pos + 1], pos)
+            b, caches[1] = step(gpu, caches[1], toks[:, pos:pos + 1].cuda(),
+                                pos)
+            derr = max(derr, float((b.cpu() - a).abs().max()))
+        check(derr <= 1e-5, f"{arch} smoke decode on card vs CPU within "
+                            f"1e-5 (max err {derr})")
+        what = ("16 patches + 2032 tokens" if cfg.family == "vlm"
+                else "64 frames, 64 tokens")
+        print(f"[parity] {cfg.name} (f32, {cfg.n_layers} layers), B {B}, "
+              f"{what}: loss and 3 steps, card vs CPU: {runs['cuda']} vs "
+              f"{runs['cpu']}, max abs err {err:.3g} (tolerance 1e-4); card "
+              f"kernel launches {ran}; 8 decode steps after, B 4: logits "
+              f"max abs err {derr:.3g} (tolerance 1e-5)")
+
+
+# phase 18: pixtral-12b at full width, its 40 layers cut to
+# PIXTRAL_TRAIN_LAYERS for training (at 40 the bf16 weights and
+# gradients and Adam's f32 moments, old and new while it updates, come
+# to about 245 GB, three times the card; 6 layers peak at 66.8 GiB, 8 do
+# not fit); prefill and decode at full depth
+PIXTRAL_TRAIN_LAYERS = 6
+VLM_S, VLM_B = 2048, 4            # P + S: 256 patches + 1,792 tokens
+# whisper-large-v3 at full width and depth: 1,500 frames (its 30 s
+# encoder window), 448 decoder tokens; decode 64 steps
+AUDIO_FRAMES, AUDIO_B, AUDIO_DECODE = 1500, 4, 64
+# whisper's f32 decode over filled cross K/V against decode_train's
+# logits, and pixtral's f32 prefill with a prefix on the card against the
+# CPU, at the smoke configs: f32 sums in other orders (GEMMs against
+# GEMVs, B8's f32 kernel against its plain version) over up to 2,048
+# terms leave errors near 1e-6 on logits of magnitude ~1
+VLM_AUDIO_F32_TOL = 1e-4
+
+
+def _timed_steps(step, batches) -> tuple[list, list]:
+    """``step`` on each batch, each ended by a synchronise: (losses,
+    ms)."""
+    losses, ms = [], []
+    for batch in batches:
+        t = time.perf_counter()
+        losses.append(float(step(batch)))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return losses, ms
+
+
+def _timed_calls(fn, n: int) -> tuple[list, object]:
+    """``fn()`` n times, each ended by a synchronise: (ms, the last
+    output)."""
+    out, ms = None, []
+    for _ in range(n):
+        del out
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return ms, out
+
+
+def phase_lm_vlm_audio(seed: int) -> dict:
+    """pixtral-12b at full width (d 5,120, 32 heads over 8, hd 128, d_ff
+    14,336, vocab 131,072, untied head, bf16): 3 ``make_train_step``
+    steps (Adam, lr 1e-2) at ``PIXTRAL_TRAIN_LAYERS`` layers, B 1, 256
+    patches + 1,792 tokens (B8 and its backward once a layer and step);
+    at its 40 layers 4 prefills of B 4 x (256 + 1,792) (B8 once a layer)
+    and decode of text tokens at B 4, prompt 64 + 64 greedy.
+    whisper-large-v3 at full width and depth (32 + 32 layers, d 1,280, 20
+    heads, hd 64, geglu d_ff 5,120, vocab 51,866, bf16): 3 steps at B 1,
+    1,500 frames, 448 tokens (the encoder's bidirectional attention on
+    the naive route: no kernel), 3 prefills at B 4, and decode at B 4
+    over the prefill batch's 1,500 encoded frames (cross K/V filled by
+    ``encode`` and ``_enc_kv``), 64 steps.  Then at the smoke configs in
+    f32: whisper's decode over filled cross K/V against
+    ``decode_train``'s logits, and pixtral's prefill with a prefix on the
+    card against the CPU, within ``VLM_AUDIO_F32_TOL`` (these comparing
+    launches are not counted)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step, make_train_step
+    from repro_torch.models import api, whisper
+    from repro_torch.optim import get_optimizer
+
+    dev = torch.device("cuda")
+    ex = _decode_example()
+    total: dict = {}
+
+    def read():
+        launches = {k: v for k, v in _read_launches().items() if v}
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        return launches
+
+    def seeded():
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def prefix(cfg):
+        return f"{cfg.n_patches} patches + {VLM_S - cfg.n_patches} tokens"
+
+    # pixtral-12b: training at a cut depth
+    arch = "pixtral-12b"
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=PIXTRAL_TRAIN_LAYERS)
+    rng = np.random.default_rng(seed)
+    batches = [_train_batch(cfg, rng, 1, VLM_S, dev) for _ in range(3)]
+    model = api.init_model(cfg, generator=seeded(), device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    step = make_train_step(cfg, model, get_optimizer("adam", 1e-2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    losses, ms = _timed_steps(step, batches)
+    launches = read()
+    step_ms = statistics.mean(ms[1:])
+    print(f"[lm-vlm-audio] {cfg.name} at full width, {cfg.n_layers} of "
+          f"{full.n_layers} layers ({n_params / 1e9:.3f} B parameters, d "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads}, hd "
+          f"{cfg.hd}, vocab {cfg.vocab}, {cfg.dtype}), B 1, {prefix(cfg)}, "
+          f"3 steps: {step_ms:.3f} ms per step (mean of steps 1..), "
+          f"{VLM_S / step_ms * 1e3:.1f} tokens/s ({VLM_S} positions a "
+          f"step); losses {losses}; step ms {[round(x, 3) for x in ms]}; "
+          f"peak memory {_peak_gib():.2f} GiB; launches {launches}")
+    n = 3 * cfg.n_layers
+    check(all(np.isfinite(losses)), "every pixtral loss finite")
+    check(launches == {"flash_attention": n, "flash_attention_bwd": n},
+          f"B8 and its backward once a layer and step ({launches})")
+    del model, step, batches
+    torch.cuda.empty_cache()
+
+    # pixtral-12b at full depth: prefill with patches, then text decode
+    cfg = full
+    model = api.init_model(cfg, generator=seeded(), device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = _train_batch(cfg, rng, VLM_B, VLM_S, dev)
+    prefill = make_prefill_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    times, logits = _timed_calls(lambda: prefill(model, batch), 4)
+    check(tuple(logits.shape) == (VLM_B, VLM_S, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          "pixtral's prefill logits over all P + S positions, finite")
+    del logits
+    prefill_peak = _peak_gib()
+    dargs = ex["build_parser"]().parse_args(
+        ["--arch", arch, "--batch", str(VLM_B), "--prompt-len", "64",
+         "--gen-len", "64", "--device", "cuda"])
+    torch.cuda.reset_peak_memory_stats()
+    dec = ex["run"](dargs, cfg=cfg, model=model,
+                    prompts=batch["tokens"][:, :64].cpu().numpy())
+    launches = read()
+    seq = dec["sequences"]
+    check(launches == {"flash_attention": 4 * cfg.n_layers},
+          f"4 prefills ran B8 once a layer each, decode no kernel "
+          f"({launches})")
+    check(seq.shape == (VLM_B, 128)
+          and bool(((seq >= 0) & (seq < cfg.vocab)).all()),
+          "pixtral decode emitted tokens of the vocabulary")
+    print(f"[lm-vlm-audio] {cfg.name} at full width and depth "
+          f"({cfg.n_layers} layers, {n_params / 1e9:.3f} B parameters, "
+          f"{cfg.dtype}): prefill B {VLM_B} x ({prefix(cfg)}) "
+          f"{times[0]:.3f} ms first, {statistics.median(times[1:]):.3f} ms "
+          f"(median of 3 after), peak {prefill_peak:.2f} GiB; decode B "
+          f"{VLM_B}, prompt 64 + 64 greedy text tokens: p50 "
+          f"{dec['step_p50_ms']:.3f} ms, p99 {dec['step_p99_ms']:.3f} ms a "
+          f"step, {dec['tok_per_s']:.1f} tok/s, peak {_peak_gib():.2f} GiB; "
+          f"launches {launches}")
+    del model, batch, prefill
+    torch.cuda.empty_cache()
+
+    # whisper-large-v3 at full width and depth
+    arch = "whisper-large-v3"
+    cfg = get_config(arch)
+    model = api.init_model(cfg, generator=seeded(), device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    batches = [_train_batch(cfg, rng, 1, AUDIO_FRAMES, dev)
+               for _ in range(3)]
+    dec_len = batches[0]["tokens"].shape[1]
+    step = make_train_step(cfg, model, get_optimizer("adam", 1e-2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    losses, ms = _timed_steps(step, batches)
+    launches = read()
+    step_ms = statistics.mean(ms[1:])
+    # the encoder's naive attention keeps, a layer, softmax's f32 output
+    # and its bf16 cast for the product with v: 6 bytes a logit
+    attn_gib = (cfg.encoder_layers * cfg.n_heads * AUDIO_FRAMES ** 2 * 6
+                / 2**30)
+    print(f"[lm-vlm-audio] {cfg.name} at full width and depth "
+          f"({cfg.encoder_layers} + {cfg.n_layers} layers, "
+          f"{n_params / 1e9:.3f} B parameters, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads, hd {cfg.hd}, vocab {cfg.vocab}, "
+          f"{cfg.dtype}), B 1, {AUDIO_FRAMES} frames, {dec_len} tokens, 3 "
+          f"steps: {step_ms:.3f} ms per step (mean of steps 1..), "
+          f"{(AUDIO_FRAMES + dec_len) / step_ms * 1e3:.1f} positions/s; "
+          f"losses {losses}; step ms {[round(x, 3) for x in ms]}; peak "
+          f"memory {_peak_gib():.2f} GiB (of which the encoder's saved "
+          f"attention probabilities {attn_gib:.2f} GiB); launches "
+          f"{launches}")
+    check(all(np.isfinite(losses)), "every whisper loss finite")
+    check(launches == {}, f"whisper's steps launch no kernel: the encoder "
+                          f"is bidirectional, the decoder at {dec_len} < "
+                          f"2,048 ({launches})")
+    del step, batches
+    torch.cuda.empty_cache()
+
+    batch = _train_batch(cfg, rng, AUDIO_B, AUDIO_FRAMES, dev)
+    prefill = make_prefill_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    times, logits = _timed_calls(lambda: prefill(model, batch), 3)
+    check(tuple(logits.shape) == (AUDIO_B, dec_len, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          "whisper's prefill logits (B, 448, V), finite")
+    del logits
+    prefill_peak = _peak_gib()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with torch.no_grad():
+        memory = whisper.encode(model, cfg, batch["frames"])
+        cache = whisper.fill_cross_kv(
+            model, cfg, api.init_decode_cache(cfg, AUDIO_B, AUDIO_FRAMES,
+                                              dev), memory)
+    torch.cuda.synchronize()
+    encode_ms = (time.perf_counter() - t) * 1e3
+    dargs = ex["build_parser"]().parse_args(
+        ["--arch", arch, "--batch", str(AUDIO_B), "--prompt-len", "16",
+         "--gen-len", str(AUDIO_DECODE - 15), "--device", "cuda"])
+    dec = ex["run"](dargs, cfg=cfg, model=model, cache=cache,
+                    prompts=batch["tokens"][:, :16].cpu().numpy())
+    launches = read()
+    seq = dec["sequences"]
+    check(launches == {}, f"whisper's prefill and decode launch no kernel "
+                          f"({launches})")
+    check(dec["steps"] == AUDIO_DECODE
+          and bool(((seq >= 0) & (seq < cfg.vocab)).all()),
+          "whisper decode emitted tokens of the vocabulary")
+    print(f"[lm-vlm-audio] {cfg.name}: prefill B {AUDIO_B} x ({AUDIO_FRAMES} "
+          f"frames, {dec_len} tokens) {times[0]:.3f} ms first, "
+          f"{statistics.median(times[1:]):.3f} ms (median of 2 after), peak "
+          f"{prefill_peak:.2f} GiB; encode and cross K/V fill "
+          f"{encode_ms:.3f} ms; decode B {AUDIO_B} over {AUDIO_FRAMES} "
+          f"encoded frames, prompt 16 + {AUDIO_DECODE - 15} greedy, "
+          f"{dec['steps']} steps: p50 {dec['step_p50_ms']:.3f} ms, p99 "
+          f"{dec['step_p99_ms']:.3f} ms a step, {dec['tok_per_s']:.1f} "
+          f"tok/s, peak {_peak_gib():.2f} GiB")
+    del model, batch, prefill, memory, cache
+    torch.cuda.empty_cache()
+
+    # f32 at the smoke configs
+    cfg = get_config(arch, smoke=True)
+    model = api.init_model(cfg, generator=seeded(), device=dev)
+    b = _train_batch(cfg, np.random.default_rng(seed), 2, 64, dev)
+    with torch.no_grad():
+        memory = whisper.encode(model, cfg, b["frames"])
+        want = whisper.decode_train(model, cfg, b["tokens"], memory)
+        cache = whisper.fill_cross_kv(
+            model, cfg, api.init_decode_cache(cfg, 2, 64, dev), memory)
+        werr = max(float((api.decode_step(
+            model, cfg, b["tokens"][:, t:t + 1], cache, t)[0][:, 0]
+            - want[:, t]).abs().max()) for t in range(64))
+    check(werr <= VLM_AUDIO_F32_TOL,
+          f"whisper smoke f32 decode over filled cross K/V within "
+          f"{VLM_AUDIO_F32_TOL} of decode_train's logits (max err {werr})")
+
+    cfg = get_config("pixtral-12b", smoke=True)
+    cpu = api.init_model(cfg, generator=torch.Generator().manual_seed(seed),
+                         device="cpu")
+    gpu = copy.deepcopy(cpu).to("cuda")
+    got = {}
+    n0 = _read_launches()
+    for d, m in (("cpu", cpu), ("cuda", gpu)):
+        bb = _train_batch(cfg, np.random.default_rng(seed), 2, VLM_S, d)
+        got[d] = make_prefill_step(cfg)(m, bb).cpu()
+    ran = {k: v - n0[k] for k, v in _read_launches().items() if v != n0[k]}
+    perr = float((got["cuda"] - got["cpu"]).abs().max())
+    check(ran == {"flash_attention": cfg.n_layers},
+          f"the smoke prefill at P + S = 2,048 ran B8 once a layer on the "
+          f"card ({ran})")
+    check(perr <= VLM_AUDIO_F32_TOL,
+          f"pixtral smoke f32 prefill with a prefix, card vs CPU within "
+          f"{VLM_AUDIO_F32_TOL} (max err {perr})")
+    print(f"[lm-vlm-audio] f32 smoke: whisper decode over filled cross K/V "
+          f"(64 frames, 64 steps, B 2) against decode_train's logits: max "
+          f"abs err {werr:.3g} (tolerance {VLM_AUDIO_F32_TOL}); pixtral "
+          f"prefill B 2 x (16 patches + 2032 tokens), card vs CPU: max abs "
+          f"err {perr:.3g} (tolerance {VLM_AUDIO_F32_TOL}; |logits| up to "
+          f"{float(got['cpu'].abs().max()):.3g}); card launches {ran}")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3047,6 +3418,7 @@ def main(argv=None) -> int:
     phase_train_pipeline_parity(args.seed, PS_PARITY)
     phase_elastic_parity(args.seed)
     phase_ssm_parity(args.seed)
+    phase_vlm_audio_parity(args.seed)
     # launches on the main paths: each run counted from zero, then summed
     launches: dict = {}
     for run in (lambda: phase_serve(args.seed),
@@ -3064,7 +3436,8 @@ def main(argv=None) -> int:
                 lambda: phase_resume(args.seed),
                 lambda: phase_train_ps(args.seed),
                 lambda: phase_train_dense(args.seed),
-                lambda: phase_lm_ssm(args.seed)):
+                lambda: phase_lm_ssm(args.seed),
+                lambda: phase_lm_vlm_audio(args.seed)):
         t = time.perf_counter()
         for k, v in run().items():
             launches[k] = launches.get(k, 0) + v

@@ -6,13 +6,15 @@
 The port's counterpart of ``examples/serve_llm_decode.py``: the reduced
 (smoke) variant of an LM architecture (dense, MoE, SSM such as
 ``falcon-mamba-7b`` or hybrid such as ``recurrentgemma-2b``, whose
-recurrent layers decode from an O(1) state; the audio family raises,
-ROADMAP A14.6) with random
-weights from seed 0, a batch of seeded prompts fed token by token into
-the cache (teacher-forced), then greedy continuations, through
-``launch.steps.make_serve_step``.  ``--device`` defaults to ``cuda``
-and raises without a card.  ``run(args, cfg=, model=, prompts=)`` takes
-another configuration (a full-width one), weights and prompts.
+recurrent layers decode from an O(1) state; a VLM decodes its text
+tokens; ``whisper-large-v3``'s decoder decodes over zero cross K/V of
+``enc_len = prompt_len + gen_len`` frames, as the reference's example
+does) with random weights from seed 0, a batch of seeded prompts fed
+token by token into the cache (teacher-forced), then greedy
+continuations, through ``launch.steps.make_serve_step``.  ``--device``
+defaults to ``cuda`` and raises without a card.  ``run(args, cfg=,
+model=, prompts=, cache=)`` takes another configuration (a full-width
+one), weights, prompts and decode cache.
 
 Each step ends with its token on the device and, on a card, a
 synchronise, so the per-step wall histogram (p50/p99) counts the
@@ -48,13 +50,15 @@ def build_parser():
     return ap
 
 
-def run(args, cfg=None, model=None, prompts=None, on_logits=None) -> dict:
+def run(args, cfg=None, model=None, prompts=None, on_logits=None,
+        cache=None) -> dict:
     """Decode ``prompt_len + gen_len - 1`` steps; returns the summary:
     tokens/s, step p50/p99 ms and the (batch, prompt_len + gen_len)
     token sequences.  ``cfg`` replaces ``--arch``'s smoke config,
     ``model`` the seeded weights, ``prompts`` (batch, prompt_len) the
-    seeded prompts; ``on_logits(pos, logits)`` sees each step's logits
-    (B, 1, V) on the device."""
+    seeded prompts, ``cache`` the empty decode cache (whisper's with its
+    cross K/V filled from an encoding); ``on_logits(pos, logits)`` sees
+    each step's logits (B, 1, V) on the device."""
     device = resolve_device(args.device)
     if cfg is None:
         cfg = get_config(args.arch, smoke=True)
@@ -63,7 +67,8 @@ def run(args, cfg=None, model=None, prompts=None, on_logits=None) -> dict:
         model = api.init_model(cfg, generator=torch.Generator(
             device=device).manual_seed(0), device=device)
     max_len = args.prompt_len + args.gen_len
-    cache = api.init_decode_cache(cfg, args.batch, max_len, device)
+    if cache is None:
+        cache = api.init_decode_cache(cfg, args.batch, max_len, device)
     step = make_serve_step(cfg)
 
     if prompts is None:

@@ -5,7 +5,10 @@
 
 Builds the step as ``repro_torch.launch.train.run_lm`` does (full width
 and depth, or ``--layers`` of them, bf16, Adam at lr 1e-2, random
-weights from ``--seed``), runs ``--warm`` steps unprofiled, then
+weights from ``--seed``; the VLM and audio families on
+``api.make_train_batch``'s batches of ``--seq-len``: pixtral's patches
+count in it, whisper's frames are it), runs ``--warm`` steps
+unprofiled, then
 profiles the rest with ``torch.profiler`` (CPU and CUDA activity), the
 forward (loss), the backward and the optimizer each inside a
 ``record_function`` range.
@@ -19,8 +22,11 @@ the whole profiled window; the device time a step of the flash kernel
 B8's forward, of its backward kernel beside it, of the linear-scan
 kernels (the SSM and hybrid LMs' recurrence) and of the matrix products
 (cuBLAS's ``nvjet`` kernels among them); and the kernels that took most
-device time.  Writes the table
-to ``--out`` when given.  Needs a CUDA device; exits non-zero without
+device time.  For the audio family also the encoder's attention core
+(the naive route: logits, softmax and the product with v, forward and
+backward, every encoder layer) timed alone with CUDA events beside B8
+non-causal at the same shape, and their share of the step.  Writes the
+table to ``--out`` when given.  Needs a CUDA device; exits non-zero without
 one.
 """
 from __future__ import annotations
@@ -78,12 +84,20 @@ def main(argv=None) -> int:
     opt = adam(1e-2)
     opt_state = opt.init(params)
     stream = token_stream(args.seed, cfg.vocab, args.batch, args.seq_len + 1)
+    rng = np.random.default_rng(args.seed)
     host = {p: [] for p in PHASES}      # per step, unprofiled and not
+
+    def next_batch():
+        if cfg.family in ("vlm", "audio"):
+            return {k: torch.as_tensor(v, device=dev) for k, v in
+                    api.make_train_batch(rng, cfg, args.batch,
+                                         args.seq_len).items()}
+        tok = torch.as_tensor(next(stream), device=dev)
+        return {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
 
     def step():
         nonlocal opt_state
-        tok = torch.as_tensor(next(stream), device=dev)
-        batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+        batch = next_batch()
         for name in PHASES:
             t0 = time.perf_counter()
             with torch.profiler.record_function(name):
@@ -171,12 +185,61 @@ def main(argv=None) -> int:
     lines.append(f"[profile] peak device memory "
                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
                  f"(profiled steps)")
+    if cfg.family == "audio":
+        step_ms = float(np.mean([sum(h) for h in zip(
+            *(host[p][1:args.warm] for p in PHASES))])) * 1e3
+        lines += _encoder_attention(cfg, args.batch, args.seq_len, step_ms)
     text = "\n".join(lines)
     print(text)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(text + "\n")
     return 0
+
+
+def _events_ms(fn, reps: int = 10) -> float:
+    """Median ms of ``fn`` between CUDA events, after 2 warm calls."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return float(np.median(times))
+
+
+def _encoder_attention(cfg, B: int, T: int, step_ms: float) -> list:
+    """The audio encoder's attention core at (B, T) frames, forward and
+    backward, on the naive route it takes and on B8 non-causal."""
+    from repro_torch.kernels.flash_attn import flash_attn
+    from repro_torch.models.layers import attention_naive
+
+    KV, G, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda")
+               .to(torch.bfloat16).requires_grad_()
+               for shape in ((B, T, KV, G, hd), (B, T, KV, hd),
+                             (B, T, KV, hd)))
+    dout = torch.randn((B, T, KV, G, hd), generator=g,
+                       device="cuda").to(torch.bfloat16)
+    pos = torch.arange(T, device="cuda")
+    routes = {"naive": lambda: attention_naive(q, k, v, "full", 0, pos, pos,
+                                               bidirectional=True),
+              "B8 non-causal": lambda: flash_attn(q, k, v, causal=False)}
+    lines = []
+    for name, fn in routes.items():
+        ms = _events_ms(lambda: torch.autograd.grad(fn(), (q, k, v), dout))
+        total = ms * cfg.encoder_layers
+        lines.append(f"[profile] encoder attention core, {name}: B {B}, T "
+                     f"{T}, {KV * G} heads, hd {hd}, bf16, forward and "
+                     f"backward {ms:.3f} ms a layer, {total:.1f} ms a step "
+                     f"({cfg.encoder_layers} layers; {total / step_ms:.1%} "
+                     f"of the {step_ms:.1f} ms unprofiled step)")
+    return lines
 
 
 if __name__ == "__main__":

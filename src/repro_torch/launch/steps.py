@@ -24,7 +24,7 @@ from ..core.dispatch import (changed_samples_mask, dispatch_cap,
                              exchange_budget, need_ids_list, need_matrix)
 from ..elastic import mask_state
 from ..exchange.ragged import ragged_exchange_many
-from ..models import api, backbone
+from ..models import api, backbone, whisper
 from ..quant.codecs import get_codec
 
 __all__ = ["make_train_step", "make_serve_step", "make_prefill_step",
@@ -35,9 +35,11 @@ __all__ = ["make_train_step", "make_serve_step", "make_prefill_step",
 def make_train_step(cfg, model, optimizer):
     """The LM train step (the reference's with ``remat=False``, as its LM
     driver runs it): ``step(batch) -> loss`` takes the loss and its
-    gradients through ``api.train_loss`` and copies ``optimizer``'s new
-    values into ``model``'s parameters in place.  ``step.state["opt"]``
-    is the optimizer's state (a checkpoint reads and replaces it)."""
+    gradients through ``api.train_loss`` (any family: the batch is
+    ``api.make_train_batch``'s layout, as tensors) and copies
+    ``optimizer``'s new values into ``model``'s parameters in place.
+    ``step.state["opt"]`` is the optimizer's state (a checkpoint reads
+    and replaces it)."""
     params = list(model.parameters())
     state = {"opt": optimizer.init(params)}
 
@@ -66,18 +68,25 @@ def make_serve_step(cfg):
 
 
 def make_prefill_step(cfg):
-    """``prefill_step(params, batch) -> logits``: the forward's logits
-    (B, S, V) for ``batch["tokens"]``, without autograd.  At S >= 2,048
-    (a multiple of 512) every full-attention layer at hd 32, 64 or 128
-    runs B8's forward, and every ``mamba`` and ``rglru`` layer the
-    linear-scan kernel at any S.
-    The VLM prefix and the audio encoder wait for ROADMAP A14.5 and
-    A14.6, and raise here."""
-    api._lm_only(cfg)
-
+    """``prefill_step(params, batch) -> logits``, without autograd: for
+    the audio family :func:`~repro_torch.models.whisper.encode` of
+    ``batch["frames"]`` then ``decode_train`` of ``batch["tokens"]``
+    (B, S_dec, V); for the others the backbone's forward of
+    ``batch["tokens"]`` behind ``batch.get("patches")`` (the VLM's
+    prefix), logits over all P + S positions, unsliced, as the
+    reference's.  At P + S >= 2,048 (a multiple of 512) every
+    full-attention layer at hd 32, 64 or 128 runs B8's forward, and
+    every ``mamba`` and ``rglru`` layer the linear-scan kernel at any S;
+    whisper's bidirectional encoder takes the naive route at every
+    length."""
     def prefill_step(params, batch):
         with torch.no_grad():
-            logits, _ = backbone.forward(params, cfg, batch["tokens"])
+            if cfg.family == "audio":
+                memory = whisper.encode(params, cfg, batch["frames"])
+                return whisper.decode_train(params, cfg, batch["tokens"],
+                                            memory)
+            logits, _ = backbone.forward(params, cfg, batch["tokens"],
+                                         prefix_embeds=batch.get("patches"))
         return logits
 
     return prefill_step

@@ -65,9 +65,12 @@ the local and chunked masks and other head widths take the reference's
 blockwise scan).  The dense, MoE, SSM and hybrid families run (an MoE
 layer adds the router's load-balance loss at weight 0.01; every
 ``mamba`` and ``rglru`` layer runs its recurrence through the
-linear-scan kernel, forward and backward); the VLM and audio families
-raise (ROADMAP A14.5, A14.6).  Every step logs the loss and its wall
-time after a synchronise.
+linear-scan kernel, forward and backward).  The driver feeds tokens
+only, as the reference's does, so it refuses the VLM and audio families
+with a ``SystemExit``: they train through
+:func:`repro_torch.launch.steps.make_train_step` over
+:func:`repro_torch.models.api.make_train_batch`'s batches.  Every step
+logs the loss and its wall time after a synchronise.
 
 Multi-PS (the paper's "one or more parameter servers"): ``--n-ps P``
 partitions the vocabulary over P servers (``--ps-layout contiguous``
@@ -802,7 +805,9 @@ def run_lm(args, model=None, cfg=None) -> dict:
     (``metrics``: loss,
     wall_s), the mean ms per step and tokens per second over the steps
     after the first (which builds the kernel and warms the allocator).
-    The other families raise where their model is built.  ``model``
+    The VLM and audio families exit (the driver feeds ``{tokens,
+    labels}`` only, as the reference's, whose ``train_loss`` then fails
+    on the missing ``patches`` or ``frames``).  ``model``
     replaces the seeded random weights (tests pass the JAX package's),
     ``cfg`` the config of ``--arch`` (a variant of it, such as another
     dtype)."""
@@ -813,6 +818,12 @@ def run_lm(args, model=None, cfg=None) -> dict:
                      (args.validate_timing, "--validate-timing", "A15")])
     if cfg is None:
         cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.family not in api.LM_FAMILIES:
+        raise SystemExit(
+            f"the LM driver feeds tokens only ({{tokens, labels}}), as the "
+            f"reference's does; the {cfg.family} family ({cfg.name}) trains "
+            f"through launch.steps.make_train_step over "
+            f"models.api.make_train_batch")
     if model is None:
         model = api.init_model(cfg, generator=torch.Generator(
             device=device).manual_seed(args.seed), device=device)

@@ -1,18 +1,20 @@
-"""Model API over the LM families — what the LM training driver and
-the decode loop drive.
+"""Model API over all the LM families — what the LM training driver, the
+step builders and the decode loop drive.
 
-The counterpart of the JAX package's ``models/api.py`` for the LM
-families:
+The counterpart of the JAX package's ``models/api.py``:
 
-  init_model(cfg, generator=, device=)   -> params (``backbone.LM``)
+  init_model(cfg, generator=, device=)   -> params (``backbone.LM``, or
+                                            ``whisper.Whisper`` for audio)
   train_loss(params, cfg, batch)         -> scalar loss
   init_decode_cache(cfg, batch, seq_len, device) -> cache
   decode_step(params, cfg, token, cache, pos) -> (logits, cache)
-  make_train_batch(rng, cfg, batch, seq_len) -> {tokens, labels} (numpy)
+  make_train_batch(rng, cfg, batch, seq_len) -> batch (numpy)
 
-The dense, MoE, SSM and hybrid families run, and a VLM decodes its text
-tokens; the VLM prefix (ROADMAP A14.5) and the audio encoder-decoder
-(A14.6) raise here.
+Batch layouts by family:
+  lm families (dense/moe/ssm/hybrid): {tokens (B,S), labels (B,S)}
+  vlm:   {tokens (B,S-P), labels (B,S-P), patches (B,P,D)}  (stub frontend)
+  audio: {frames (B,S,D), tokens (B,min(S,448)), labels (B,min(S,448))}
+         (stub frontend)
 """
 from __future__ import annotations
 
@@ -20,56 +22,64 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from . import backbone
+from . import backbone, whisper
 
 __all__ = ["LM_FAMILIES", "init_model", "train_loss", "init_decode_cache",
            "decode_step", "make_train_batch"]
 
 LM_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-_ITEMS = {"vlm": "A14.5", "audio": "A14.6"}
 
 
-def _lm_only(cfg: ModelConfig):
-    if cfg.family not in LM_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family} family ({cfg.name}) is not ported to "
-            f"repro_torch yet (ROADMAP {_ITEMS.get(cfg.family, 'A14')})")
-
-
-def init_model(cfg: ModelConfig, *, generator: torch.Generator,
-               device) -> backbone.LM:
-    _lm_only(cfg)
+def init_model(cfg: ModelConfig, *, generator: torch.Generator, device):
+    if cfg.family == "audio":
+        return whisper.init_params(cfg, generator=generator, device=device)
     return backbone.init_params(cfg, generator=generator, device=device)
 
 
-def train_loss(params: backbone.LM, cfg: ModelConfig, batch: dict):
-    _lm_only(cfg)
+def train_loss(params, cfg: ModelConfig, batch: dict):
+    if cfg.family == "audio":
+        return whisper.loss(params, cfg, batch["frames"], batch["tokens"],
+                            batch["labels"])
+    if cfg.family == "vlm":
+        return backbone.lm_loss(params, cfg, batch["tokens"],
+                                batch["labels"],
+                                prefix_embeds=batch["patches"])
     return backbone.lm_loss(params, cfg, batch["tokens"], batch["labels"])
 
 
-def _no_audio(cfg: ModelConfig):
-    # decode runs on the backbone for every family but audio, as the
-    # reference's; a VLM decodes its text tokens
+def init_decode_cache(cfg: ModelConfig, batch: int, seq_len: int, device):
+    """The backbone's list of layer caches; for audio, whisper's self-KV
+    rings and zero cross K/V of ``enc_len = seq_len`` frames."""
     if cfg.family == "audio":
-        _lm_only(cfg)
-
-
-def init_decode_cache(cfg: ModelConfig, batch: int, seq_len: int,
-                      device) -> list:
-    _no_audio(cfg)
+        return whisper.init_cache(cfg, batch, seq_len, device)
     return backbone.init_cache(cfg, batch, seq_len, device)
 
 
-def decode_step(params: backbone.LM, cfg: ModelConfig, token, cache: list,
-                pos: int):
-    _no_audio(cfg)
+def decode_step(params, cfg: ModelConfig, token, cache, pos: int):
+    if cfg.family == "audio":
+        return whisper.decode_step(params, cfg, token, cache, pos)
     return backbone.decode_step(params, cfg, token, cache, pos)
 
 
 def make_train_batch(rng: np.random.Generator, cfg: ModelConfig, batch: int,
                      seq_len: int) -> dict:
-    """Concrete random batch (smoke tests / examples)."""
-    _lm_only(cfg)
+    """Concrete random batch (smoke tests / examples), drawn as the
+    reference draws it: one ``rng`` gives both packages the same
+    arrays."""
+    if cfg.family == "audio":
+        dec = min(seq_len, whisper.DEC_CTX)
+        return {
+            "frames": rng.standard_normal((batch, seq_len, cfg.d_model)).astype(np.float32),
+            "tokens": rng.integers(0, cfg.vocab, (batch, dec)).astype(np.int32),
+            "labels": rng.integers(0, cfg.vocab, (batch, dec)).astype(np.int32),
+        }
+    if cfg.family == "vlm":
+        S = seq_len - cfg.n_patches
+        return {
+            "tokens": rng.integers(0, cfg.vocab, (batch, S)).astype(np.int32),
+            "labels": rng.integers(0, cfg.vocab, (batch, S)).astype(np.int32),
+            "patches": rng.standard_normal((batch, cfg.n_patches, cfg.d_model)).astype(np.float32),
+        }
     return {
         "tokens": rng.integers(0, cfg.vocab, (batch, seq_len)).astype(np.int32),
         "labels": rng.integers(0, cfg.vocab, (batch, seq_len)).astype(np.int32),

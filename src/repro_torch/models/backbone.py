@@ -1,13 +1,14 @@
-"""Decoder backbone of the LM families (dense, MoE, SSM and hybrid):
-train, prefill and decode.
+"""Decoder backbone of the LM families (dense, MoE, SSM, hybrid and the
+VLM's decoder): train, prefill and decode.
 
 The counterpart of the JAX package's ``models/backbone.py``: attention
 stacks (smollm, yi, minitron, granite; phi3.5-moe and llama4-scout with
-their MoE layers), Mamba stacks (falcon-mamba) and RG-LRU layers beside
-local attention (recurrentgemma).  An ``LM`` module holds the tied or
-untied embedding, the layers and the final norm; :func:`forward`,
-:func:`lm_loss` and :func:`decode_step` are functions over it.  Layers
-follow ``cfg.layer_pattern`` cycled over ``cfg.n_layers``; where the
+their MoE layers), Mamba stacks (falcon-mamba), RG-LRU layers beside
+local attention (recurrentgemma), and pixtral's decoder, whose stub
+patch embeddings are fused in front of the tokens (``prefix_embeds``).
+An ``LM`` module holds the tied or untied embedding, the layers and the
+final norm; :func:`forward`, :func:`lm_loss` and :func:`decode_step`
+are functions over it.  Layers follow ``cfg.layer_pattern`` cycled over ``cfg.n_layers``; where the
 reference stacks each pattern group's parameters and scans over the
 groups, the port keeps one module per layer and loops over them in
 Python (no remat: the reference's LM driver trains with
@@ -17,13 +18,13 @@ KV cache for attention, the conv window and state for ``mamba`` and
 
 Public surface:
   init_params(cfg, generator=, device=)  -> LM
-  forward(params, cfg, tokens)           -> (logits, aux)  train/prefill
-  lm_loss(params, cfg, tokens, labels)   -> scalar (+ 0.01 aux for MoE)
+  forward(params, cfg, tokens, prefix_embeds=None) -> (logits, aux)
+                                          train/prefill
+  lm_loss(params, cfg, tokens, labels, prefix_embeds=None)
+                                         -> scalar (+ 0.01 aux for MoE)
   init_cache(cfg, batch, seq_len, device) -> decode cache
   decode_step(params, cfg, token, cache, pos) -> (logits, cache)
   params_from_jax(tree, cfg)             -> LM with the reference's weights
-
-The VLM prefix (ROADMAP A14.5) waits in :mod:`.api`.
 """
 from __future__ import annotations
 
@@ -41,8 +42,8 @@ from .layers import (MLP, Attention, MoE, attention_decode,
 from .tree import to_numpy, to_ref
 
 __all__ = ["LM", "Layer", "group_layout", "init_params", "backbone_apply",
-           "forward", "lm_loss", "init_cache", "decode_step",
-           "params_from_jax", "ref_paths", "params_to_jax"]
+           "forward", "lm_loss", "token_cross_entropy", "init_cache",
+           "decode_step", "params_from_jax", "ref_paths", "params_to_jax"]
 
 ATTN_KINDS = ("full", "local", "chunked")
 KINDS = ATTN_KINDS + ("mamba", "rglru")
@@ -183,26 +184,42 @@ def _head(params: LM, cfg: ModelConfig, x):
     return x @ head.to(x.dtype)
 
 
-def forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor):
-    """tokens: (B,S) -> (logits (B,S,V) in the model's dtype, aux)."""
+def forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
+            prefix_embeds: torch.Tensor | None = None):
+    """tokens: (B,S) -> (logits (B,P+S,V) in the model's dtype, aux).
+
+    ``prefix_embeds`` (B,P,D), the VLM's stub patch embeddings, are cast
+    to the embeddings' dtype and fused in front of the tokens; positions
+    run 0 .. P+S-1, and P+S decides the attention route."""
     x = F.embedding(tokens, params.embed.to(_dtype(cfg)))
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
     x, aux = backbone_apply(params, cfg, x, positions)
     return _head(params, cfg, x), aux
 
 
-def lm_loss(params: LM, cfg: ModelConfig, tokens, labels):
+def lm_loss(params: LM, cfg: ModelConfig, tokens, labels,
+            prefix_embeds: torch.Tensor | None = None):
     """Next-token cross-entropy over f32 logits (labels = tokens shifted
     by the caller; -1 = pad, masked), plus the router's aux loss with
-    weight 0.01."""
-    logits, aux = forward(params, cfg, tokens)
-    logits = logits.float()
+    weight 0.01.  With ``prefix_embeds`` (B,P,D) the loss is over the
+    text positions only (the logits' last S)."""
+    logits, aux = forward(params, cfg, tokens, prefix_embeds)
+    if prefix_embeds is not None:
+        logits = logits[:, prefix_embeds.shape[1]:]
+    return token_cross_entropy(logits.float(), labels) + 0.01 * aux
+
+
+def token_cross_entropy(logits, labels):
+    """The mean of ``-log softmax(logits)[label]`` over the labels >= 0
+    (-1 = pad), in the logits' dtype."""
     mask = labels >= 0
     safe = torch.where(mask, labels, torch.zeros_like(labels))
     logz = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, safe[..., None].long())[..., 0]
     nll = (logz - ll) * mask
-    return nll.sum() / torch.clamp(mask.sum(), min=1) + 0.01 * aux
+    return nll.sum() / torch.clamp(mask.sum(), min=1)
 
 
 # --------------------------------------------------------------------------

@@ -9,7 +9,8 @@ the JAX package's layouts (a linear weight is ``(din, dout)`` and the
 forward ``x @ w``; attention weights keep the GQA head structure:
 ``wq (D, KV, G, hd)``, ``wk``/``wv (D, KV, hd)``, ``wo (KV, G, hd, D)``;
 an MoE's experts are stacked, ``wi``/``wg (E, D, ff)``, ``wo (E, ff,
-D)``).  Cross-attention comes with the audio family (ROADMAP A14.6).
+D)``).  :func:`cross_attention` is the audio decoder's attention over
+the encoder's keys and values.
 """
 from __future__ import annotations
 
@@ -28,8 +29,8 @@ __all__ = ["linear", "init_linear", "rmsnorm", "rope", "Attention",
            "init_attention", "attention_naive", "flash_route",
            "attention_blockwise", "attention_flash",
            "attention_train", "CacheSpec", "cache_spec", "init_kv_cache",
-           "attention_decode", "MLP", "init_mlp", "mlp", "MoE", "init_moe",
-           "moe_ffn", "FLASH_MIN_SEQ", "FLASH_BLOCK"]
+           "attention_decode", "cross_attention", "MLP", "init_mlp", "mlp",
+           "MoE", "init_moe", "moe_ffn", "FLASH_MIN_SEQ", "FLASH_BLOCK"]
 
 NEG_INF = -1e30
 FLASH_BLOCK = 512          # kv block of the reference's scan-based flash
@@ -289,6 +290,18 @@ def attention_decode(p: Attention, x, cache: dict, cur_pos: int,
     logits = torch.where(valid, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return _proj_out(p, _gqa_out(probs, cv)), cache
+
+
+def cross_attention(p: Attention, x, enc_k, enc_v):
+    """Decoder -> encoder attention (whisper).  x: (B, S, D), enc_k/enc_v:
+    (B, T, KV, hd) -> (B, S, D).  The query only is projected, without
+    RoPE; every key is attended (no mask).  The logits are computed in
+    x's dtype and cast to f32, the probabilities cast back to x's
+    dtype, as the reference's."""
+    q = torch.einsum("bsd,dkgh->bskgh", x, p.wq.to(x.dtype))
+    logits = _gqa_logits(q, enc_k).float()
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    return _proj_out(p, _gqa_out(probs, enc_v))
 
 
 # --------------------------------------------------------------------------

@@ -287,8 +287,22 @@ def test_ssm_families_train_one_smoke_step(arch):
 
 @pytest.mark.parametrize("arch", ["pixtral-12b", "whisper-large-v3"])
 def test_families_outside_the_slice_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
+    """The LM driver feeds ``{tokens, labels}`` only, as the reference's:
+    the reference's ``train_loss`` fails on that batch (no ``patches`` or
+    ``frames``), and the port's driver refuses the VLM and audio families
+    with a ``SystemExit`` naming the step they train through.  That step's
+    loss runs on ``make_train_batch``'s batch (their parity with the
+    reference is tests/test_torch_vlm.py and test_torch_whisper.py)."""
+    with pytest.raises(SystemExit, match="make_train_step"):
         main(["--arch", arch, "--smoke", "--steps", "1", "--device", "cpu"])
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        api.train_loss(None, cfg, {})
+    jcfg, cfg = jget(arch, smoke=True), get_config(arch, smoke=True)
+    toks = jnp.zeros((1, 8), jnp.int32)
+    with pytest.raises(KeyError, match="patches|frames"):
+        japi.train_loss(japi.init_model(jax.random.key(0), jcfg), jcfg,
+                        {"tokens": toks, "labels": toks}, remat=False)
+    model = api.init_model(cfg, generator=torch.Generator().manual_seed(0),
+                           device="cpu")
+    batch = api.make_train_batch(np.random.default_rng(0), cfg, 1, 32)
+    loss = api.train_loss(model, cfg, {k: torch.as_tensor(v)
+                                       for k, v in batch.items()})
+    assert loss.shape == () and np.isfinite(loss.item())

@@ -26,7 +26,7 @@ from repro.models import backbone as jbb
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attn as tf
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
-from repro_torch.models import api, backbone
+from repro_torch.models import api, backbone, whisper
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 1e-5
@@ -42,7 +42,8 @@ def _models(arch, seed=0, **over):
     jcfg = dataclasses.replace(jget(arch, smoke=True), **over)
     cfg = dataclasses.replace(get_config(arch, smoke=True), **over)
     params = japi.init_model(jax.random.key(seed), jcfg)
-    model = backbone.params_from_jax(jax.tree.map(np.asarray, params), cfg)
+    module = whisper if cfg.family == "audio" else backbone
+    model = module.params_from_jax(jax.tree.map(np.asarray, params), cfg)
     return jcfg, params, cfg, model
 
 
@@ -164,16 +165,32 @@ def test_decode_runs_without_autograd():
 
 @pytest.mark.parametrize("arch,item", [("whisper-large-v3", "A14.6")])
 def test_decode_outside_the_slice_raises(arch, item):
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        api.init_decode_cache(cfg, 1, 8, "cpu")
+    """The audio family decodes (ROADMAP A14.6): the decode example's loop
+    over whisper's self-KV rings and zero cross K/V of ``enc_len =
+    prompt_len + gen_len`` frames gives the reference's example loop's
+    tokens."""
+    out, want = _example_against_reference(arch)
+    np.testing.assert_array_equal(out["sequences"], want)
+    cache = api.init_decode_cache(get_config(arch, smoke=True), 2, 11, "cpu")
+    assert set(cache) == {"self", "cross_k", "cross_v"}
+    assert cache["cross_k"].shape[2] == 11, item
 
 
 @pytest.mark.parametrize("arch,item", [("pixtral-12b", "A14.5"),
                                        ("whisper-large-v3", "A14.6")])
 def test_prefill_outside_the_slice_raises(arch, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        make_prefill_step(get_config(arch, smoke=True))
+    """``make_prefill_step`` runs the VLM (ROADMAP A14.5: tokens behind
+    their patches, the logits over all P + S positions) and the audio
+    family (A14.6: encode, then the decoder's logits) as the reference's
+    under ``jax.jit``, on ``make_train_batch``'s batch."""
+    jcfg, params, cfg, model = _models(arch, seed=5)
+    batch = api.make_train_batch(np.random.default_rng(6), cfg, 2, 48)
+    want = jax.jit(jsteps.make_prefill_step(jcfg, remat=False))(
+        params, {k: jnp.asarray(v) for k, v in batch.items()})
+    got = make_prefill_step(cfg)(model, {k: _t(v) for k, v in batch.items()})
+    assert not got.requires_grad and got.shape == (2, 48, cfg.vocab), item
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=TOL)
 
 
 def _example():

@@ -230,11 +230,14 @@ def test_codec_flag_guards(flags, why):
 
 
 def test_lm_arch_raises():
-    """LM training runs the dense, MoE, SSM and hybrid families
-    (tests/test_torch_lm*.py, test_torch_ssm*.py); the VLM prefix is
-    still ROADMAP A14.5."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A14.5"):
-        main(["--arch", "pixtral-12b", "--smoke", "--device", "cpu"])
+    """The LM driver trains the dense, MoE, SSM and hybrid families
+    (tests/test_torch_lm*.py, test_torch_ssm*.py).  It feeds tokens only,
+    as the reference's, so it refuses the VLM and audio families and
+    names the step they train through (tests/test_torch_vlm.py,
+    test_torch_whisper.py)."""
+    for arch in ("pixtral-12b", "whisper-large-v3"):
+        with pytest.raises(SystemExit, match="tokens only.*make_train_step"):
+            main(["--arch", arch, "--smoke", "--device", "cpu"])
 
 
 def test_realized_cost_rescores_the_decision():
