@@ -5,8 +5,9 @@ step with its prefetch plane, the LM serving path (prefill and
 KV-cache decode) and MoE layers, and elastic training under a fault
 plan with its checkpoints and resume, training over several parameter
 servers and on the dense cache engine, the SSM and hybrid LMs with
-their linear-scan kernels, and the VLM prefix and the audio
-encoder-decoder, on one CUDA card and check them.
+their linear-scan kernels, the VLM prefix and the audio
+encoder-decoder, and traced training runs with the observability
+benchmark, on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -213,9 +214,24 @@ Phases, each printing its own lines:
    kernel (the encoder is bidirectional: the naive route); then in f32
    at the smoke configs whisper's decode over filled cross K/V against
    ``decode_train`` and pixtral's prefill with a prefix, card against
-   CPU, within ``VLM_AUDIO_F32_TOL``.
+   CPU, within ``VLM_AUDIO_F32_TOL``;
+19. trace — ``repro_torch.launch.train.main`` at phase 6's configuration
+   with ``--trace-out`` and ``--validate-timing``, at depth 1 and 2:
+   every record bit for bit the untraced run's (phases 6 and 10), the
+   launches a step theirs; the exported trace parses, with the tracks
+   ``decide`` and ``train/0`` (``train/1`` at depth 2); at depth 2 every
+   ``decide``, ``advance`` and ``train.sync`` span carries a positive
+   ``device_ms``, its step's stage time between CUDA events, and at
+   depth 1 none does; the depth-2 ``hidden_frac`` exceeds depth 1's, 0;
+   the report, and traced and untraced wall ms a step.  Then
+   ``benchmarks/obs_bench_torch.py``'s ``run(quick=True)`` on the card,
+   its artifact written through ``write_bench``, which gates its three
+   claims (the tracer's overhead at most 3 % among them).  Then ``main``
+   for smollm-360m at full width, its depth cut to 4 layers, B 4 x S
+   2,048, 3 steps with ``--trace-out``: one ``train.sync`` span a step,
+   B8 and its backward once a layer and step.
 
-Each run of phases 5 to 18 sets every kernel's launch counter to 0 just
+Each run of phases 5 to 19 sets every kernel's launch counter to 0 just
 before and reads the counters just after.  B1's per-shard and dense
 inputs get a line each (time, plain and ``embedding_bag`` times, bound,
 launches).  Then one JSON line of kernel
@@ -1193,6 +1209,7 @@ def phase_serve(seed: int, codec=None, duration: float = 1.0) -> dict:
 
 
 TRAIN_DEPTH1: dict = {}     # codec -> (run_dlrm summary, launches a step)
+TRAIN_DEPTH2: dict = {}     # codec -> phase 10's depth-2 (summary, a step)
 
 
 def phase_train(seed: int, codec=None) -> dict:
@@ -1308,6 +1325,7 @@ def phase_train_pipeline(seed: int) -> dict:
         extra = ["--pipeline-depth", "2"] + (["--codec", codec] if codec
                                              else [])
         out, per_step, rounds = run(extra)
+        TRAIN_DEPTH2[codec] = out, per_step
         check([[r[k] for k in keys] for r in out["metrics"]]
               == [[r[k] for k in keys] for r in one["metrics"]],
               f"depth 2 (codec {codec}): every record bit for bit depth 1's")
@@ -3392,6 +3410,188 @@ def phase_lm_vlm_audio(seed: int) -> dict:
     return total
 
 
+# phase 19: the records' fields a traced run must equal bit for bit
+TRACE_KEYS = ("step", "loss", "miss_pull", "update_push", "evict_push",
+              "cost", "alg1_est", "prefetch_bytes", "demand_miss_bytes",
+              "prefetch_hit_rate")
+TRACE_LM_LAYERS = RESUME_LM_LAYERS
+
+
+def _trace_events(path) -> list:
+    """The exported Chrome trace read back as the tracer's events
+    (seconds, the track by its ``thread_name`` row)."""
+    doc = json.loads(Path(path).read_text())
+    check(isinstance(doc.get("traceEvents"), list),
+          f"{path.name} is a trace_event document")
+    names = {ev["tid"]: ev["args"]["name"] for ev in doc["traceEvents"]
+             if ev["ph"] == "M"}
+    events = []
+    for ev in doc["traceEvents"]:
+        check(ev["ph"] in ("X", "M"), f"{path.name}: X and M events only")
+        if ev["ph"] == "X":
+            check(all(k in ev for k in ("name", "ts", "dur", "pid", "tid")),
+                  f"{path.name}: every span has name, ts, dur, pid, tid")
+            args = {k: v for k, v in ev["args"].items() if k != "thread"}
+            events.append({"name": ev["name"], "track": names[ev["tid"]],
+                           "thread": ev["args"]["thread"],
+                           "ts": ev["ts"] * 1e-6, "dur": ev["dur"] * 1e-6,
+                           "args": args})
+    return events
+
+
+def phase_trace(seed: int) -> dict:
+    """Phase 19: observability.  ``repro_torch.launch.train.main`` at
+    phase 6's configuration with ``--trace-out`` and ``--validate-timing``
+    at depth 1 and 2: the records bit for bit phase 6's and phase 10's
+    untraced ones, the launches a step theirs; the exported trace parses,
+    with the tracks ``decide``, ``train/0`` (and ``train/1`` at depth 2);
+    at depth 2 every ``decide``, ``advance`` and ``train.sync`` span
+    carries a positive ``device_ms`` (at depth 1 none does); the depth-2
+    ``hidden_frac`` exceeds depth 1's (0).  Then
+    ``benchmarks/obs_bench_torch.py``'s ``run(quick=True)`` on the card,
+    its artifact schema-gated by ``write_bench`` (the overhead within 3 %
+    among them).  Then ``main`` for smollm-360m at full width, its depth
+    cut to 4 of 32 layers (``get_config`` patched, as phase 14 cuts it),
+    B 4 x S 2,048, 3 steps with ``--trace-out``: one ``train.sync`` span
+    a step on ``train/0``, B8 and its backward once a layer and step."""
+    import importlib.util
+    import tempfile
+
+    import repro_torch.launch.train as T
+    from repro_torch.obs import format_report, validate_timing
+
+    total: dict = {}
+
+    def counted(fn):
+        """``fn()`` with the counts set to 0 just before and read just
+        after: (its result, its launches)."""
+        _zero_launches()
+        out = fn()
+        launches = {k: v for k, v in _read_launches().items() if v}
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        return out, launches
+
+    with tempfile.TemporaryDirectory() as td:
+        hidden = {}
+        for depth, (plain, plain_launch) in ((1, TRAIN_DEPTH1[None]),
+                                             (2, TRAIN_DEPTH2[None])):
+            path = Path(td) / f"dlrm_depth{depth}.json"
+            argv = TRAIN_ARGV + ["--seed", str(seed), "--pipeline-depth",
+                                 str(depth), "--trace-out", str(path),
+                                 "--validate-timing"]
+            out, launches = counted(lambda: T.main(argv))
+            recs = out["metrics"]
+            per_step = {k: round(v / len(recs), 3)
+                        for k, v in launches.items()}
+            check([[r.get(k) for k in TRACE_KEYS] for r in recs]
+                  == [[r.get(k) for k in TRACE_KEYS]
+                      for r in plain["metrics"]],
+                  f"traced depth {depth}: every record bit for bit the "
+                  f"untraced run's")
+            check(per_step == plain_launch,
+                  f"traced depth {depth}: the launches a step the untraced "
+                  f"run's ({per_step} vs {plain_launch})")
+            events = _trace_events(path)
+            tracks = {ev["track"] for ev in events}
+            want = {"decide"} | {f"train/{s}" for s in range(depth)}
+            check(want <= tracks, f"traced depth {depth}: tracks {want} "
+                                  f"in the trace ({sorted(tracks)})")
+            staged = [ev for ev in events
+                      if ev["name"] in ("decide", "advance", "train.sync")]
+            check(len(staged) == 3 * len(recs),
+                  f"traced depth {depth}: one decide, advance and "
+                  f"train.sync span a step")
+            if depth == 1:
+                check(not any("device_ms" in ev["args"] for ev in events),
+                      "depth 1: no span carries device_ms (each ends at a "
+                      "synchronise)")
+            else:
+                check(all(ev["args"].get("device_ms", 0) > 0
+                          for ev in staged),
+                      "depth 2: every decide, advance and train.sync span "
+                      "carries a positive device_ms")
+                for name, stage in (("decide", "decide"),
+                                    ("advance", "advance"),
+                                    ("train.sync", "train")):
+                    by_step = sorted((ev["args"]["step"],
+                                      ev["args"]["device_ms"])
+                                     for ev in staged if ev["name"] == name)
+                    check([round(ms, 6) for _, ms in by_step]
+                          == [round(x * 1e3, 6)
+                              for x in out["stage_s"][stage]],
+                          f"depth 2: {name}'s device_ms are the stage's "
+                          f"CUDA-event times, step by step")
+            report = validate_timing(events, recs)
+            hidden[depth] = report["overlap"]["hidden_frac"]
+            print(f"[trace] wdl-s1 depth {depth}, traced: wall "
+                  f"{out['wall_ms_mean']:.3f} ms a step, untraced (phase "
+                  f"{6 if depth == 1 else 10}) {plain['wall_ms_mean']:.3f}; "
+                  f"{len(events)} spans; hidden_frac {hidden[depth]}; "
+                  f"launches {per_step} a step (the untraced run's)")
+            if depth == 2:
+                ms = {name: [round(ev["args"]["device_ms"], 3)
+                             for ev in staged if ev["name"] == name]
+                      for name in ("decide", "advance", "train.sync")}
+                print(f"[trace] depth 2 device_ms by step: {ms}")
+            print(format_report(report))
+        check(hidden[1] == 0.0,
+              f"depth 1: no decide time inside a train window ({hidden[1]})")
+        check(hidden[2] > hidden[1],
+              f"depth 2 hides decide time under train windows "
+              f"({hidden[2]} > {hidden[1]})")
+
+        spec = importlib.util.spec_from_file_location(
+            "obs_bench_torch", ROOT / "benchmarks" / "obs_bench_torch.py")
+        bench = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(bench)
+        t = time.perf_counter()
+        art = Path(td) / "BENCH_obs_quick.json"
+        rep, launches = counted(lambda: bench.run(quick=True, out=art,
+                                                  device="cuda"))
+        check(art.exists(), "obs_bench_torch wrote its schema-gated "
+                            "artifact")
+        print(f"[trace] obs_bench_torch --quick on the card in "
+              f"{time.perf_counter() - t:.1f} s: bitwise "
+              f"{rep['bitwise']}, overhead {rep['overhead']}, overlap "
+              f"{rep['overlap']}, trace {rep['trace']}; launches "
+              f"{launches}")
+        check(launches.get("staged_gather", 0) > 0,
+              "obs_bench_torch's prefetch pull launched staged_gather")
+
+        from repro_torch.configs import get_config
+
+        cfg = dataclasses.replace(get_config("smollm-360m"),
+                                  n_layers=TRACE_LM_LAYERS)
+        real = T.get_config
+        T.get_config = lambda arch, smoke=False: cfg
+        path = Path(td) / "lm.json"
+        try:
+            out, launches = counted(lambda: T.main(
+                ["--arch", "smollm-360m", "--seq-len", "2048",
+                 "--batch-per-worker", "4", "--steps", "3", "--seed",
+                 str(seed), "--device", "cuda", "--trace-out", str(path)]))
+        finally:
+            T.get_config = real
+        events = _trace_events(path)
+        syncs = [ev for ev in events if ev["name"] == "train.sync"]
+        n = cfg.n_layers * 3
+        check([ev["args"]["step"] for ev in syncs] == [0, 1, 2]
+              and {ev["track"] for ev in syncs} == {"train/0"},
+              "LM: one train.sync span a step on train/0")
+        check(launches == {"flash_attention": n, "flash_attention_bwd": n},
+              f"LM traced: B8 and its backward once a layer and step "
+              f"({launches})")
+        check(all(np.isfinite([r["loss"] for r in out["metrics"]])),
+              "LM traced: finite losses")
+        print(f"[trace] {cfg.name} at full width, {cfg.n_layers} of 32 "
+              f"layers, B 4, S 2048, 3 steps traced: train.sync ms "
+              f"{[round(ev['dur'] * 1e3, 3) for ev in syncs]}; losses "
+              f"{[r['loss'] for r in out['metrics']]}; launches "
+              f"{launches}")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3437,7 +3637,8 @@ def main(argv=None) -> int:
                 lambda: phase_train_ps(args.seed),
                 lambda: phase_train_dense(args.seed),
                 lambda: phase_lm_ssm(args.seed),
-                lambda: phase_lm_vlm_audio(args.seed)):
+                lambda: phase_lm_vlm_audio(args.seed),
+                lambda: phase_trace(args.seed)):
         t = time.perf_counter()
         for k, v in run().items():
             launches[k] = launches.get(k, 0) + v

@@ -108,9 +108,28 @@ step's, so at depth >= 2 a checkpoint holds the step it names;
 to match.  As in the reference, ``--decide-ahead`` and ``--prefetch``
 refuse a fault plan.
 
-Flags of the reference that this port does not carry yet raise
-``NotImplementedError`` naming the ROADMAP item that brings them:
-``--trace-out``, ``--trace-buffer`` and ``--validate-timing`` (A15).
+Tracing (:mod:`repro_torch.obs`): with ``--trace-out PATH`` or
+``--validate-timing``, :func:`main` installs a :class:`Tracer` of
+``--trace-buffer`` spans (drop-oldest) for the run.  The runner's spans
+(``decide``, ``realized``, ``repair``, ``advance`` on the ``decide``
+track; each step's in-flight ``train`` window and its ``train.sync`` on
+``train/<t % depth>``), the prefetch pull's ``prefetch.pull`` (track
+``prefetch``), the LM step's ``train.sync`` (``train/0``), the loader's
+``data.load`` and the checkpoints' ``checkpoint.save`` and
+``checkpoint.restore`` (track ``io``) are host wall time.  On a card at
+depth >= 2, where the chain and train run on two streams and a host
+span times only the issue, every ``decide``, ``advance`` and
+``train.sync`` span also carries ``device_ms``: its step's stage time
+between CUDA events on the stage's stream, read after the run's final
+synchronise.  ``--trace-out`` writes the Chrome/Perfetto trace_event
+JSON (open it in ui.perfetto.dev) even when the run fails;
+``--validate-timing`` prints :func:`repro_torch.obs.format_report` of
+:func:`repro_torch.obs.validate_timing` over the spans and the records
+to stderr.  Both print the ring's dropped spans, if any, and the top-10
+spans by total wall time.  A traced run's records equal an untraced
+one's.  Each run installs its :class:`MetricsRegistry` process-wide
+(:func:`repro_torch.obs.get_registry`): its ``steps`` is the summary's
+``metrics`` list.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch wdl-s1 \\
@@ -150,6 +169,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import itertools
+import sys
 import time
 from functools import partial
 from pathlib import Path
@@ -169,7 +189,8 @@ from ..elastic import FaultPlan, cost_column_bias, effective_t
 from ..models import api, backbone
 from ..models.dlrm import (bce_loss, bce_loss_masked, init_params,
                            ps_stack_tables, ref_paths)
-from ..obs import MetricsRegistry, log_step
+from ..obs import (MetricsRegistry, Tracer, format_report, get_tracer,
+                   log_step, set_registry, set_tracer, validate_timing)
 from ..optim import get_optimizer
 from ..pipeline.prefetch import (PrefetchPlane, prefetch_candidates,
                                  prefetch_init, prefetch_pull,
@@ -186,23 +207,6 @@ from .steps import (make_dlrm_esd_stages, make_dlrm_repair_stage,
 from .steps import make_train_step as make_lm_train_step
 
 __all__ = ["build_parser", "make_train_step", "run_dlrm", "run_lm", "main"]
-
-
-def _unported(args) -> None:
-    """Raise on every flag of the reference this slice does not carry."""
-    todo = [
-        (args.trace_out is not None, "--trace-out", "A15"),
-        (args.validate_timing, "--validate-timing", "A15"),
-        (args.trace_buffer != 65536, "--trace-buffer", "A15"),
-    ]
-    _raise_unported(todo)
-
-
-def _raise_unported(todo) -> None:
-    for hit, flag, item in todo:
-        if hit:
-            raise NotImplementedError(
-                f"{flag} is not ported to repro_torch yet (ROADMAP {item})")
 
 
 def make_train_step(model, loss_fn, optimizer, codec=None):
@@ -309,7 +313,9 @@ def run_dlrm(args, model=None) -> dict:
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    _unported(args)
+    tracer = get_tracer()
+    # the run's spans begin here, on the tracer's clock
+    traced_from = tracer.clock() - tracer.t0 if tracer.enabled else None
     cfg = DLRM_CONFIGS[args.arch]
     wl = WORKLOADS[cfg.workload]
     n = args.workers
@@ -390,7 +396,10 @@ def run_dlrm(args, model=None) -> dict:
     # depth >= 2 on a card: the decide/advance chain on its own stream
     streams = ChainStreams(device, enabled=use_esd and depth > 1)
 
+    # the run's registry, process-wide: get_registry().steps is the
+    # summary's `metrics` list
     reg = MetricsRegistry()
+    set_registry(reg)
     stage_h = {s: reg.histogram(f"train.{s}_s", keep=True)
                for s in ("decide", "advance", "train")}
     spans = {s: [] for s in stage_h}      # CUDA event pairs when pipelined
@@ -622,7 +631,9 @@ def run_dlrm(args, model=None) -> dict:
                     torch.as_tensor(cexp, device=device), i,
                     budget=args.prefetch)
                 aux["prefetch_pulled"] = streams.to_host(sel.n_pulled)
-                pull(sel)
+                with get_tracer().span("prefetch.pull", track="prefetch",
+                                       step=i):
+                    pull(sel)
             else:
                 extra = () if plan is None else fault_arrays(i)[2:]
                 x, new_state, counts = advance(state, s, d, l, assign,
@@ -687,6 +698,8 @@ def run_dlrm(args, model=None) -> dict:
                    for s, pairs in spans.items()}
         stages = {s: mean_ms(xs) for s, xs in stage_s.items()}
         step_ms = None
+        if traced_from is not None:
+            _device_ms_into_spans(tracer, traced_from, stage_s)
     else:
         stage_s = {s: list(h.samples) for s, h in stage_h.items()}
         stages = host_ms
@@ -707,6 +720,27 @@ def run_dlrm(args, model=None) -> dict:
             "samples_per_s": k / (per_step_ms * 1e-3) if per_step_ms
             else None,
             "esd_state": esd, "prefetch_plane": pf_plane}
+
+
+# the runner's span of each stage whose CUDA event pair the driver keeps
+_DEVICE_SPANS = {"decide": "decide", "advance": "advance",
+                 "train.sync": "train"}
+
+
+def _device_ms_into_spans(tracer, since: float, stage_s: dict) -> None:
+    """Write each stage's device time into the args of its step's span
+    (``device_ms``), for the spans ``tracer`` recorded from trace time
+    ``since`` on (this run's).  ``stage_s[stage][k]`` is the k-th call of
+    the stage, in seconds; each stage sees the runner's steps in order,
+    so the k-th call is step k's (in the decide-ahead chain too, where
+    decide runs for the step it pulls).  The tracer keeps a span's args
+    by reference, so this reaches the spans it has recorded."""
+    for ev in tracer.events():
+        stage = _DEVICE_SPANS.get(ev["name"])
+        t = ev["args"].get("step")
+        if (stage is not None and t is not None and ev["ts"] >= since
+                and t < len(stage_s[stage])):
+            ev["args"]["device_ms"] = stage_s[stage][t] * 1e3
 
 
 def build_parser():
@@ -791,9 +825,20 @@ def build_parser():
                          "residual) and continue from its step")
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--verbose", action="store_true", default=True)
-    ap.add_argument("--trace-out", type=Path, default=None)
-    ap.add_argument("--trace-buffer", type=int, default=65536)
-    ap.add_argument("--validate-timing", action="store_true")
+    ap.add_argument("--trace-out", type=Path, default=None,
+                    help="export a Chrome/Perfetto trace_event JSON of "
+                         "the run's spans (decide/advance/train/prefetch/"
+                         "loader/io tracks) to this path; open it in "
+                         "chrome://tracing or ui.perfetto.dev")
+    ap.add_argument("--trace-buffer", type=int, default=65536,
+                    help="tracer ring-buffer capacity in spans "
+                         "(drop-oldest)")
+    ap.add_argument("--validate-timing", action="store_true",
+                    help="after the run, join traced per-stage wall "
+                         "times against the per-step model predictions "
+                         "(Alg.-1 est/realized cost, transmission cost) "
+                         "and print the prediction-error / ordering-"
+                         "agreement report to stderr")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cpu is for tests; cuda raises without a GPU")
     return ap
@@ -814,8 +859,6 @@ def run_lm(args, model=None, cfg=None) -> dict:
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    _raise_unported([(args.trace_out is not None, "--trace-out", "A15"),
-                     (args.validate_timing, "--validate-timing", "A15")])
     if cfg is None:
         cfg = get_config(args.arch, smoke=args.smoke)
     if cfg.family not in api.LM_FAMILIES:
@@ -845,11 +888,14 @@ def run_lm(args, model=None, cfg=None) -> dict:
     for _ in range(start):
         next(stream)
     reg = MetricsRegistry()
+    set_registry(reg)
     for i in range(start, args.steps):
         tok = next(stream)
         t0 = time.perf_counter()
-        tok = torch.as_tensor(tok, device=device)
-        loss = float(step({"tokens": tok[:, :-1], "labels": tok[:, 1:]}))
+        with get_tracer().span("train.sync", track="train/0", step=i):
+            tok = torch.as_tensor(tok, device=device)
+            loss = float(step({"tokens": tok[:, :-1],
+                               "labels": tok[:, 1:]}))
         rec = reg.record_step(i, {"loss": loss,
                                   "wall_s": time.perf_counter() - t0})
         if args.verbose and (i % args.log_every == 0 or i == args.steps - 1):
@@ -867,10 +913,38 @@ def run_lm(args, model=None, cfg=None) -> dict:
 
 
 def main(argv=None) -> dict:
+    """Run the driver on ``argv``; returns the run's summary.  With
+    ``--trace-out`` or ``--validate-timing`` the run is traced (see the
+    module docstring)."""
     args = build_parser().parse_args(argv)
-    if args.arch not in DLRM_CONFIGS:
-        return run_lm(args)
-    return run_dlrm(args)
+    trace = args.trace_out is not None or args.validate_timing
+    tracer = Tracer(capacity=args.trace_buffer) if trace else None
+    prev = set_tracer(tracer) if trace else None
+    try:
+        if args.arch in DLRM_CONFIGS:
+            summary = run_dlrm(args)
+        else:
+            summary = run_lm(args)
+    finally:
+        if trace:
+            set_tracer(prev)
+            if args.trace_out is not None:
+                tracer.export(args.trace_out)
+    if trace:
+        if tracer.dropped:
+            print(f"trace ring dropped {tracer.dropped} oldest spans "
+                  f"(--trace-buffer {args.trace_buffer})", file=sys.stderr)
+        if args.verbose:
+            print("== top spans by total wall time ==", file=sys.stderr)
+            for row in tracer.durations(10):
+                print(f"  {row['name']:<22} n={row['count']:<6} "
+                      f"total={row['total_s']:.4f}s "
+                      f"mean={row['mean_s'] * 1e3:.3f}ms "
+                      f"max={row['max_s'] * 1e3:.3f}ms", file=sys.stderr)
+        if args.validate_timing:
+            report = validate_timing(tracer.events(), summary["metrics"])
+            print(format_report(report), file=sys.stderr)
+    return summary
 
 
 if __name__ == "__main__":

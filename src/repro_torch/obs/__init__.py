@@ -1,13 +1,36 @@
-"""Observability: the metrics registry and the one ``log_step``
-formatter every driver print goes through."""
+"""repro_torch.obs — the observability layer of the port.
+
+Span tracing (:mod:`.trace`), the unified metrics registry
+(:mod:`.metrics`), predicted-vs-measured timing validation
+(:mod:`.validate`), the shared benchmark artifact schema
+(:mod:`.schema`) and writer (:mod:`.artifacts`), plus the one
+``log_step`` formatter every driver print goes through.  It exports
+the JAX package's ``obs`` names, in the same order.
+"""
 from __future__ import annotations
 
 import json
 import sys
 
-from .metrics import Counter, Gauge, Histogram, MetricsRegistry
+from .trace import (Tracer, NOOP, get_tracer, set_tracer, use_tracer,
+                    traced)
+from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
+                      get_registry, set_registry, use_registry,
+                      STEP_NAMESPACE)
+from .validate import validate_timing, format_report
+from .schema import (Gate, SCHEMAS, SchemaError, bench_name_from_path,
+                     validate_bench)
+from .artifacts import write_bench, default_results_dir
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "log_step"]
+__all__ = [
+    "Tracer", "NOOP", "get_tracer", "set_tracer", "use_tracer", "traced",
+    "Counter", "Gauge", "Histogram", "MetricsRegistry",
+    "get_registry", "set_registry", "use_registry", "STEP_NAMESPACE",
+    "validate_timing", "format_report",
+    "Gate", "SCHEMAS", "SchemaError", "bench_name_from_path",
+    "validate_bench", "write_bench", "default_results_dir",
+    "log_step",
+]
 
 # Keys pinned to the front of every step line, in this order; any other
 # fields follow sorted by name, so lines stay grep/diff-stable.

@@ -1,12 +1,39 @@
-"""Metrics registry: the subset of the JAX package's ``obs.metrics`` that
-the drivers and the simulators use (counters, gauges, histograms with
-quantiles, snapshots, and the training driver's per-step records)."""
+"""Unified metrics registry for the ESD stack.
+
+One namespaced schema — ``exchange.wire_bytes``, ``cache.demand_miss``,
+``prefetch.hit_rate``, ``elastic.n_active``, ``dispatch.alg1_cost`` — that
+the train driver, the simulator, and every benchmark emit through,
+replacing the ad-hoc per-component dicts that used to accumulate in
+parallel.
+
+Three instrument kinds:
+
+* :class:`Counter` — monotonically accumulating value (``inc``).
+* :class:`Gauge` — last-written value (``set``).
+* :class:`Histogram` — streaming count/sum/min/max; with ``keep=True``
+  it also retains the raw samples so downstream reductions (e.g. the
+  simulator's ``np.mean`` over per-iteration times) can be computed with
+  the *exact same* numpy expression as before the refactor — bitwise
+  backward compatibility, not just approximate.
+
+The legacy surfaces are thin views: the driver's per-step ``metrics``
+list is literally :attr:`MetricsRegistry.steps` (``record_step`` appends
+the same-shaped dict it always did while also folding the namespaced
+cumulative metrics), and ``SimResult`` fields are reduced from kept
+histograms with unchanged expressions.
+
+This is the JAX package's whole registry (``obs/metrics.py``), copied
+line for line: the same instruments, the same ``STEP_NAMESPACE``, the
+same process-wide current registry, so both packages fold the same
+records into the same ``snapshot()``.
+"""
 from __future__ import annotations
 
 import math
 from typing import Any, Optional
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
+           "get_registry", "set_registry", "use_registry",
            "STEP_NAMESPACE"]
 
 
@@ -74,8 +101,15 @@ class Histogram:
 
     def quantile(self, q: float) -> float:
         """The q-quantile (linear interpolation, numpy default) of the
-        retained samples.  Needs ``keep=True``; an empty histogram
-        returns NaN."""
+        retained samples — p50 is ``quantile(0.5)``, p99
+        ``quantile(0.99)``.
+
+        Needs ``keep=True`` (quantiles are not computable from the
+        streaming count/sum/min/max alone): a ``keep=False`` histogram
+        raises TypeError rather than silently answering from the wrong
+        statistics.  An empty histogram returns NaN (same convention as
+        :attr:`mean`); a single sample is every quantile of itself.
+        """
         if not 0.0 <= q <= 1.0:
             raise ValueError(f"quantile q must be in [0, 1], got {q}")
         if self.samples is None:
@@ -106,26 +140,32 @@ class Histogram:
 STEP_NAMESPACE = {
     "cost": ("dispatch.cost_s", "counter"),
     "alg1_est": ("dispatch.alg1_cost", "gauge"),
+    "alg1_realized": ("dispatch.alg1_realized", "gauge"),
     "miss_pull": ("cache.miss_pull", "counter"),
     "update_push": ("cache.update_push", "counter"),
     "evict_push": ("cache.evict_push", "counter"),
     "prefetch_bytes": ("prefetch.bytes", "counter"),
     "demand_miss_bytes": ("cache.demand_miss", "counter"),
     "prefetch_hit_rate": ("prefetch.hit_rate", "gauge"),
+    "window_dedup_frac": ("prefetch.window_dedup_frac", "gauge"),
+    "wire_bytes": ("exchange.wire_bytes", "counter"),
+    "payload_bytes": ("exchange.payload_bytes", "counter"),
+    "n_reassigned": ("dispatch.n_reassigned", "counter"),
+    "n_active": ("elastic.n_active", "gauge"),
     "loss": ("train.loss", "gauge"),
     "wall_s": ("train.wall_s", "counter"),
 }
 
 
 class MetricsRegistry:
-    """Namespaced metric store (create-on-first-use) plus the training
-    driver's per-step records."""
+    """Namespaced metric store plus the legacy per-step view."""
 
     def __init__(self):
         self._metrics: dict[str, Any] = {}
-        # the training driver's list of per-step dicts
+        # Legacy view: the driver's old `metrics` list of per-step dicts.
         self.steps: list[dict] = []
 
+    # -- instrument accessors (create-on-first-use) ------------------------
     def counter(self, name: str) -> Counter:
         return self._get(name, Counter)
 
@@ -149,9 +189,17 @@ class MetricsRegistry:
                             f"not a {cls.kind}")
         return m
 
+    def __contains__(self, name: str) -> bool:
+        return name in self._metrics
+
+    def get(self, name: str):
+        return self._metrics.get(name)
+
+    # -- per-step driver records -------------------------------------------
     def record_step(self, step: int, fields: dict) -> dict:
-        """Append one per-step record and fold its fields into the
-        namespaced cumulative metrics.  Returns the record."""
+        """Append one legacy-shaped per-step record and fold its fields
+        into the namespaced cumulative metrics.  Returns the record (the
+        same dict the driver used to build inline)."""
         rec = {"step": step, **fields}
         self.steps.append(rec)
         for key, value in fields.items():
@@ -165,7 +213,47 @@ class MetricsRegistry:
                 self.gauge(name).set(value)
         return rec
 
+    # -- export ------------------------------------------------------------
     def snapshot(self) -> dict:
         """All metrics as plain JSON-able dicts, sorted by name."""
         return {name: self._metrics[name].snapshot()
                 for name in sorted(self._metrics)}
+
+    def value(self, name: str):
+        """Convenience: a metric's scalar value (counter/gauge value,
+        histogram mean)."""
+        m = self._metrics[name]
+        return m.mean if isinstance(m, Histogram) else m.value
+
+
+# -- process-wide current registry --------------------------------------------
+_current = MetricsRegistry()
+
+
+def get_registry() -> MetricsRegistry:
+    """The process-wide registry (a fresh default one at import)."""
+    return _current
+
+
+def set_registry(registry: Optional[MetricsRegistry]) -> MetricsRegistry:
+    """Install ``registry`` (None installs a fresh one); returns the
+    previous one so callers can restore it."""
+    global _current
+    prev = _current
+    _current = registry if registry is not None else MetricsRegistry()
+    return prev
+
+
+class use_registry:
+    """Context manager: install a registry for the duration of a block."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None):
+        self._registry = registry if registry is not None else MetricsRegistry()
+
+    def __enter__(self) -> MetricsRegistry:
+        self._prev = set_registry(self._registry)
+        return self._registry
+
+    def __exit__(self, *exc) -> bool:
+        set_registry(self._prev)
+        return False

@@ -37,7 +37,26 @@ decision for step t+a is a commits stale (bounded by
 re-assigns the samples whose ids changed state since decide time, and
 ``realized_cost_fn`` re-scores the result.
 
-The reference's tracer spans are not ported (ROADMAP A15).
+Spans (through :func:`repro_torch.obs.trace.get_tracer`: the NOOP
+tracer unless one is installed, so a traced run's records equal an
+untraced one's) carry the JAX package runner's names, tracks and
+``step`` args, and keep their meaning under the one-drain-late
+schedule:
+
+  * ``decide``, ``realized``, ``repair`` and ``advance`` on the
+    ``decide`` track time the host's call of their stage (on a card at
+    depth >= 2, its issue on the chain's stream); in the decide-ahead
+    chain ``decide`` carries the step it decides for (``pulled``);
+  * ``train`` on ``train/<t % depth>`` is step t's in-flight window:
+    opened when the step is queued for training, closed after the host
+    has its loss, so decide spans of later steps fall inside it at
+    depth >= 2 and none does at depth 1;
+  * ``train.sync``, nested in the window on its track, is the host's
+    wait for step t's loss: the record built by ``record_fn(t, ...)``,
+    which turns the loss into a float.  At depth 1 it also holds step
+    t's train call, which comes just before; at depth >= 2 it does not
+    hold step t+1's train call, which the drain issues first.  So a
+    ``train.sync`` span joins its own step's record.
 
 Stage contracts:
   * ``decide_fn(esd_state, batch) -> (assign, alg1_est | None)``;
@@ -54,6 +73,7 @@ from __future__ import annotations
 from collections import deque
 from typing import Any, Callable, Iterable, Optional
 
+from ..obs.trace import get_tracer
 from .double_buffer import db_commit, db_init
 
 __all__ = ["PipelinedRunner"]
@@ -103,6 +123,7 @@ class PipelinedRunner:
         """
         self._records, self._trained = [], deque()
         self._record_fn = record_fn
+        self._tr = get_tracer()
         if self.decide_ahead:
             self._run_ahead(batches, steps)
         else:
@@ -110,6 +131,7 @@ class PipelinedRunner:
         return self._records
 
     def _run(self, batches: Iterable[Any], steps: Optional[int]):
+        tr = self._tr
         it = iter(batches)
         pending: deque = deque()
         # stale mode rotates the two-slot DoubleBuffer; exact mode keeps
@@ -124,21 +146,24 @@ class PipelinedRunner:
                 break
             committed = db.front if self.stale else state
             decide_state = db.back if self.stale else state
-            assign, alg1_est = self.decide_fn(decide_state, batch)
+            with tr.span("decide", track="decide", step=t):
+                assign, alg1_est = self.decide_fn(decide_state, batch)
             info = {}
             if alg1_est is not None:
                 info["alg1_est"] = alg1_est
             if self.stale and self.realized_cost_fn is not None:
                 # the bounded correction: re-score the stale decision on
                 # the committed state the step runs against
-                info["alg1_realized"] = self.realized_cost_fn(
+                with tr.span("realized", track="decide", step=t):
+                    info["alg1_realized"] = self.realized_cost_fn(
+                        committed, batch, assign)
+            with tr.span("advance", track="decide", step=t):
+                train_input, new_state, aux = self.advance_fn(
                     committed, batch, assign)
-            train_input, new_state, aux = self.advance_fn(
-                committed, batch, assign)
             if self.stale:
                 db = db_commit(db, new_state)
             state = new_state
-            pending.append((t, train_input, aux, info))
+            pending.append(self._queued(t, train_input, aux, info))
             # keep at most depth-1 advanced steps in flight ahead of train
             while len(pending) >= self.depth:
                 self._drain_one(pending)
@@ -150,6 +175,7 @@ class PipelinedRunner:
         """Decide-ahead chain: keep up to ``decide_ahead + 1`` decisions
         buffered, each made on the newest state committed at its decide
         time."""
+        tr = self._tr
         it = iter(batches)
         ahead = self.decide_ahead
         pending: deque = deque()
@@ -166,7 +192,8 @@ class PipelinedRunner:
                 except StopIteration:
                     exhausted = True
                     break
-                assign, alg1_est = self.decide_fn(state, batch)
+                with tr.span("decide", track="decide", step=pulled):
+                    assign, alg1_est = self.decide_fn(state, batch)
                 decided.append((batch, assign, alg1_est, state))
                 pulled += 1
             if not decided:
@@ -178,33 +205,60 @@ class PipelinedRunner:
             if self.repair_fn is not None:
                 # re-assign only the samples whose ids changed state
                 # between decide time and now
-                assign, repair_info = self.repair_fn(state, decide_state,
-                                                     batch, assign)
+                with tr.span("repair", track="decide", step=t):
+                    assign, repair_info = self.repair_fn(
+                        state, decide_state, batch, assign)
                 info.update(repair_info)
             if self.realized_cost_fn is not None:
-                info["alg1_realized"] = self.realized_cost_fn(
-                    state, batch, assign)
-            train_input, state, aux = self.advance_fn(state, batch, assign)
-            pending.append((t, train_input, aux, info))
+                with tr.span("realized", track="decide", step=t):
+                    info["alg1_realized"] = self.realized_cost_fn(
+                        state, batch, assign)
+            with tr.span("advance", track="decide", step=t):
+                train_input, state, aux = self.advance_fn(state, batch,
+                                                          assign)
+            pending.append(self._queued(t, train_input, aux, info))
             while len(pending) >= self.depth:
                 self._drain_one(pending)
             t += 1
         self._finish(pending)
         self.esd_state = state
 
+    def _queued(self, t, train_input, aux, info) -> tuple:
+        """Step t enters the queue for training: open its window."""
+        window = self._tr.start_span("train", track=f"train/{t % self.depth}",
+                                     step=t)
+        return t, train_input, aux, info, window
+
     def _drain_one(self, pending: deque):
         """Train the oldest pending step; at depth >= 2 build the record
         of the step trained before it, at depth 1 its own."""
-        t, train_input, aux, info = pending.popleft()
-        self._trained.append((t, self.train_fn(train_input), aux, info))
-        if self.depth == 1 or len(self._trained) > 1:
-            self._record(*self._trained.popleft())
+        t, train_input, aux, info, window = pending.popleft()
+        if self.depth == 1:
+            # the train call and the wait for its loss, as one sync
+            try:
+                with self._tr.span("train.sync", track=window.track, step=t):
+                    self._record(t, self.train_fn(train_input), aux, info)
+            finally:
+                window.end()
+            return
+        self._trained.append((t, self.train_fn(train_input), aux, info,
+                              window))
+        if len(self._trained) > 1:
+            self._sync_record(*self._trained.popleft())
 
     def _finish(self, pending: deque):
         while pending:
             self._drain_one(pending)
         while self._trained:
-            self._record(*self._trained.popleft())
+            self._sync_record(*self._trained.popleft())
+
+    def _sync_record(self, t, loss, aux, info, window):
+        """The wait for step t's loss, then the end of its window."""
+        try:
+            with self._tr.span("train.sync", track=window.track, step=t):
+                self._record(t, loss, aux, info)
+        finally:
+            window.end()
 
     def _record(self, t, loss, aux, info):
         self._records.append({"step": t, "loss": float(loss)}

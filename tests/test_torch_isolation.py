@@ -1,5 +1,5 @@
-"""repro_torch, chip_smoke.py and the port's decode example import
-neither JAX nor the JAX package.
+"""repro_torch, chip_smoke.py, the port's examples and its
+observability benchmark import neither JAX nor the JAX package.
 
 Checked in a fresh interpreter, so that the imports this test process
 already holds cannot hide one.
@@ -12,8 +12,15 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
+# the port's scripts outside the package: run as modules (not as
+# __main__), so each imports what it needs and runs nothing
+SCRIPTS = ["examples/serve_llm_decode_torch.py", "examples/quickstart_torch.py",
+           "examples/simulate_paper_fig4_torch.py",
+           "examples/train_dlrm_esd_torch.py", "benchmarks/obs_bench_torch.py"]
+
 SCRIPT = r"""
 import importlib, json, pkgutil, sys
+PATHS = %r
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
@@ -21,7 +28,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 import runpy
-runpy.run_path("examples/serve_llm_decode_torch.py")
+for path in PATHS:
+    runpy.run_path(path)
 from repro_torch.launch.serve import build_parser
 from repro_torch.launch.train import build_parser as train_parser
 bad = sorted(m for m in sys.modules
@@ -38,7 +46,7 @@ def test_port_imports_no_jax_and_no_reference():
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT / "src"), str(ROOT)]
         + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
-    proc = subprocess.run([sys.executable, "-c", SCRIPT], env=env,
+    proc = subprocess.run([sys.executable, "-c", SCRIPT % SCRIPTS], env=env,
                           cwd=ROOT, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -57,7 +65,8 @@ def test_port_imports_no_jax_and_no_reference():
                  "optim.optimizers", "data.loader", "configs.base",
                  "configs.smollm_360m", "elastic.faults",
                  "elastic.membership", "elastic.recovery", "checkpoint",
-                 "models.tree"):
+                 "models.tree", "obs", "obs.metrics", "obs.schema",
+                 "obs.artifacts", "obs.validate", "pipeline.runner"):
         assert f"repro_torch.{name}" in out["modules"]
     assert out["device"] == "cuda"
     assert out["train_device"] == "cuda"
@@ -65,8 +74,7 @@ def test_port_imports_no_jax_and_no_reference():
 
 def test_sources_name_no_jax_import():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py",
-              ROOT / "examples" / "serve_llm_decode_torch.py"]
+    files += [ROOT / "chip_smoke.py"] + [ROOT / f for f in SCRIPTS]
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()
