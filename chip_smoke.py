@@ -6,8 +6,9 @@ KV-cache decode) and MoE layers, and elastic training under a fault
 plan with its checkpoints and resume, training over several parameter
 servers and on the dense cache engine, the SSM and hybrid LMs with
 their linear-scan kernels, the VLM prefix and the audio
-encoder-decoder, and traced training runs with the observability
-benchmark, on one CUDA card and check them.
+encoder-decoder, traced training runs with the observability
+benchmark, and training under remat with the MoE's block dispatch and
+the dry run of the spec layer, on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -95,7 +96,8 @@ Phases, each printing its own lines:
    prefetch plane's ids, expiry and rows equal; 8 decode steps of
    smollm-360m's and phi3.5-moe's smoke configs (f32, B 4), logits
    within 1e-5, and 3 ``run_lm`` steps of phi3.5-moe's smoke config at
-   S = 2,048, losses within 1e-4; ``run_dlrm --fault-plan`` at wdl-tiny
+   S = 2,048, with one dispatch block and with ``MOE_BLOCKS = 2``,
+   losses within 1e-4; ``run_dlrm --fault-plan`` at wdl-tiny
    (a straggler, a graceful crash, a droop and a warm rejoin; 6 steps;
    depth 1 exact and int8, depth 2) card against CPU: integer fields
    equal, losses and costs within 1e-5; ``run_dlrm --n-ps 3 --ps-layout
@@ -229,9 +231,23 @@ Phases, each printing its own lines:
    claims (the tracer's overhead at most 3 % among them).  Then ``main``
    for smollm-360m at full width, its depth cut to 4 layers, B 4 x S
    2,048, 3 steps with ``--trace-out``: one ``train.sync`` span a step,
-   B8 and its backward once a layer and step.
+   B8 and its backward once a layer and step;
+20. remat — ``launch.steps.make_train_step(remat=True)`` against
+   ``remat=False`` from the same weights (Adam, lr 1e-2, 3 steps):
+   smollm-360m at full width and depth, B 4 x S 2,048 (losses bit for
+   bit; B8 forward twice a layer and step under remat, its backward
+   once; both peaks and ms a step), falcon-mamba-7b at full width with
+   ``MAMBA_LAYERS`` layers (losses bit for bit, the remat peak lower),
+   then at the deepest of ``REMAT_MAMBA_DEPTHS`` that trains with remat
+   (the scan twice a layer and step forward, once backward), which the
+   same run shows out of memory without remat; phi3.5-moe at full width,
+   2 layers, B 1 x S 2,048, ``MOE_BLOCKS = 4`` with remat (finite losses
+   and router aux); then ``launch.dryrun.run_dryrun`` on ``meta`` for
+   smollm-360m and falcon-mamba-7b x ``train_4k`` and llama4-scout x
+   ``decode_32k``: the reference's record keys and state bytes, the
+   extrapolated FLOPs.
 
-Each run of phases 5 to 19 sets every kernel's launch counter to 0 just
+Each run of phases 5 to 20 sets every kernel's launch counter to 0 just
 before and reads the counters just after.  B1's per-shard and dense
 inputs get a line each (time, plain and ``embedding_bag`` times, bound,
 launches).  Then one JSON line of kernel
@@ -1910,8 +1926,10 @@ def phase_lm_decode_parity(seed: int):
     same f32 smoke weights: 8 decode steps of smollm-360m and
     phi3.5-moe (logits within 1e-5: f32 sums in another order), and 3
     ``run_lm`` steps of phi3.5-moe at S = 2,048 (the flash route, then
-    the experts; losses within phase 4's 1e-4)."""
+    the experts; losses within phase 4's 1e-4), with one dispatch block
+    and with ``MOE_BLOCKS = 2``."""
     from repro_torch.configs import get_config
+    from repro_torch.dist import ctx
     from repro_torch.kernels import flash_attn as FA
     from repro_torch.launch.steps import make_serve_step
     from repro_torch.launch.train import build_parser, run_lm
@@ -1942,27 +1960,34 @@ def phase_lm_decode_parity(seed: int):
     cfg = get_config(arch, smoke=True)
     argv = ["--arch", arch, "--smoke", "--seq-len", "2048",
             "--batch-per-worker", "1", "--steps", "3", "--seed", str(seed)]
-    cpu = api.init_model(cfg, generator=torch.Generator().manual_seed(seed),
-                         device="cpu")
-    gpu = copy.deepcopy(cpu).to("cuda")
-    runs = {}
-    for dev, model in (("cpu", cpu), ("cuda", gpu)):
-        n0 = dict(FA.LAUNCHES)
-        out = run_lm(build_parser().parse_args(argv + ["--device", dev]),
-                     model=model)
-        runs[dev] = [r["loss"] for r in out["metrics"]]
-        ran = {k: FA.LAUNCHES[k] - n0[k] for k in n0}
-    err = max(abs(a - b) for a, b in zip(runs["cpu"], runs["cuda"]))
-    check(all(np.isfinite(runs["cuda"])) and err <= 1e-4,
-          f"phi3.5-moe smoke losses on card vs CPU within 1e-4 (max err "
-          f"{err})")
-    check(ran == {k: cfg.n_layers * 3 for k in ran},
-          f"the card's phi3.5-moe smoke steps ran B8's forward and backward "
-          f"once per layer and step ({ran})")
-    print(f"[parity] 3 LM steps, {cfg.name} (2 layers, d 256, 4 experts "
-          f"top-2, f32), B 1, S 2048, card vs CPU: losses {runs['cuda']} vs "
-          f"{runs['cpu']}, max abs err {err:.3g} (tolerance 1e-4); card "
-          f"kernel launches {ran}")
+    # one dispatch block, then MOE_BLOCKS = 2 (each half of the tokens
+    # dispatched with its own capacity)
+    for nb in (1, 2):
+        cpu = api.init_model(cfg, generator=torch.Generator().manual_seed(
+            seed), device="cpu")
+        gpu = copy.deepcopy(cpu).to("cuda")
+        runs = {}
+        ctx.MOE_BLOCKS = nb
+        try:
+            for dev, model in (("cpu", cpu), ("cuda", gpu)):
+                n0 = dict(FA.LAUNCHES)
+                out = run_lm(build_parser().parse_args(
+                    argv + ["--device", dev]), model=model)
+                runs[dev] = [r["loss"] for r in out["metrics"]]
+                ran = {k: FA.LAUNCHES[k] - n0[k] for k in n0}
+        finally:
+            ctx.MOE_BLOCKS = 1
+        err = max(abs(a - b) for a, b in zip(runs["cpu"], runs["cuda"]))
+        check(all(np.isfinite(runs["cuda"])) and err <= 1e-4,
+              f"phi3.5-moe smoke losses (MOE_BLOCKS {nb}) on card vs CPU "
+              f"within 1e-4 (max err {err})")
+        check(ran == {k: cfg.n_layers * 3 for k in ran},
+              f"the card's phi3.5-moe smoke steps ran B8's forward and "
+              f"backward once per layer and step ({ran})")
+        print(f"[parity] 3 LM steps, {cfg.name} (2 layers, d 256, 4 experts "
+              f"top-2, f32), B 1, S 2048, MOE_BLOCKS {nb}, card vs CPU: "
+              f"losses {runs['cuda']} vs {runs['cpu']}, max abs err "
+              f"{err:.3g} (tolerance 1e-4); card kernel launches {ran}")
 
 
 def phase_lm_train(seed: int) -> dict:
@@ -3098,7 +3123,8 @@ def phase_vlm_audio_parity(seed: int):
             n0 = _read_launches()
             with torch.no_grad():
                 first = float(api.train_loss(model, cfg, batch))
-            step = make_train_step(cfg, model, get_optimizer("adam", 1e-2))
+            step = make_train_step(cfg, model, get_optimizer("adam", 1e-2),
+                                   remat=False)
             runs[dev] = [first] + [float(step(batch)) for _ in range(3)]
             ran = {k: v - n0[k] for k, v in _read_launches().items()
                    if v != n0[k]}
@@ -3224,7 +3250,8 @@ def phase_lm_vlm_audio(seed: int) -> dict:
     batches = [_train_batch(cfg, rng, 1, VLM_S, dev) for _ in range(3)]
     model = api.init_model(cfg, generator=seeded(), device=dev)
     n_params = sum(p.numel() for p in model.parameters())
-    step = make_train_step(cfg, model, get_optimizer("adam", 1e-2))
+    step = make_train_step(cfg, model, get_optimizer("adam", 1e-2),
+                           remat=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_launches()
@@ -3295,7 +3322,8 @@ def phase_lm_vlm_audio(seed: int) -> dict:
     batches = [_train_batch(cfg, rng, 1, AUDIO_FRAMES, dev)
                for _ in range(3)]
     dec_len = batches[0]["tokens"].shape[1]
-    step = make_train_step(cfg, model, get_optimizer("adam", 1e-2))
+    step = make_train_step(cfg, model, get_optimizer("adam", 1e-2),
+                           remat=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_launches()
@@ -3592,6 +3620,212 @@ def phase_trace(seed: int) -> dict:
     return total
 
 
+# phase 20: remat and the spec layer.  falcon-mamba-7b's depths tried
+# with remat, each a multiple of MAMBA_LAYERS, until one does not fit
+REMAT_MAMBA_DEPTHS = (16, 24, 32, 40)
+REMAT_MOE_BLOCKS = 4
+# the dry runs, with the reference's analytic per-device state bytes on
+# the 16x16 mesh (tests/test_torch_dryrun.py holds the port's equal to
+# them for every arch and shape)
+DRYRUNS = {("smollm-360m", "train_4k"): 964_128_004,
+           ("falcon-mamba-7b", "train_4k"): 4_383_096_836,
+           ("llama4-scout-17b-a16e", "decode_32k"): 41_686_798_336}
+DRYRUN_KEYS = {"arch", "shape", "mesh", "family", "params", "active_params",
+               "attn_mode", "lower_s", "compile_s", "state_bytes_per_device",
+               "memory_analysis", "cost_analysis", "collectives",
+               "hlo_bytes", "cost_analysis_extrapolated",
+               "collectives_extrapolated", "probe_compile_s"}
+
+
+def _remat_run(cfg, seed: int, remat: bool, batches, aux_of=None) -> dict:
+    """3 ``make_train_step`` steps (Adam, lr 1e-2) of ``cfg`` from the
+    seed's weights, counted from zero: losses, ms a step (each ended by
+    a synchronise), peak GiB, launches; with ``aux_of`` (a batch) also
+    the trained model's router aux loss on its tokens."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import api, backbone
+    from repro_torch.optim import get_optimizer
+
+    dev = torch.device("cuda")
+    model = api.init_model(cfg, generator=torch.Generator(
+        device=dev).manual_seed(seed), device=dev)
+    step = make_train_step(cfg, model, get_optimizer("adam", 1e-2),
+                           remat=remat)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    try:
+        losses, ms = _timed_steps(step, batches)
+        out = {"losses": losses, "ms": ms, "peak": _peak_gib(),
+               "launches": {k: v for k, v in _read_launches().items() if v}}
+        if aux_of is not None:
+            with torch.no_grad():
+                out["aux"] = backbone.forward(model, cfg,
+                                              aux_of["tokens"])[1].item()
+    finally:
+        del model, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fits(cfg, seed: int, remat: bool, batches):
+    """``_remat_run``'s record, or None where the card runs out of
+    memory."""
+    import gc
+
+    try:
+        return _remat_run(cfg, seed, remat, batches)
+    except torch.cuda.OutOfMemoryError:
+        pass
+    # out of the handler, the failed step's frames are gone: free them
+    gc.collect()
+    torch.cuda.empty_cache()
+    return None
+
+
+def phase_remat(seed: int) -> dict:
+    """Phase 20: remat and the spec layer.  (a) smollm-360m at full width
+    and depth (32 layers, bf16), B 4 x S 2,048, 3 ``make_train_step``
+    steps with ``remat=True`` and with ``remat=False`` from the same
+    weights: losses bit for bit, B8 twice a layer and step forward with
+    remat (the recompute) and its backward once, both peaks and ms a
+    step.  (b) falcon-mamba-7b at full width: at ``MAMBA_LAYERS`` layers
+    the same pair (bit-equal losses, the remat peak lower), then the
+    deepest of ``REMAT_MAMBA_DEPTHS`` that trains with remat, the scan
+    twice a layer and step forward and once backward, and the same depth
+    without remat out of memory.  (c) phi3.5-moe at full width, 2
+    layers, B 1 x S 2,048, ``MOE_BLOCKS = 4`` and remat: finite losses
+    and router aux.  (d) ``run_dryrun`` on ``meta`` for ``DRYRUNS``:
+    the reference's record keys, its state bytes, the extrapolated
+    FLOPs.  Launches from (a) to (c) are counted run by run and summed."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import ctx
+    from repro_torch.launch import dryrun
+
+    dev = torch.device("cuda")
+    total: dict = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def pair(cfg, batches, what):
+        runs = {}
+        for remat in (True, False):
+            runs[remat] = _remat_run(cfg, seed, remat, batches)
+            add(runs[remat]["launches"])
+        r, n = runs[True], runs[False]
+        print(f"[remat] {what}, 3 steps: remat "
+              f"{statistics.mean(r['ms'][1:]):.3f} ms a step (mean of steps "
+              f"1..), peak {r['peak']:.2f} GiB, launches {r['launches']}; "
+              f"no remat {statistics.mean(n['ms'][1:]):.3f} ms, peak "
+              f"{n['peak']:.2f} GiB, launches {n['launches']}; losses "
+              f"{r['losses']} and {n['losses']}")
+        check(all(np.isfinite(r["losses"])), f"{what}: finite losses")
+        check(r["losses"] == n["losses"],
+              f"{what}: remat and no remat give bit-equal losses")
+        check(r["peak"] < n["peak"], f"{what}: the remat peak is lower")
+        return r, n
+
+    # (a) smollm-360m at full width and depth
+    cfg = get_config("smollm-360m")
+    rng = np.random.default_rng(seed)
+    batches = [_train_batch(cfg, rng, 4, 2048, dev) for _ in range(3)]
+    r, n = pair(cfg, batches, f"{cfg.name} ({cfg.n_layers} layers, "
+                              f"{cfg.dtype}), B 4, S 2048")
+    L = cfg.n_layers
+    check(r["launches"] == {"flash_attention": 2 * 3 * L,
+                            "flash_attention_bwd": 3 * L},
+          f"smollm-360m with remat: B8 forward twice and backward once a "
+          f"layer and step ({r['launches']})")
+    check(n["launches"] == {"flash_attention": 3 * L,
+                            "flash_attention_bwd": 3 * L},
+          f"smollm-360m without remat: B8 once a layer and step each way "
+          f"({n['launches']})")
+    del batches
+
+    # (b) falcon-mamba-7b at full width
+    full = get_config("falcon-mamba-7b")
+    cfg = dataclasses.replace(full, n_layers=MAMBA_LAYERS)
+    batches = [_train_batch(cfg, rng, 1, 2048, dev) for _ in range(3)]
+    r, n = pair(cfg, batches, f"{cfg.name} at full width, {cfg.n_layers} "
+                              f"of {full.n_layers} layers, B 1, S 2048")
+    deepest, rec = None, None
+    for depth in REMAT_MAMBA_DEPTHS:
+        got = _fits(dataclasses.replace(full, n_layers=depth), seed, True,
+                    batches)
+        print(f"[remat] {full.name} at {depth} layers with remat: "
+              + ("out of memory" if got is None else
+                 f"{statistics.mean(got['ms'][1:]):.3f} ms a step (mean of "
+                 f"steps 1..), peak {got['peak']:.2f} GiB, losses "
+                 f"{got['losses']}, launches {got['launches']}"))
+        if got is None:
+            break
+        deepest, rec = depth, got
+        add(got["launches"])
+    check(deepest is not None, "falcon-mamba trains with remat past "
+                               f"{MAMBA_LAYERS} layers")
+    check(all(np.isfinite(rec["losses"])), "falcon-mamba's deepest remat "
+                                           "run: finite losses")
+    check(rec["launches"] == {"linear_scan": 2 * 3 * deepest,
+                              "linear_scan_bwd": 3 * deepest},
+          f"falcon-mamba with remat: the scan twice a layer and step "
+          f"forward, once backward ({rec['launches']})")
+    without = _fits(dataclasses.replace(full, n_layers=deepest), seed,
+                    False, batches)
+    if without is not None:
+        add(without["launches"])
+    print(f"[remat] {full.name} at {deepest} layers without remat: "
+          + ("out of memory" if without is None
+             else f"peak {without['peak']:.2f} GiB"))
+    check(without is None, f"falcon-mamba at {deepest} layers does not fit "
+                           f"without remat")
+    del batches
+
+    # (c) phi3.5-moe at full width, 2 layers, MOE_BLOCKS = 4
+    full = get_config("phi3.5-moe-42b-a6.6b")
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    batches = [_train_batch(cfg, rng, 1, 2048, dev) for _ in range(3)]
+    ctx.MOE_BLOCKS = REMAT_MOE_BLOCKS
+    try:
+        r = _remat_run(cfg, seed, True, batches, aux_of=batches[0])
+    finally:
+        ctx.MOE_BLOCKS = 1
+    add(r["launches"])
+    aux = r["aux"]
+    print(f"[remat] {cfg.name} at full width, {cfg.n_layers} of "
+          f"{full.n_layers} layers, B 1, S 2048, MOE_BLOCKS "
+          f"{REMAT_MOE_BLOCKS}, remat, 3 steps: "
+          f"{statistics.mean(r['ms'][1:]):.3f} ms a step (mean of steps "
+          f"1..), peak {r['peak']:.2f} GiB, losses {r['losses']}, router "
+          f"aux {aux:.4f}, launches {r['launches']}")
+    check(all(np.isfinite(r["losses"])) and np.isfinite(aux) and aux > 0,
+          "phi3.5-moe at MOE_BLOCKS 4: finite losses and router aux")
+    check(r["launches"] == {"flash_attention": 2 * 3 * cfg.n_layers,
+                            "flash_attention_bwd": 3 * cfg.n_layers},
+          f"phi3.5-moe with remat: B8 forward twice and backward once a "
+          f"layer and step ({r['launches']})")
+    del batches
+
+    # (d) the dry runs, on meta
+    for (arch, shape), want in DRYRUNS.items():
+        t = time.perf_counter()
+        rec = dryrun.run_dryrun(arch, shape, verbose=False)
+        ext = rec["cost_analysis_extrapolated"]
+        print(f"[dryrun] {arch} x {shape} x {rec['mesh']}: attn_mode "
+              f"{rec['attn_mode']}, state_bytes_per_device "
+              f"{rec['state_bytes_per_device']:.0f}, extrapolated FLOPs a "
+              f"device {ext['flops']:.6g} ({time.perf_counter() - t:.1f} s "
+              f"on meta)")
+        check(set(rec) == DRYRUN_KEYS, f"the dry-run record has the "
+                                       f"reference's keys ({sorted(rec)})")
+        check(rec["state_bytes_per_device"] == want,
+              f"{arch} x {shape}: state bytes a device equal the "
+              f"reference's {want}")
+        check(ext["flops"] > 0, f"{arch} x {shape}: FLOPs counted")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3638,7 +3872,8 @@ def main(argv=None) -> int:
                 lambda: phase_train_dense(args.seed),
                 lambda: phase_lm_ssm(args.seed),
                 lambda: phase_lm_vlm_audio(args.seed),
-                lambda: phase_trace(args.seed)):
+                lambda: phase_trace(args.seed),
+                lambda: phase_remat(args.seed)):
         t = time.perf_counter()
         for k, v in run().items():
             launches[k] = launches.get(k, 0) + v

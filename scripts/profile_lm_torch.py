@@ -102,7 +102,7 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             with torch.profiler.record_function(name):
                 if name == "forward":
-                    loss = api.train_loss(model, cfg, batch)
+                    loss = api.train_loss(model, cfg, batch, remat=False)
                 elif name == "backward":
                     grads = list(torch.autograd.grad(loss, params))
                 else:

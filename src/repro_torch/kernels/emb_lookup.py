@@ -25,8 +25,10 @@ Each wrapper takes the reference's signature, checks device, dtype
 (f32 rows, int32 indices), shape and contiguity, and raises on anything
 the kernel does not take.  Given CUDA tensors it launches its kernel on
 the current stream or raises; it runs the plain PyTorch version beside it
-(``*_ref``) only because the tensors lie on the CPU.  ``LAUNCHES`` counts
-kernel launches per kernel; nothing else adds to it.
+(``*_ref``) only because the tensors lie on the CPU (or on ``meta``,
+whose tensors carry shapes and no values: the dry run's).  Any other
+device raises.  ``LAUNCHES`` counts kernel launches per kernel; nothing
+else adds to it.
 """
 from __future__ import annotations
 
@@ -65,7 +67,9 @@ def _on_cuda(*ts: torch.Tensor) -> bool:
         raise ValueError("inputs lie on several devices: "
                          f"{sorted(map(str, devices))}")
     dev = devices.pop()
-    if dev.type == "cpu":
+    # meta tensors (the dry run's shapes) take the plain version too:
+    # they carry no values, so nothing is hidden
+    if dev.type in ("cpu", "meta"):
         return False
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")

@@ -29,7 +29,8 @@ The TPU kernel had no backward: JAX differentiates the jnp scan.
 The wrappers check device, dtype, shapes and strides and raise on
 anything their kernels do not take.  Given CUDA tensors they launch a
 kernel on the current stream or raise; they run the plain versions only
-because the tensors lie on the CPU.  ``LAUNCHES`` counts kernel launches
+because the tensors lie on the CPU (or on ``meta``: shapes, no values).
+``LAUNCHES`` counts kernel launches
 (both forward routes under ``flash_attention``), ``ROUTE_LAUNCHES`` the
 forward's per route.
 

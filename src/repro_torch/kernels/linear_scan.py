@@ -21,7 +21,8 @@ reversed sequence.
 
 Given CUDA tensors the wrappers launch their kernel on the current
 stream or raise; they run the plain versions only because the tensors
-lie on the CPU.  ``LAUNCHES`` counts the kernel launches.
+lie on the CPU (or on ``meta``: shapes, no values).  ``LAUNCHES`` counts
+the kernel launches.
 :func:`scan` is the differentiable form (forward and backward one
 launch each).  The kernel sums each thread's steps in order and XLA's
 associative scan does not, so the two agree to f32 rounding: with every

@@ -6,7 +6,10 @@ The counterpart of the JAX package's ``launch/steps.py``
 the LM, and ``make_esd_exchange``,
 ``raise_on_overflow``, ``make_dlrm_esd_stages`` with its elastic
 variants, multi-PS and both cache engines, and
-``make_dlrm_repair_stage``).  The
+``make_dlrm_repair_stage``; and the dry run's shape helpers
+``param_shapes``, ``opt_state_shapes``, ``batch_shapes``,
+``cache_shapes``, ``decode_input_shapes`` and ``input_specs``, whose
+tensors lie on the ``meta`` device: shapes and dtypes, no memory).  The
 reference's stages run one shard per device under ``shard_map``; here
 the ``n`` workers share one device and a stage's global ``(k, ...)``
 batch is split by rows, worker ``i`` holding rows ``[i * m, (i + 1) *
@@ -18,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ..configs.base import INPUT_SHAPES, ModelConfig, ShapeConfig
 from ..core.dispatch import (changed_samples_mask, dispatch_cap,
                              esd_cost_matrix, esd_decide, esd_reassign,
                              esd_state_update, esd_state_update_sparse,
@@ -25,26 +29,31 @@ from ..core.dispatch import (changed_samples_mask, dispatch_cap,
 from ..elastic import mask_state
 from ..exchange.ragged import ragged_exchange_many
 from ..models import api, backbone, whisper
+from ..optim import get_optimizer
 from ..quant.codecs import get_codec
 
 __all__ = ["make_train_step", "make_serve_step", "make_prefill_step",
            "make_esd_exchange", "raise_on_overflow", "make_dlrm_esd_stages",
-           "make_dlrm_repair_stage"]
+           "make_dlrm_repair_stage", "param_shapes", "opt_state_shapes",
+           "batch_shapes", "cache_shapes", "decode_input_shapes",
+           "input_specs"]
 
 
-def make_train_step(cfg, model, optimizer):
-    """The LM train step (the reference's with ``remat=False``, as its LM
-    driver runs it): ``step(batch) -> loss`` takes the loss and its
+def make_train_step(cfg, model, optimizer, remat: bool = True):
+    """The LM train step: ``step(batch) -> loss`` takes the loss and its
     gradients through ``api.train_loss`` (any family: the batch is
     ``api.make_train_batch``'s layout, as tensors) and copies
     ``optimizer``'s new values into ``model``'s parameters in place.
+    ``remat`` (the reference's default) checkpoints each layer group
+    (each whisper layer): the backward runs its forward again.  The LM
+    driver passes ``remat=False``, as the reference's.
     ``step.state["opt"]`` is the optimizer's state (a checkpoint reads
     and replaces it)."""
     params = list(model.parameters())
     state = {"opt": optimizer.init(params)}
 
     def step(batch):
-        loss = api.train_loss(model, cfg, batch)
+        loss = api.train_loss(model, cfg, batch, remat=remat)
         grads = torch.autograd.grad(loss, params)
         new, state["opt"] = optimizer.update(list(grads), state["opt"],
                                              params)
@@ -67,7 +76,7 @@ def make_serve_step(cfg):
     return serve_step
 
 
-def make_prefill_step(cfg):
+def make_prefill_step(cfg, remat: bool = True):
     """``prefill_step(params, batch) -> logits``, without autograd: for
     the audio family :func:`~repro_torch.models.whisper.encode` of
     ``batch["frames"]`` then ``decode_train`` of ``batch["tokens"]``
@@ -78,15 +87,18 @@ def make_prefill_step(cfg):
     full-attention layer at hd 32, 64 or 128 runs B8's forward, and
     every ``mamba`` and ``rglru`` layer the linear-scan kernel at any S;
     whisper's bidirectional encoder takes the naive route at every
-    length."""
+    length.  It runs without autograd, where ``remat`` (the reference's
+    argument) changes nothing."""
     def prefill_step(params, batch):
         with torch.no_grad():
             if cfg.family == "audio":
-                memory = whisper.encode(params, cfg, batch["frames"])
+                memory = whisper.encode(params, cfg, batch["frames"],
+                                        remat=remat)
                 return whisper.decode_train(params, cfg, batch["tokens"],
-                                            memory)
+                                            memory, remat=remat)
             logits, _ = backbone.forward(params, cfg, batch["tokens"],
-                                         prefix_embeds=batch.get("patches"))
+                                         prefix_embeds=batch.get("patches"),
+                                         remat=remat)
         return logits
 
     return prefill_step
@@ -348,3 +360,80 @@ def make_dlrm_repair_stage(n: int, m: int, t_tran: torch.Tensor, *,
         return a2.reshape(-1), n_re
 
     return repair
+
+
+# --------------------------------------------------------------------------
+# shapes on the meta device (the dry run)
+# --------------------------------------------------------------------------
+META = torch.device("meta")
+
+
+def param_shapes(cfg: ModelConfig):
+    """``cfg``'s model on the ``meta`` device: every parameter's shape and
+    dtype, no memory (the reference's ``ShapeDtypeStruct`` tree, one
+    module a layer)."""
+    return api.init_model(cfg, generator=None, device=META)
+
+
+def opt_state_shapes(cfg: ModelConfig, optimizer, model=None):
+    """``optimizer``'s state for ``model`` (``param_shapes(cfg)`` when
+    None), on ``meta``."""
+    model = param_shapes(cfg) if model is None else model
+    return optimizer.init(list(model.parameters()))
+
+
+def batch_shapes(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Every model input of a train or prefill batch, on ``meta``, with
+    the reference's dtypes: int32 tokens and labels, bf16 frames and
+    patches."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def t(dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device=META)
+
+    if cfg.family == "audio":
+        dec = min(S, whisper.DEC_CTX)
+        return {"frames": t((B, S, cfg.d_model), torch.bfloat16),
+                "tokens": t((B, dec)), "labels": t((B, dec))}
+    if cfg.family == "vlm":
+        return {"tokens": t((B, S - cfg.n_patches)),
+                "labels": t((B, S - cfg.n_patches)),
+                "patches": t((B, cfg.n_patches, cfg.d_model),
+                             torch.bfloat16)}
+    return {"tokens": t((B, S)), "labels": t((B, S))}
+
+
+def cache_shapes(cfg: ModelConfig, shape: ShapeConfig):
+    """The decode cache of ``shape.global_batch`` x ``shape.seq_len``, on
+    ``meta``."""
+    return api.init_decode_cache(cfg, shape.global_batch, shape.seq_len,
+                                 META)
+
+
+def decode_input_shapes(cfg: ModelConfig, shape: ShapeConfig):
+    """(token (B, 1) int32, pos () int32) on ``meta``; the port's decode
+    step takes ``pos`` as a host int."""
+    return (torch.empty((shape.global_batch, 1), dtype=torch.int32,
+                        device=META),
+            torch.empty((), dtype=torch.int32, device=META))
+
+
+def input_specs(arch_cfg: ModelConfig, shape_name: str,
+                optimizer_name: str = "adam") -> dict:
+    """Everything the dry run needs for one (arch, shape): ``shape``,
+    ``optimizer`` (lr 1e-3), ``params`` (the meta model), and by the
+    shape's kind ``opt_state`` and ``batch`` (train), ``batch``
+    (prefill), or ``cache``, ``token`` and ``pos`` (decode)."""
+    shape = INPUT_SHAPES[shape_name]
+    opt = get_optimizer(optimizer_name, 1e-3)
+    out = {"shape": shape, "optimizer": opt,
+           "params": param_shapes(arch_cfg)}
+    if shape.kind == "train":
+        out["opt_state"] = opt_state_shapes(arch_cfg, opt, out["params"])
+        out["batch"] = batch_shapes(arch_cfg, shape)
+    elif shape.kind == "prefill":
+        out["batch"] = batch_shapes(arch_cfg, shape)
+    else:
+        out["cache"] = cache_shapes(arch_cfg, shape)
+        out["token"], out["pos"] = decode_input_shapes(arch_cfg, shape)
+    return out

@@ -870,7 +870,8 @@ def run_lm(args, model=None, cfg=None) -> dict:
     if model is None:
         model = api.init_model(cfg, generator=torch.Generator(
             device=device).manual_seed(args.seed), device=device)
-    step = make_lm_train_step(cfg, model, get_optimizer("adam", args.lr))
+    step = make_lm_train_step(cfg, model, get_optimizer("adam", args.lr),
+                              remat=False)
     params = list(model.parameters())
     paths = backbone.ref_paths(model, cfg)
     start = 0

@@ -5,7 +5,7 @@ The counterpart of the JAX package's ``models/api.py``:
 
   init_model(cfg, generator=, device=)   -> params (``backbone.LM``, or
                                             ``whisper.Whisper`` for audio)
-  train_loss(params, cfg, batch)         -> scalar loss
+  train_loss(params, cfg, batch, remat=True) -> scalar loss
   init_decode_cache(cfg, batch, seq_len, device) -> cache
   decode_step(params, cfg, token, cache, pos) -> (logits, cache)
   make_train_batch(rng, cfg, batch, seq_len) -> batch (numpy)
@@ -30,21 +30,29 @@ __all__ = ["LM_FAMILIES", "init_model", "train_loss", "init_decode_cache",
 LM_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
-def init_model(cfg: ModelConfig, *, generator: torch.Generator, device):
+def init_model(cfg: ModelConfig, *, generator: torch.Generator | None,
+               device):
+    """Random weights of ``cfg``'s family from ``generator`` on
+    ``device``; on ``meta`` (``generator`` None) the shapes and dtypes
+    alone, at no memory cost (the dry run's)."""
     if cfg.family == "audio":
         return whisper.init_params(cfg, generator=generator, device=device)
     return backbone.init_params(cfg, generator=generator, device=device)
 
 
-def train_loss(params, cfg: ModelConfig, batch: dict):
+def train_loss(params, cfg: ModelConfig, batch: dict, remat: bool = True):
+    """The family's loss on ``batch``; ``remat`` checkpoints the layers
+    as the reference's does (:func:`.backbone.backbone_apply`,
+    :func:`.whisper.encode`)."""
     if cfg.family == "audio":
         return whisper.loss(params, cfg, batch["frames"], batch["tokens"],
-                            batch["labels"])
+                            batch["labels"], remat=remat)
     if cfg.family == "vlm":
         return backbone.lm_loss(params, cfg, batch["tokens"],
                                 batch["labels"],
-                                prefix_embeds=batch["patches"])
-    return backbone.lm_loss(params, cfg, batch["tokens"], batch["labels"])
+                                prefix_embeds=batch["patches"], remat=remat)
+    return backbone.lm_loss(params, cfg, batch["tokens"], batch["labels"],
+                            remat=remat)
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, seq_len: int, device):

@@ -8,19 +8,24 @@ local attention (recurrentgemma), and pixtral's decoder, whose stub
 patch embeddings are fused in front of the tokens (``prefix_embeds``).
 An ``LM`` module holds the tied or untied embedding, the layers and the
 final norm; :func:`forward`, :func:`lm_loss` and :func:`decode_step`
-are functions over it.  Layers follow ``cfg.layer_pattern`` cycled over ``cfg.n_layers``; where the
-reference stacks each pattern group's parameters and scans over the
-groups, the port keeps one module per layer and loops over them in
-Python (no remat: the reference's LM driver trains with
-``remat=False``).  The decode cache is a list with one dict a layer: a
+are functions over it.  Layers follow ``cfg.layer_pattern`` cycled
+over ``cfg.n_layers``; where the reference stacks each pattern group's
+parameters and scans over the groups, the port keeps one module per
+layer and loops over them in Python (:func:`.scan_config.scan_apply`).
+With ``remat`` (the reference's default; its LM driver passes
+``False``) each group of ``len(cfg.layer_pattern)`` layers runs under
+one activation checkpoint (:func:`remat_call`): autograd keeps the
+group's input and recomputes its forward in the backward; the ``rest``
+layers are not checkpointed, and without autograd (prefill) ``remat``
+changes nothing.  The decode cache is a list with one dict a layer: a
 KV cache for attention, the conv window and state for ``mamba`` and
 ``rglru``.
 
 Public surface:
   init_params(cfg, generator=, device=)  -> LM
-  forward(params, cfg, tokens, prefix_embeds=None) -> (logits, aux)
-                                          train/prefill
-  lm_loss(params, cfg, tokens, labels, prefix_embeds=None)
+  forward(params, cfg, tokens, prefix_embeds=None, remat=True)
+                                         -> (logits, aux) train/prefill
+  lm_loss(params, cfg, tokens, labels, prefix_embeds=None, remat=True)
                                          -> scalar (+ 0.01 aux for MoE)
   init_cache(cfg, batch, seq_len, device) -> decode cache
   decode_step(params, cfg, token, cache, pos) -> (logits, cache)
@@ -31,17 +36,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..configs.base import ModelConfig
 from . import ssm
+from .scan_config import scan_apply
 from .layers import (MLP, Attention, MoE, attention_decode,
                      attention_train, cache_spec, init_attention,
                      init_kv_cache, init_mlp, init_moe, mlp, moe_ffn,
                      rmsnorm)
 from .tree import to_numpy, to_ref
 
-__all__ = ["LM", "Layer", "group_layout", "init_params", "backbone_apply",
+__all__ = ["LM", "Layer", "group_layout", "init_params", "remat_call",
+           "backbone_apply",
            "forward", "lm_loss", "token_cross_entropy", "init_cache",
            "decode_step", "params_from_jax", "ref_paths", "params_to_jax"]
 
@@ -166,16 +174,42 @@ def _apply_layer(p: Layer, x, kind: str, cfg: ModelConfig, positions):
     return _ffn(p, x, cfg)
 
 
-def backbone_apply(params: LM, cfg: ModelConfig, x, positions):
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``, under an activation checkpoint when ``remat`` and
+    autograd is on (the reference's ``jax.checkpoint``): the backward
+    recomputes ``fn``'s forward from ``args`` instead of keeping its
+    activations.  Without autograd it is the plain call."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
+def backbone_apply(params: LM, cfg: ModelConfig, x, positions,
+                   remat: bool = True):
     """Run all layers on embeddings x: (B,S,D) -> (hidden (B,S,D), aux),
     aux the f32 sum of the MoE layers' load-balance losses (0 without
-    MoE)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer, kind in zip(params.layers, cfg.kinds()):
-        x, a = _apply_layer(layer, x, kind, cfg, positions)
-        if a is not None:
-            aux = aux + a
-    return x, aux
+    MoE).  The grouped layers run a group at a time, each group under
+    one checkpoint with ``remat``, carrying ``(x, aux)``; the ``rest``
+    layers follow unchecked, as the reference's."""
+    n_groups, gkinds, rkinds = group_layout(cfg)
+    P = len(gkinds)
+    layers = list(params.layers)
+
+    def run(at: int, kinds, h, aux):
+        for i, kind in enumerate(kinds):
+            h, a = _apply_layer(layers[at + i], h, kind, cfg, positions)
+            if a is not None:
+                aux = aux + a
+        return h, aux
+
+    def group_body(carry, g):
+        return remat_call(remat, run, int(g) * P, gkinds, *carry), None
+
+    carry = (x, torch.zeros((), dtype=torch.float32, device=x.device))
+    if n_groups:
+        carry, _ = scan_apply(group_body, carry, torch.arange(n_groups))
+    return run(n_groups * P, rkinds, *carry)
 
 
 def _head(params: LM, cfg: ModelConfig, x):
@@ -185,7 +219,7 @@ def _head(params: LM, cfg: ModelConfig, x):
 
 
 def forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
-            prefix_embeds: torch.Tensor | None = None):
+            prefix_embeds: torch.Tensor | None = None, remat: bool = True):
     """tokens: (B,S) -> (logits (B,P+S,V) in the model's dtype, aux).
 
     ``prefix_embeds`` (B,P,D), the VLM's stub patch embeddings, are cast
@@ -195,17 +229,17 @@ def forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, aux = backbone_apply(params, cfg, x, positions)
+    x, aux = backbone_apply(params, cfg, x, positions, remat=remat)
     return _head(params, cfg, x), aux
 
 
 def lm_loss(params: LM, cfg: ModelConfig, tokens, labels,
-            prefix_embeds: torch.Tensor | None = None):
+            prefix_embeds: torch.Tensor | None = None, remat: bool = True):
     """Next-token cross-entropy over f32 logits (labels = tokens shifted
     by the caller; -1 = pad, masked), plus the router's aux loss with
     weight 0.01.  With ``prefix_embeds`` (B,P,D) the loss is over the
     text positions only (the logits' last S)."""
-    logits, aux = forward(params, cfg, tokens, prefix_embeds)
+    logits, aux = forward(params, cfg, tokens, prefix_embeds, remat=remat)
     if prefix_embeds is not None:
         logits = logits[:, prefix_embeds.shape[1]:]
     return token_cross_entropy(logits.float(), labels) + 0.01 * aux

@@ -8,6 +8,8 @@ top MLP emits the CTR logit.  The arithmetic mirrors the JAX package's
 """
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 from torch import nn
@@ -19,7 +21,7 @@ from .tree import to_numpy, to_ref
 
 __all__ = ["DLRM", "init_params", "params_from_jax", "ref_paths",
            "params_to_jax", "ps_stack_tables", "bce_loss",
-           "bce_loss_masked"]
+           "bce_loss_masked", "train_step"]
 
 
 def _flat_table(tbl: torch.Tensor) -> torch.Tensor:
@@ -246,3 +248,21 @@ def bce_loss_masked(model: DLRM, sparse_ids: torch.Tensor,
     per_row = torch.where(valid, _bce(logits, lbl),
                           torch.zeros_like(logits))
     return per_row.sum() / valid.sum().clamp(min=1).to(per_row.dtype)
+
+
+def train_step(model: DLRM, cfg: DLRMConfig, batch: dict, lr: float = 1e-2):
+    """Plain-SGD step (the paper's consistency analysis assumes SGD): the
+    BCE loss of ``batch`` (``{sparse, dense, labels}`` tensors) and every
+    parameter moved by ``-lr`` times its gradient.  Returns ``(the
+    stepped model, the loss)``: a new model, ``model`` untouched, as the
+    reference returns new parameters.  ``cfg`` is ``model.cfg`` (the
+    reference's argument)."""
+    new = copy.deepcopy(model).requires_grad_(True)
+    params = list(new.parameters())
+    with torch.enable_grad():
+        loss = bce_loss(new, batch["sparse"], batch["dense"], batch["labels"])
+        grads = torch.autograd.grad(loss, params)
+    with torch.no_grad():
+        for p, g in zip(params, grads):
+            p.sub_(lr * g)
+    return new.requires_grad_(model.embed.requires_grad), loss.detach()

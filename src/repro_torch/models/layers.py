@@ -22,8 +22,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..dist import ctx
 from ..kernels.flash_attn import HEAD_DIMS as B8_HEAD_DIMS
 from ..kernels.flash_attn import flash_attn
+from . import scan_config
 
 __all__ = ["linear", "init_linear", "rmsnorm", "rope", "Attention",
            "init_attention", "attention_naive", "flash_route",
@@ -127,11 +129,12 @@ def init_attention(cfg: ModelConfig, dtype, *, generator: torch.Generator,
 
 
 def _qkv(p: Attention, x: torch.Tensor):
-    """x: (B,S,D) -> q (B,S,KV,G,hd), k/v (B,S,KV,hd)."""
+    """x: (B,S,D) -> q (B,S,KV,G,hd), k/v (B,S,KV,hd), under the mesh
+    context's constraints (:func:`repro_torch.dist.ctx.constrain_qkv`)."""
     q = torch.einsum("bsd,dkgh->bskgh", x, p.wq.to(x.dtype))
     k = torch.einsum("bsd,dkh->bskh", x, p.wk.to(x.dtype))
     v = torch.einsum("bsd,dkh->bskh", x, p.wv.to(x.dtype))
-    return q, k, v
+    return ctx.constrain_qkv(q, k, v)
 
 
 def _gqa_logits(q, k):
@@ -207,15 +210,22 @@ def attention_blockwise(q, k, v, kind: str, window: int, q_pos, kv_pos,
 
 
 def attention_flash(q, k, v, kind: str = "full", window: int = 0,
-                    q_pos=None, kv_pos=None, block: int = FLASH_BLOCK):
+                    q_pos=None, kv_pos=None, block: int | None = None):
     """Long-sequence attention, by :func:`flash_route`: ``full`` at hd
     32, 64 or 128 through kernel B8
     (:func:`repro_torch.kernels.flash_attn.flash_attn`, causal, positions
     0 .. S-1 on both sides, ``block`` unused), every other mask and hd
     through :func:`attention_blockwise` at the given positions (0 .. S-1
-    when None)."""
+    when None).  ``block`` None is ``FLASH_BLOCK``, or under
+    ``scan_config.UNROLL`` (the dry run's cost probes) Sk //
+    ``PROBE_INNER_STEPS`` when that is larger, as the reference's."""
     if flash_route(kind, q.shape[-1]) == "b8":
         return flash_attn(q, k, v, causal=True)
+    if block is None:
+        block = FLASH_BLOCK
+        if scan_config.UNROLL:   # cost probes: fewer, bigger blocks
+            block = max(FLASH_BLOCK,
+                        k.shape[1] // scan_config.PROBE_INNER_STEPS)
     if q_pos is None:
         q_pos = torch.arange(q.shape[1], device=q.device)
     if kv_pos is None:
@@ -417,9 +427,12 @@ def _moe_dispatch_block(xt, p: MoE, cfg: ModelConfig,
 
 
 def _moe_experts(p: MoE, buf, dtype):
-    hi = torch.einsum("ecd,edf->ecf", buf, p.wi.to(dtype))
-    hg = torch.einsum("ecd,edf->ecf", buf, p.wg.to(dtype))
-    return torch.einsum("ecf,efd->ecd", F.silu(hg) * hi, p.wo.to(dtype))
+    """The experts over an (..., E, C, D) buffer: one batched product a
+    weight for every block."""
+    hi = torch.einsum("...ecd,edf->...ecf", buf, p.wi.to(dtype))
+    hg = torch.einsum("...ecd,edf->...ecf", buf, p.wg.to(dtype))
+    return torch.einsum("...ecf,efd->...ecd", F.silu(hg) * hi,
+                        p.wo.to(dtype))
 
 
 def _moe_combine(ho, meta, T: int, D: int, dtype):
@@ -440,15 +453,34 @@ def moe_ffn(p: MoE, x, cfg: ModelConfig, capacity_factor: float = 1.25):
     capacity are dropped), the experts run as batched products over the
     stacked weights, and the outputs are added back weighted by the
     router's renormalised top-k probabilities.  ``aux`` is the Switch
-    load-balance loss E * sum(mean prob * top-1 share).  The reference's
-    multi-block dispatch (``dist.ctx.MOE_BLOCKS > 1``) waits for
-    sharding (ROADMAP A14.9); this is its one-block path."""
+    load-balance loss E * sum(mean prob * top-1 share).
+
+    With ``dist.ctx.MOE_BLOCKS = nb > 1`` dividing T the tokens split
+    into nb blocks of T // nb, each dispatched and combined on its own
+    (its own capacity C from T // nb), the experts run once over the
+    (nb, E, C, D) buffer, and the router's probabilities and top-k come
+    back to (T, ...) for the aux loss, as the reference's blocks (its
+    ``vmap``).  ``MOE_BLOCK_SPECS``, the blocks' sharding constraints,
+    are the identity on one card."""
     B, S, D = x.shape
     E = cfg.n_experts
     T = B * S
     xt = x.reshape(T, D)
-    buf, meta, probs, topi = _moe_dispatch_block(xt, p, cfg, capacity_factor)
-    yt = _moe_combine(_moe_experts(p, buf, xt.dtype), meta, T, D, xt.dtype)
+    nb = ctx.MOE_BLOCKS if ctx.MOE_BLOCKS > 1 and T % ctx.MOE_BLOCKS == 0 \
+        else 1
+    if nb > 1:
+        blocks = [_moe_dispatch_block(xb, p, cfg, capacity_factor)
+                  for xb in xt.reshape(nb, T // nb, D)]
+        ho = _moe_experts(p, torch.stack([b[0] for b in blocks]), xt.dtype)
+        yt = torch.cat([_moe_combine(ho[i], b[1], T // nb, D, xt.dtype)
+                        for i, b in enumerate(blocks)])
+        probs = torch.cat([b[2] for b in blocks])
+        topi = torch.cat([b[3] for b in blocks])
+    else:
+        buf, meta, probs, topi = _moe_dispatch_block(xt, p, cfg,
+                                                     capacity_factor)
+        yt = _moe_combine(_moe_experts(p, buf, xt.dtype), meta, T, D,
+                          xt.dtype)
     if p.shared is not None:
         yt = yt + mlp(p.shared, xt, "swiglu")
     me = probs.mean(dim=0)                                # (E,)

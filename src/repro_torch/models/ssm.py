@@ -27,6 +27,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..kernels.linear_scan import SCAN_CHUNK, scan
+from . import scan_config
 from .layers import _gelu, init_linear, linear
 
 __all__ = ["SCAN_CHUNK", "RG_C", "causal_conv1d", "conv_step",
@@ -71,13 +72,19 @@ def chunked_linear_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
     """Solve ``h_t = a_t h_{t-1} + b_t`` over axis 1 (S).  a, b: (B, S,
     ...) of one shape (the blocks' terms), h0: (B, ...).  Returns (h (B,
     S, ...), h_last (B, ...)).  The trailing axes are flattened into the
-    kernel's C; ``chunk`` (the reference's ``SCAN_CHUNK`` by default)
-    shapes the plain version's summation order only."""
+    kernel's C; ``chunk`` shapes the plain version's summation order
+    only.  None is the reference's ``SCAN_CHUNK``, or under
+    ``scan_config.UNROLL`` (the dry run's cost probes) S //
+    ``PROBE_INNER_STEPS`` when that is larger, as the reference's."""
     B, S = a.shape[:2]
     C = math.prod(a.shape[2:])
+    if chunk is None:
+        chunk = SCAN_CHUNK
+        if scan_config.UNROLL:   # cost probes: fewer, bigger chunks
+            chunk = max(SCAN_CHUNK, S // scan_config.PROBE_INNER_STEPS)
     h, h_last = scan(a.reshape(B, S, C).contiguous(),
                      b.reshape(B, S, C).contiguous(),
-                     h0.reshape(B, C).contiguous(), chunk or SCAN_CHUNK)
+                     h0.reshape(B, C).contiguous(), chunk)
     return h.reshape(a.shape), h_last.reshape(h0.shape)
 
 

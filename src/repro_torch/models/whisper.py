@@ -11,14 +11,19 @@ layer and cross K/V of the encoder's length.
 
 The reference stacks the encoder's and the decoder's layer parameters
 on a leading axis and scans over them; the port keeps one module a
-layer and loops in Python (no remat: the reference's LM steps run with
-``remat=False``).
+layer and loops in Python (:func:`.scan_config.scan_apply`).  With
+``remat`` (the reference's default) every encoder layer and every
+decoder layer runs under its own activation checkpoint
+(:func:`.backbone.remat_call`; a decoder layer's cross K/V of the
+memory are recomputed with it); without autograd it changes
+nothing.
 
 Public surface:
   init_params(cfg, generator=, device=)        -> Whisper
-  encode(params, cfg, frames)                  -> memory (B, T, D)
-  decode_train(params, cfg, tokens, memory)    -> logits (B, S_dec, V)
-  loss(params, cfg, frames, tokens, labels)    -> scalar
+  encode(params, cfg, frames, remat=True)      -> memory (B, T, D)
+  decode_train(params, cfg, tokens, memory, remat=True)
+                                               -> logits (B, S_dec, V)
+  loss(params, cfg, frames, tokens, labels, remat=True) -> scalar
   init_cache(cfg, batch, enc_len, device)      -> decode cache
   fill_cross_kv(params, cfg, cache, memory)    -> cache (cross K/V set)
   decode_step(params, cfg, token, cache, pos)  -> (logits, cache)
@@ -32,10 +37,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
-from .backbone import Layer, _dtype, _tensor, token_cross_entropy
+from .backbone import (Layer, _dtype, _tensor, remat_call,
+                       token_cross_entropy)
 from .layers import (MLP, Attention, attention_decode, attention_train,
                      cache_spec, cross_attention, init_attention,
                      init_kv_cache, init_mlp, mlp, rmsnorm)
+from .scan_config import scan_apply
 from .tree import to_numpy, to_ref
 
 __all__ = ["DEC_CTX", "DecLayer", "Whisper", "init_params", "encode",
@@ -103,18 +110,25 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     return Whisper(embed, enc, dec, zeros(), zeros())
 
 
-def encode(params: Whisper, cfg: ModelConfig, frames: torch.Tensor):
+def encode(params: Whisper, cfg: ModelConfig, frames: torch.Tensor,
+           remat: bool = True):
     """frames: (B, S, D) stub frame embeddings -> (B, S, D) memory in the
     model's dtype.  Bidirectional self-attention: the naive route at
     every S, as the reference's route rule sends it."""
-    x = frames.to(_dtype(cfg))
-    positions = torch.arange(x.shape[1], device=x.device)
-    for lp in params.enc:
+    positions = torch.arange(frames.shape[1], device=frames.device)
+
+    def layer(lp: Layer, x):
         h = rmsnorm(x, lp.norm1, cfg.norm_eps)
         x = x + attention_train(lp.attn, h, cfg, "full", positions,
                                 bidirectional=True)
         h = rmsnorm(x, lp.norm2, cfg.norm_eps)
-        x = x + mlp(lp.ffn, h, cfg.mlp)
+        return x + mlp(lp.ffn, h, cfg.mlp)
+
+    def body(x, i):
+        return remat_call(remat, layer, params.enc[int(i)], x), None
+
+    x, _ = scan_apply(body, frames.to(_dtype(cfg)),
+                      torch.arange(len(params.enc)))
     return rmsnorm(x, params.enc_norm, cfg.norm_eps)
 
 
@@ -126,25 +140,32 @@ def _enc_kv(lp: DecLayer, memory: torch.Tensor, cfg: ModelConfig):
 
 
 def decode_train(params: Whisper, cfg: ModelConfig, tokens: torch.Tensor,
-                 memory: torch.Tensor):
+                 memory: torch.Tensor, remat: bool = True):
     """tokens: (B, S_dec) -> logits (B, S_dec, V) in the model's dtype."""
     x = F.embedding(tokens, params.embed.to(_dtype(cfg)))
     positions = torch.arange(x.shape[1], device=x.device)
-    for lp in params.dec:
+
+    def layer(lp: DecLayer, x, memory):
         h = rmsnorm(x, lp.norm1, cfg.norm_eps)
         x = x + attention_train(lp.attn, h, cfg, "full", positions)
         h = rmsnorm(x, lp.norm_x, cfg.norm_eps)
         x = x + cross_attention(lp.xattn, h, *_enc_kv(lp, memory, cfg))
         h = rmsnorm(x, lp.norm2, cfg.norm_eps)
-        x = x + mlp(lp.ffn, h, cfg.mlp)
+        return x + mlp(lp.ffn, h, cfg.mlp)
+
+    def body(x, i):
+        return remat_call(remat, layer, params.dec[int(i)], x, memory), None
+
+    x, _ = scan_apply(body, x, torch.arange(len(params.dec)))
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
     return x @ params.embed.T.to(x.dtype)
 
 
-def loss(params: Whisper, cfg: ModelConfig, frames, tokens, labels):
+def loss(params: Whisper, cfg: ModelConfig, frames, tokens, labels,
+         remat: bool = True):
     """Cross-entropy of the decoder's f32 logits (-1 labels masked)."""
-    memory = encode(params, cfg, frames)
-    logits = decode_train(params, cfg, tokens, memory).float()
+    memory = encode(params, cfg, frames, remat=remat)
+    logits = decode_train(params, cfg, tokens, memory, remat=remat).float()
     return token_cross_entropy(logits, labels)
 
 

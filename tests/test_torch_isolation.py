@@ -66,7 +66,10 @@ def test_port_imports_no_jax_and_no_reference():
                  "configs.smollm_360m", "elastic.faults",
                  "elastic.membership", "elastic.recovery", "checkpoint",
                  "models.tree", "obs", "obs.metrics", "obs.schema",
-                 "obs.artifacts", "obs.validate", "pipeline.runner"):
+                 "obs.artifacts", "obs.validate", "pipeline.runner",
+                 "dist", "dist.ctx", "dist.sharding", "launch.dryrun",
+                 "launch.mesh", "launch.steps", "models.scan_config",
+                 "kernels.ref"):
         assert f"repro_torch.{name}" in out["modules"]
     assert out["device"] == "cuda"
     assert out["train_device"] == "cuda"

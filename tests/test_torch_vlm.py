@@ -182,7 +182,8 @@ def test_step0_gradients_match_leaf_by_leaf(b8_calls):
     ref = _reference()
     cfg = get_config(ARCH, smoke=True)
     model = backbone.params_from_jax(ref["tree"], cfg)
-    loss = api.train_loss(model, cfg, _tb(_batch(cfg, 5, 1, 2048)))
+    loss = api.train_loss(model, cfg, _tb(_batch(cfg, 5, 1, 2048)),
+                          remat=False)
     grads = torch.autograd.grad(loss, list(model.parameters()))
     names = [n for n, _ in model.named_parameters()]
     want = from_ref(ref["grads0"], backbone.ref_paths(model, cfg))
@@ -200,7 +201,8 @@ def test_train_steps_match_the_reference_step():
     ref = _reference()
     cfg = get_config(ARCH, smoke=True)
     model = backbone.params_from_jax(ref["tree"], cfg)
-    step = make_train_step(cfg, model, get_optimizer("adam", LR))
+    step = make_train_step(cfg, model, get_optimizer("adam", LR),
+                           remat=False)
     batch = _tb(_batch(cfg, 5, 1, 2048))
     got = [float(step(batch)) for _ in range(STEPS)]
     np.testing.assert_allclose(got, ref["losses"], rtol=0, atol=LOSS_TOL)

@@ -83,7 +83,8 @@ def test_train_steps_card_vs_cpu(cuda, arch):
     B, S = SMOKE[arch]
     losses = {}
     for dev, model in (("cpu", cpu), ("cuda", gpu)):
-        step = make_train_step(cfg, model, get_optimizer("adam", 1e-2))
+        step = make_train_step(cfg, model, get_optimizer("adam", 1e-2),
+                               remat=False)
         batch = _batch(cfg, 1, B, S, dev)
         n0 = dict(FA.LAUNCHES)
         losses[dev] = [float(step(batch)) for _ in range(3)]
