@@ -18,9 +18,11 @@ Phases, each printing its own lines:
 2. build — compiles the CUDA sources in ``src/repro_torch/kernels/csrc``,
    one ``nvcc`` per source, all at once, and prints each kernel's
    registers and spills; counts the tensor-core instructions in the SASS
-   of B8's libraries (``cuobjdump -sass``): ``HGMMA`` in the forward's
-   ``flash_attn_sm90``, ``HGMMA`` or ``HMMA`` in the backward's
-   ``flash_attn_bwd``, and fails on none;
+   of B8's bf16 libraries (``cuobjdump -sass``): ``HGMMA`` in the
+   forward's ``flash_attn_sm90`` and in the backward's
+   ``flash_attn_bwd_sm90``, and fails on none; with ``--was DIR`` also
+   builds the backward library of the checkout in DIR (the parent
+   commit, unpacked with ``git archive``) for phase 3's "was" times;
 3. kernels — each kernel against its plain PyTorch version on the card at
    its path's shapes, with its median time, the plain version's, one
    PyTorch library call's where one computes the same function, and the
@@ -67,10 +69,12 @@ Phases, each printing its own lines:
    ``wgmma`` kernel (max abs err 1e-2, or up to 2e-2 where it is within
    1.5x ``scaled_dot_product_attention``'s error against the same plain
    version: both round P to bf16; lse 2e-5), and f32 on the CUDA-core
-   kernel (2e-5); its backward kernel against the plain backward (evaluated in
-   f32) in bf16 (each gradient within 1.5x the error of SDPA's backward
-   against it) and f32 (1e-4), timed beside the plain backward and SDPA's
-   backward; and the
+   kernel (2e-5); its backward against the plain backward (evaluated in
+   f32): bf16 on the ``wgmma`` kernel of ``flash_attn_bwd_sm90.cu``
+   (each gradient within 1.5x the error of SDPA's backward against it;
+   two calls bitwise equal), f32 on the CUDA-core kernel (1e-4), its
+   route printed, timed beside the plain backward, SDPA's backward and,
+   with ``--was DIR``, DIR's kernel on the same inputs; and the
    gradients of its autograd Function against autograd of its plain
    version (1e-4); SDPA timed as the library yardstick, the bound at 989
    TFLOP/s bf16 (67 f32) and each kernel's TFLOP/s.  The linear
@@ -87,8 +91,8 @@ Phases, each printing its own lines:
    serving simulator (S1, 8 workers, 0.5 s) on the card against the CPU;
    3 steps of ``run_lm`` at smollm-360m's smoke config with S = 2,048
    (the flash route) on the card against the CPU, losses within 1e-4,
-   and again in bf16 (the card's wgmma forward and tensor-core backward
-   against the CPU's plain versions), losses within 5e-2; ``run_dlrm``
+   and again in bf16 (the card's wgmma forward and backward against the
+   CPU's plain versions), losses within 5e-2; ``run_dlrm``
    pipelined at wdl-tiny (depth 2; depth 2 with stale decisions; depth 3
    with decide-ahead 2, lookahead 2 and 16 rows a step prefetched into
    64 slots), the card's chain on a stream of its own, against the CPU:
@@ -248,7 +252,9 @@ Phases, each printing its own lines:
    extrapolated FLOPs.
 
 Each run of phases 5 to 20 sets every kernel's launch counter to 0 just
-before and reads the counters just after.  B1's per-shard and dense
+before and reads the counters just after; every bf16 LM run (phases 9,
+12, 14, 18, 19, 20) also checks that each of its backward launches took
+the ``wgmma`` route (``flash_attn.BWD_ROUTE_LAUNCHES``).  B1's per-shard and dense
 inputs get a line each (time, plain and ``embedding_bag`` times, bound,
 launches).  Then one JSON line of kernel
 records, after the script's wall time, and as the last line ``{"ok":
@@ -291,7 +297,7 @@ SOURCES = {"pooled_lookup": CSRC + "emb_lookup.cu",
            "auction_bids": CSRC + "auction.cu",
            "auction_solve": CSRC + "auction.cu",
            "flash_attention": CSRC + "flash_attn_sm90.cu",
-           "flash_attention_bwd": CSRC + "flash_attn_bwd.cu",
+           "flash_attention_bwd": CSRC + "flash_attn_bwd_sm90.cu",
            "linear_scan": CSRC + "linear_scan.cu",
            "linear_scan_bwd": CSRC + "linear_scan.cu"}
 REPLACES = {"pooled_lookup": "src/repro/kernels/emb_lookup.py:88",
@@ -401,15 +407,36 @@ def phase_device() -> str:
     return name
 
 
-def phase_build():
+def _was_build(was: Path):
+    """The ``_build`` module of the checkout in ``was``, loaded under its
+    own name: it builds that checkout's sources into its own
+    ``build/kernels``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "was_build", was / "src" / "repro_torch" / "kernels" / "_build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_build(was: Path | None = None):
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels import _build
 
     names = ("emb_lookup", "exchange_pack", "auction", "flash_attn",
-             "flash_attn_sm90", "flash_attn_bwd", "linear_scan")
+             "flash_attn_sm90", "flash_attn_bwd", "flash_attn_bwd_sm90",
+             "linear_scan")
     t = time.perf_counter()
-    _build.load_libraries(*names)
+    with ThreadPoolExecutor(1) as pool:
+        was_lib = (pool.submit(lambda: _was_build(was).load_library(
+            "flash_attn_bwd")) if was is not None else None)
+        _build.load_libraries(*names)
+        was_lib = was_lib.result() if was_lib is not None else None
     dt = time.perf_counter() - t
-    print(f"[build] {', '.join(names)} in {dt:.2f} s (in parallel)")
+    extra = f" and {was}'s flash_attn_bwd" if was else ""
+    print(f"[build] {', '.join(names)}{extra} in {dt:.2f} s (in parallel)")
     for name in names:
         # ptxas reports, per kernel: the entry, then its stack and
         # spills, then its registers
@@ -420,10 +447,13 @@ def phase_build():
                 kernel = named[1] if named else next(
                     (k for k in SOURCES if f"{k}_kernel" in ln),
                     ln.split("'")[1] if "'" in ln else ln)
-                # a template instance: element type (wgmma: bf16), hd
+                # a template instance: element type (the _sm90
+                # libraries: bf16), hd
                 inst = re.search(r"kernelI(f|13__nv_bfloat16)?Li(\d+)E", ln)
                 if inst:
-                    kernel += (f"<{'f32' if inst[1] == 'f' else 'bf16'}, "
+                    bf16 = (inst[1] == "13__nv_bfloat16"
+                            or (inst[1] is None and name.endswith("sm90")))
+                    kernel += (f"<{'bf16' if bf16 else 'f32'}, "
                                f"hd {inst[2]}>")
             elif "spill" in ln or "registers" in ln:
                 facts.append(ln.split(":", 1)[-1].strip())
@@ -432,7 +462,7 @@ def phase_build():
                     facts = []
     objdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for name, ops in (("flash_attn_sm90", ("HGMMA",)),
-                      ("flash_attn_bwd", ("HGMMA", "HMMA"))):
+                      ("flash_attn_bwd_sm90", ("HGMMA",))):
         sass = subprocess.run([objdump, "-sass",
                                str(_build.library_path(name))],
                               capture_output=True, text=True, check=True,
@@ -441,6 +471,7 @@ def phase_build():
         print(f"[build] {name} SASS: {counts}")
         check(sum(counts.values()) > 0, f"{name} runs on the tensor cores "
                                         f"({' or '.join(ops)} in its SASS)")
+    return was_lib
 
 
 def _launch_counters():
@@ -452,13 +483,32 @@ def _launch_counters():
 
 
 def _zero_launches():
-    for counts in _launch_counters():
+    from repro_torch.kernels import flash_attn
+
+    for counts in (*_launch_counters(), flash_attn.BWD_ROUTE_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
 def _read_launches() -> dict:
     return {k: v for counts in _launch_counters() for k, v in counts.items()}
+
+
+def _bwd_routes() -> dict:
+    """B8's backward launches by route (``wgmma``: bf16, ``cuda_cores``:
+    f32), counted like the launches."""
+    from repro_torch.kernels import flash_attn
+
+    return dict(flash_attn.BWD_ROUTE_LAUNCHES)
+
+
+def _check_bwd_wgmma(n: int, what: str, routes: dict | None = None):
+    """A bf16 run's n backward launches of B8 all took the wgmma
+    route."""
+    routes = _bwd_routes() if routes is None else routes
+    check(routes == {"wgmma": n, "cuda_cores": 0},
+          f"{what}: B8's {n} backward launches on the wgmma route "
+          f"({routes})")
 
 
 # B1's inputs on this slice's paths beside the decide's compact table:
@@ -1702,9 +1752,30 @@ def phase_simulate(seed: int) -> dict:
     return launches
 
 
-def phase_flash_kernels(seed: int) -> dict:
+def _was_backward(lib, q, k, v, out, lse, dout, causal):
+    """(dq, dk, dv) from the backward kernel of another checkout's
+    ``flash_attn_bwd`` library (``--was DIR``), called as that
+    checkout's wrapper calls it (the launcher of PR 16 to 27: one
+    library for bf16 and f32, a dtype flag, D's scratch), on inputs its
+    wrapper would pass as they are."""
+    B, Sq, KV, G, hd = q.shape
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty_like(lse)
+    rc = lib.flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, Sq, k.shape[1], KV, G, hd,
+        int(q.dtype == torch.bfloat16), int(causal), *q.stride()[:4],
+        *k.stride()[:3], *v.stride()[:3], *dout.stride()[:4],
+        torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"the --was backward kernel launched (cudaError {rc})")
+    return dq, dk, dv
+
+
+def phase_flash_kernels(seed: int, was_lib=None) -> dict:
     """B8, the flash attention, and its backward kernel, at the LM path's
-    shape and around it."""
+    shape and around it; with ``was_lib`` (``--was DIR``'s backward
+    library) that kernel's times beside the backward's."""
     from repro_torch.kernels import flash_attn as FA
 
     dev = torch.device("cuda")
@@ -1798,6 +1869,7 @@ def phase_flash_kernels(seed: int) -> dict:
         out, lse = FA.flash_attention(q, k, v, causal)
         dout = torch.randn(out.shape, generator=g, device=dev).to(dtype)
         got = FA.flash_attention_backward(q, k, v, out, lse, dout, causal)
+        again = FA.flash_attention_backward(q, k, v, out, lse, dout, causal)
         # the plain backward in f32 on the same values (for bf16, so that
         # neither error below is a count of output ulps)
         want = FA.flash_attention_bwd(q.float(), k.float(), v.float(),
@@ -1821,8 +1893,24 @@ def phase_flash_kernels(seed: int) -> dict:
             check(a.dtype == dtype and (e <= 1.5 * se if bf16 else e <= 1e-4),
                   f"flash_attention_bwd {what}: {name} max err {e} within "
                   f"{'1.5x SDPA backward' + repr(se) if bf16 else '1e-4'}")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"flash_attention_bwd {what}: two calls bitwise equal")
+        route = FA.backward_route((dtype,) * 3, hd, [
+            (t.shape, t.stride(), t.data_ptr()) for t in (q, k, v, dout)])[0]
         ms, call_ms = device_ms(lambda: FA.flash_attention_backward(
             q, k, v, out, lse, dout, causal))
+        was = ""
+        if was_lib is not None:
+            was_errs = [err(a, b) for a, b in zip(_was_backward(
+                was_lib, q, k, v, out, lse, dout, causal), want)]
+            was_ms, was_call = device_ms(lambda: _was_backward(
+                was_lib, q, k, v, out, lse, dout, causal))
+            # the new kernel again after the old one, in turns
+            ms2, _ = device_ms(lambda: FA.flash_attention_backward(
+                q, k, v, out, lse, dout, causal))
+            was = (f", then {ms2:.4f} ms; was {was_ms:.4f} ms (call "
+                   f"{was_call:.4f}; max err dq, dk, dv "
+                   f"{[float(f'{x:.3g}') for x in was_errs]})")
         plain_ms, _ = device_ms(lambda: FA.flash_attention_bwd(
             q, k, v, out, lse, dout, causal), reps=5)
         # SDPA's backward alone, on the (B, H, S, hd) layout it takes
@@ -1841,19 +1929,19 @@ def phase_flash_kernels(seed: int) -> dict:
             + lse.numel() * 4
         b_ms, b_by = bound(n_bytes, n_ops,
                            BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S)
-        print(f"[kernel] flash_attention_bwd {what} "
-              f"({'mma.sync' if bf16 else 'CUDA cores'}): max err dq, dk, dv "
-              f"{[float(f'{x:.3g}') for x in errs]} (SDPA's backward "
+        print(f"[kernel] flash_attention_bwd {what} ({route}): max err dq, "
+              f"dk, dv {[float(f'{x:.3g}') for x in errs]} (SDPA's backward "
               f"{[float(f'{x:.3g}') for x in sdpa_errs]}; mean error "
-              f"over SDPA's {[round(x, 3) for x in mean_ratio]}), {ms:.4f} ms "
-              f"(call {call_ms:.4f}), {n_ops / ms / 1e9:.2f} TFLOP/s, plain "
-              f"{plain_ms:.4f} ms, SDPA's backward {lib_ms:.4f} ms, bound "
-              f"{b_ms:.6f} ms ({b_by})")
+              f"over SDPA's {[round(x, 3) for x in mean_ratio]}; two calls "
+              f"bitwise equal), {ms:.4f} ms (call {call_ms:.4f}), "
+              f"{n_ops / ms / 1e9:.2f} TFLOP/s{was}, plain {plain_ms:.4f} "
+              f"ms, SDPA's backward {lib_ms:.4f} ms, bound {b_ms:.6f} ms "
+              f"({b_by})")
         if (S, hd, causal, dtype) == (2048, 64, True, torch.bfloat16):
             rec["flash_attention_bwd"] = dict(
                 max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-        del q, k, v, out, dout, got, want, leaves, so, sg, hs, hout
+        del q, k, v, out, dout, got, again, want, leaves, so, sg, hs, hout
 
     # gradients through the autograd Function (f32: the forward's and the
     # backward's CUDA-core kernels) against autograd of the plain version
@@ -1903,11 +1991,12 @@ def phase_lm_parity(seed: int):
         gpu = copy.deepcopy(cpu).to("cuda")
         runs = {}
         for dev, model in (("cpu", cpu), ("cuda", gpu)):
-            n0 = dict(FA.LAUNCHES)
+            n0, r0 = dict(FA.LAUNCHES), _bwd_routes()
             out = run_lm(build_parser().parse_args(argv + ["--device", dev]),
                          model=model, cfg=cfg)
             runs[dev] = [r["loss"] for r in out["metrics"]]
             ran = {k: FA.LAUNCHES[k] - n0[k] for k in n0}
+            routes = {k: v - r0[k] for k, v in _bwd_routes().items()}
         err = max(abs(a - b) for a, b in zip(runs["cpu"], runs["cuda"]))
         check(all(np.isfinite(runs["cuda"])) and err <= tol,
               f"LM losses ({cfg.dtype}) on card vs CPU within {tol} (max "
@@ -1915,6 +2004,10 @@ def phase_lm_parity(seed: int):
         check(ran == {k: cfg.n_layers * 3 for k in ran},
               f"the card's {cfg.dtype} LM steps ran B8's forward and "
               f"backward kernels once per layer and step ({ran})")
+        route = "wgmma" if cfg.dtype == "bfloat16" else "cuda_cores"
+        check(routes == {"wgmma": 0, "cuda_cores": 0, route: ran[
+            "flash_attention_bwd"]}, f"the card's {cfg.dtype} LM steps: "
+            f"B8's backward on the {route} route ({routes})")
         print(f"[parity] 3 LM steps, smollm-360m smoke (2 layers, d 256, 4 "
               f"heads over 2, {cfg.dtype}), B 1, S 2048, card vs CPU: "
               f"losses {runs['cuda']} vs {runs['cpu']}, max abs err "
@@ -2016,6 +2109,7 @@ def phase_lm_train(seed: int) -> dict:
           "the flash kernel launched once per layer and step")
     check(launches.get("flash_attention_bwd") == cfg.n_layers * len(recs),
           "the flash backward kernel launched once per layer and step")
+    _check_bwd_wgmma(cfg.n_layers * len(recs), "LM training")
     return launches
 
 
@@ -2179,6 +2273,7 @@ def phase_lm_moe(seed: int) -> dict:
     check(launches == {"flash_attention": n, "flash_attention_bwd": n},
           f"B8 and its backward once a layer and step, none in decode "
           f"({launches})")
+    _check_bwd_wgmma(n, "phi3.5-moe training")
     return launches
 
 
@@ -2429,6 +2524,7 @@ def phase_resume(seed: int) -> dict:
                                "flash_attention_bwd": n},
                   f"LM resume: B8 and its backward once a layer and step "
                   f"({launches})")
+            _check_bwd_wgmma(n, "LM resume")
             runs.append(out["metrics"])
             if not extra:
                 lm_size = (d / "ckpt_00000002.npz").stat().st_size
@@ -3270,6 +3366,7 @@ def phase_lm_vlm_audio(seed: int) -> dict:
     check(all(np.isfinite(losses)), "every pixtral loss finite")
     check(launches == {"flash_attention": n, "flash_attention_bwd": n},
           f"B8 and its backward once a layer and step ({launches})")
+    _check_bwd_wgmma(n, "pixtral-12b training")
     del model, step, batches
     torch.cuda.empty_cache()
 
@@ -3610,6 +3707,7 @@ def phase_trace(seed: int) -> dict:
         check(launches == {"flash_attention": n, "flash_attention_bwd": n},
               f"LM traced: B8 and its backward once a layer and step "
               f"({launches})")
+        _check_bwd_wgmma(n, "LM traced")
         check(all(np.isfinite([r["loss"] for r in out["metrics"]])),
               "LM traced: finite losses")
         print(f"[trace] {cfg.name} at full width, {cfg.n_layers} of 32 "
@@ -3657,7 +3755,8 @@ def _remat_run(cfg, seed: int, remat: bool, batches, aux_of=None) -> dict:
     try:
         losses, ms = _timed_steps(step, batches)
         out = {"losses": losses, "ms": ms, "peak": _peak_gib(),
-               "launches": {k: v for k, v in _read_launches().items() if v}}
+               "launches": {k: v for k, v in _read_launches().items() if v},
+               "bwd_routes": _bwd_routes()}
         if aux_of is not None:
             with torch.no_grad():
                 out["aux"] = backbone.forward(model, cfg,
@@ -3742,6 +3841,9 @@ def phase_remat(seed: int) -> dict:
                             "flash_attention_bwd": 3 * L},
           f"smollm-360m without remat: B8 once a layer and step each way "
           f"({n['launches']})")
+    for run, what in ((r, "with"), (n, "without")):
+        _check_bwd_wgmma(3 * L, f"smollm-360m {what} remat",
+                         run["bwd_routes"])
     del batches
 
     # (b) falcon-mamba-7b at full width
@@ -3805,6 +3907,8 @@ def phase_remat(seed: int) -> dict:
                             "flash_attention_bwd": 3 * cfg.n_layers},
           f"phi3.5-moe with remat: B8 forward twice and backward once a "
           f"layer and step ({r['launches']})")
+    _check_bwd_wgmma(3 * cfg.n_layers, "phi3.5-moe with remat",
+                     r["bwd_routes"])
     del batches
 
     # (d) the dry runs, on meta
@@ -3829,18 +3933,22 @@ def phase_remat(seed: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--was", type=Path, default=None,
+                    help="a checkout of the parent commit (git archive): "
+                         "phase 3 times its B8 backward kernel beside "
+                         "this one's")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = phase_device()
     sys.path.insert(0, str(ROOT / "src"))
-    phase_build()
+    was_lib = phase_build(args.was)
     rec = phase_kernels(args.seed)
     rec.update(phase_train_kernels(args.seed))
     rec.update(phase_quant_kernels(args.seed))
     rec.update(phase_auction_kernels(args.seed))
-    rec.update(phase_flash_kernels(args.seed))
+    rec.update(phase_flash_kernels(args.seed, was_lib))
     rec.update(phase_scan_kernels(args.seed))
     phase_parity(args.seed)
     phase_train_parity(args.seed)

@@ -2,8 +2,9 @@
 ``ctypes``.
 
 The source compiles on first use into ``build/kernels/`` at the root of
-the checkout, named by a hash of the source and the flags, so an edited
-kernel is rebuilt and an unchanged one is loaded as it is.  The library
+the checkout, named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited kernel is rebuilt and an
+unchanged one is loaded as it is.  The library
 has a plain C interface: its launchers take device pointers, ints and a
 stream, and return ``cudaGetLastError()``.  A failed build raises.
 """
@@ -63,8 +64,12 @@ SIGNATURES = {
                                        + [_P],
     },
     "flash_attn_bwd": {
-        "flash_attention_bwd_launch": [_P] * 10 + [_I] * 8 + [_L] * 14
+        "flash_attention_bwd_launch": [_P] * 10 + [_I] * 7 + [_L] * 14
                                       + [_P],
+    },
+    "flash_attn_bwd_sm90": {
+        "flash_attention_bwd_sm90_launch": [_P] * 10 + [_I] * 7 + [_L] * 15
+                                           + [_P],
     },
     "linear_scan": {
         "linear_scan_launch": [_P] * 5 + [_I] * 4 + [_P],
@@ -101,7 +106,10 @@ def load_libraries(*names: str) -> list[ctypes.CDLL]:
         if name in _loaded:
             continue
         src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS)
+        # the shared headers count: an edited header rebuilds every source
+        text = src.read_bytes() + b"".join(
+            h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+        digest = hashlib.sha256(text + " ".join(NVCC_FLAGS)
                                 .encode()).hexdigest()[:16]
         out = BUILD_DIR / f"lib{name}_{digest}.so"
         proc = tmp = None

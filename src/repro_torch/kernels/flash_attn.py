@@ -20,19 +20,24 @@ for the P V product), f32 on the CUDA cores
 what bounds it and how its design answers it.
 
 :func:`flash_attention_backward` — the gradients (dq, dk, dv) of
-``out`` for ``dout``, from the saved q, k, v, out and lse.  On the card
-it is ``csrc/flash_attn_bwd.cu`` (bf16 products on the tensor cores by
-``mma.sync``, f32 on the CUDA cores); its plain version
-:func:`flash_attention_bwd` recomputes P in f32 one key tile at a time.
-The TPU kernel had no backward: JAX differentiates the jnp scan.
+``out`` for ``dout``, from the saved q, k, v, out and lse.  The card has
+two kernels for it too, chosen by dtype (:func:`backward_route`): bf16
+on the tensor cores (``csrc/flash_attn_bwd_sm90.cu``: ``wgmma`` fed by
+TMA, a producer and two consumer warpgroups, D and the log-sum-exp
+first gathered in row-tile order, :func:`stat_tiling`), f32 on the CUDA
+cores (``csrc/flash_attn_bwd.cu``).  Both are deterministic: no atomics,
+every gradient summed in one fixed order, so two calls agree bit for
+bit.  Its plain version :func:`flash_attention_bwd` recomputes P in f32
+one key tile at a time.  The TPU kernel had no backward: JAX
+differentiates the jnp scan.
 
 The wrappers check device, dtype, shapes and strides and raise on
 anything their kernels do not take.  Given CUDA tensors they launch a
 kernel on the current stream or raise; they run the plain versions only
 because the tensors lie on the CPU (or on ``meta``: shapes, no values).
-``LAUNCHES`` counts kernel launches
-(both forward routes under ``flash_attention``), ``ROUTE_LAUNCHES`` the
-forward's per route.
+``LAUNCHES`` counts kernel launches (both routes of each under
+``flash_attention`` and ``flash_attention_bwd``), ``ROUTE_LAUNCHES`` the
+forward's per route and ``BWD_ROUTE_LAUNCHES`` the backward's.
 
 :func:`flash_attn` is the differentiable form: an autograd Function whose
 forward is :func:`flash_attention` and whose backward is
@@ -44,16 +49,20 @@ import torch
 
 from .emb_lookup import _on_cuda, _raise_on
 
-__all__ = ["LAUNCHES", "ROUTE_LAUNCHES", "BLOCK", "HEAD_DIMS",
-           "kernel_route", "tma_layout_fault", "flash_attention",
-           "flash_attention_ref", "flash_attention_backward",
-           "flash_attention_bwd", "flash_attn"]
+__all__ = ["LAUNCHES", "ROUTE_LAUNCHES", "BWD_ROUTE_LAUNCHES", "BLOCK",
+           "HEAD_DIMS", "ROW_TILE", "kernel_route", "backward_route",
+           "tma_layout_fault", "stat_tiling",
+           "flash_attention", "flash_attention_ref",
+           "flash_attention_backward", "flash_attention_bwd", "flash_attn"]
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 ROUTE_LAUNCHES = {"wgmma": 0, "cuda_cores": 0}
+BWD_ROUTE_LAUNCHES = {"wgmma": 0, "cuda_cores": 0}
 NEG = -1e30
 BLOCK = 512          # key tile of the plain version and of the backward
 HEAD_DIMS = (32, 64, 128)
+ROW_TILE = 64        # flattened (position, head) rows a tile of the bf16
+                     # backward
 
 
 def _shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -158,6 +167,40 @@ def kernel_route(dtypes, hd: int, layouts=()) -> str:
     return "wgmma"
 
 
+def backward_route(dtypes, hd: int, layouts) -> tuple[str, tuple]:
+    """The card kernel for the backward of inputs of these dtypes (q, k,
+    v, then dout and out) and head width, and which of q, k, v and dout
+    (their (shape, strides, data_ptr) in ``layouts``) the wrapper copies
+    first.  bf16 takes ``"wgmma"``, which reads q, k, v and dout by TMA:
+    like the forward it raises on a q, k or v that
+    :func:`tma_layout_fault` refuses (the forward took them as they
+    are), and it copies such a dout (autograd hands dout over permuted).
+    f32 takes ``"cuda_cores"``, which loads rows 16 bytes at a time and
+    copies any of the four it cannot read so."""
+    route = kernel_route(dtypes, hd, layouts[:3])
+    itemsize = 2 if route == "wgmma" else 4
+    return route, tuple(
+        tma_layout_fault(*lay, itemsize) is not None
+        and (route == "cuda_cores" or name == "dout")
+        for name, lay in zip(("q", "k", "v", "dout"), layouts))
+
+
+def stat_tiling(Sq: int, G: int) -> tuple[int, int, int, int]:
+    """The bf16 backward's row tiles: (P, Gb, HB, NT).  A tile of
+    ``ROW_TILE`` rows holds P whole positions of Gb heads (P = 64 // G, Gb
+    = G; for G > 64, one position of 64 heads), HB such head blocks cover
+    a position's G heads, and a (b, kv) pair has NT tiles.  Its first
+    launch writes (lse * log2(e), D) of every row into a scratch of B KV
+    NT 64 pairs, ordered (b, kv, tile, row of the tile): tile i holds
+    positions (i // HB) P .. + P - 1 and heads (i % HB) Gb .. + Gb - 1,
+    its row j the position j // Gb and head j % Gb of those, and rows
+    past the end are pads."""
+    Gb = min(G, ROW_TILE)
+    P = ROW_TILE // G if G <= ROW_TILE else 1
+    HB = -(-G // Gb)
+    return P, Gb, HB, -(-Sq // P) * HB
+
+
 def _layout(t: torch.Tensor):
     return tuple(t.shape), tuple(t.stride()), t.data_ptr()
 
@@ -204,16 +247,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_backward(q, k, v, out, lse, dout, causal: bool = True):
     """(dq, dk, dv) of :func:`flash_attention`'s ``out`` for ``dout``, in
-    the inputs' dtypes.  On the card the kernel of
-    ``csrc/flash_attn_bwd.cu`` (q, k, v and dout of one dtype, bf16 or
-    f32, read through their strides where :func:`tma_layout_fault` takes
-    them, else copied first; out and lse as the forward returns them); on
-    the CPU the plain :func:`flash_attention_bwd`."""
+    the inputs' dtypes.  On the card q, k, v and dout share one dtype:
+    bf16 runs ``csrc/flash_attn_bwd_sm90.cu`` (strides as
+    :func:`tma_layout_fault` allows; a dout it cannot read is copied
+    first), f32 ``csrc/flash_attn_bwd.cu`` (views it cannot read copied
+    first); out and lse as the forward returns them.  On the CPU the plain
+    :func:`flash_attention_bwd`."""
     B, Sq, KV, G, hd, Sk = _shapes(q, k, v)
     if not _on_cuda(q, k, v, out, lse, dout):
         return flash_attention_bwd(q, k, v, out, lse, dout, causal)
-    dtypes = (q.dtype, k.dtype, v.dtype, dout.dtype, out.dtype)
-    kernel_route(dtypes, hd)
+    route, copies = backward_route(
+        (q.dtype, k.dtype, v.dtype, dout.dtype, out.dtype), hd,
+        [_layout(t) for t in (q, k, v, dout)])
     if (out.shape != q.shape or dout.shape != q.shape
             or not out.is_contiguous()):
         raise ValueError(f"out (contiguous) and dout must have q's shape "
@@ -233,23 +278,33 @@ def flash_attention_backward(q, k, v, out, lse, dout, causal: bool = True):
         return dq, dk.zero_(), dv.zero_()
     from ._build import load_library
 
-    # the kernel loads rows 16 bytes at a time: a view it cannot read so
-    # (dout as autograd hands it over, hd not innermost) is copied once
-    q, k, v, dout = (
-        t if tma_layout_fault(t.shape, t.stride(), t.data_ptr(),
-                              t.element_size()) is None
-        else t.clone(memory_format=torch.contiguous_format)
-        for t in (q, k, v, dout))
-    delta = torch.empty_like(lse)
-    rc = load_library("flash_attn_bwd").flash_attention_bwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, KV, G, hd,
-        int(q.dtype == torch.bfloat16), int(causal), *q.stride()[:4],
-        *k.stride()[:3], *v.stride()[:3], *dout.stride()[:4],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(rc, "flash_attention_bwd")
+    q, k, v, dout = (t.clone(memory_format=torch.contiguous_format)
+                     if copy else t
+                     for t, copy in zip((q, k, v, dout), copies))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if route == "wgmma":
+        n_stats = B * KV * stat_tiling(Sq, G)[3] * ROW_TILE
+        stats = torch.empty((n_stats, 2), dtype=torch.float32,
+                            device=q.device)
+        rc = load_library("flash_attn_bwd_sm90") \
+            .flash_attention_bwd_sm90_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), stats.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, KV,
+                G, hd, int(causal), n_stats, *_tma_strides(q)[:4],
+                *_tma_strides(k)[:3], *_tma_strides(v)[:3],
+                *_tma_strides(dout)[:4], stream)
+    else:
+        delta = torch.empty_like(lse)
+        rc = load_library("flash_attn_bwd").flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, KV, G,
+            hd, int(causal), *q.stride()[:4], *k.stride()[:3],
+            *v.stride()[:3], *dout.stride()[:4], stream)
+    _raise_on(rc, f"flash_attention_bwd ({route})")
     LAUNCHES["flash_attention_bwd"] += 1
+    BWD_ROUTE_LAUNCHES[route] += 1
     return dq, dk, dv
 
 

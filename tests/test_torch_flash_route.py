@@ -7,7 +7,12 @@ each tensor's (shape, strides, address), so it is tested here without a
 card, on CPU tensors' layouts.  The smoke LM's q, k and v, as they reach
 B8, must meet the bf16 route's rule.  The autograd Function's backward
 goes through :func:`flash_attention_backward`, which on the CPU is the
-plain :func:`flash_attention_bwd`, exactly.
+plain :func:`flash_attention_bwd`, exactly.  The backward's rule
+(:func:`backward_route`: bf16 -> ``wgmma``, raising on a q, k or v that
+TMA cannot read and copying such a dout; f32 -> CUDA cores, copying any
+view it cannot read 16 bytes at a time) and its row tiles
+(:func:`stat_tiling`, the statistics' order held against the f32
+kernel's ``stat_index`` order) are tested here the same way.
 """
 import dataclasses
 
@@ -158,3 +163,143 @@ def test_autograd_backward_is_flash_attention_backward(causal, monkeypatch):
     assert tf.LAUNCHES == n0            # the CPU runs the plain version
     for a, b in zip(again, want):
         assert torch.equal(a, b)
+
+
+# ---- the backward's route rule and its statistics' order
+
+def _bwd_layouts(dtype, bad=None, view=None):
+    """(shape, strides, data_ptr) of q, k, v and dout, contiguous but for
+    ``bad``, which gets ``view``'s layout."""
+    ts = {"q": torch.zeros((1, 64, 3, 1, 64), dtype=dtype),
+          "k": torch.zeros((1, 64, 3, 64), dtype=dtype),
+          "v": torch.zeros((1, 64, 3, 64), dtype=dtype),
+          "dout": torch.zeros((1, 64, 3, 1, 64), dtype=dtype)}
+    if bad is not None:
+        ts[bad] = view
+    return [_layout(ts[n]) for n in ("q", "k", "v", "dout")]
+
+
+def _transposed(dtype, nd):
+    """A view whose innermost stride is not 1, of q's (nd 5) or k's
+    shape."""
+    t = torch.zeros((1, 3, 64, 64), dtype=dtype).transpose(-1, -2)
+    t = t.transpose(1, 2)                      # (1, 64, 3, 64)
+    return t.unsqueeze(3) if nd == 5 else t
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.float32, "cuda_cores")])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_backward_route_by_dtype(dtype, route, hd):
+    assert tf.backward_route((dtype,) * 5, hd, _bwd_layouts(dtype)) == \
+        (route, (False,) * 4)
+
+
+@pytest.mark.parametrize("dtypes,match", [
+    ((torch.bfloat16,) * 3 + (torch.float32, torch.bfloat16), "one dtype"),
+    ((torch.float16,) * 5, "bf16 or f32"),
+])
+def test_backward_route_raises_on_dtypes(dtypes, match):
+    with pytest.raises(TypeError, match=match):
+        tf.backward_route(dtypes, 64, _bwd_layouts(torch.bfloat16))
+
+
+@pytest.mark.parametrize("name", ["q", "k", "v"])
+def test_backward_bf16_raises_on_a_qkv_view_tma_cannot_take(name):
+    """The forward took q, k and v as they are: a view it would refuse
+    never reaches the backward, which refuses it too."""
+    view = _transposed(torch.bfloat16, 5 if name == "q" else 4)
+    with pytest.raises(ValueError, match=f"bf16 route cannot read {name}"):
+        tf.backward_route((torch.bfloat16,) * 5, 64,
+                          _bwd_layouts(torch.bfloat16, name, view))
+
+
+@pytest.mark.parametrize("view", ["transposed", "rows of 68",
+                                  "misaligned"])
+def test_backward_bf16_copies_a_dout_tma_cannot_take(view):
+    dt = torch.bfloat16
+    t = {"transposed": _transposed(dt, 5),
+         "rows of 68": torch.zeros((1, 64, 3, 1, 68), dtype=dt)[..., :64],
+         "misaligned": torch.zeros(64 * 3 * 64 + 1, dtype=dt)[1:]
+         .view(1, 64, 3, 1, 64)}[view]
+    assert tf.backward_route((dt,) * 5, 64, _bwd_layouts(dt, "dout", t)) \
+        == ("wgmma", (False, False, False, True))
+
+
+@pytest.mark.parametrize("name", ["q", "k", "v", "dout"])
+def test_backward_f32_copies_any_view_it_cannot_read(name):
+    """f32 loads rows 16 bytes at a time: an innermost stride of 64 is
+    copied first, rows of 68 floats (272 bytes) are read as they are."""
+    dt, nd = torch.float32, 5 if name in ("q", "dout") else 4
+    i = ("q", "k", "v", "dout").index(name)
+    got = tf.backward_route((dt,) * 5, 64,
+                            _bwd_layouts(dt, name, _transposed(dt, nd)))
+    assert got == ("cuda_cores", tuple(j == i for j in range(4)))
+    padded = torch.zeros((1, 64, 3, 68), dtype=dt)[..., :64]
+    padded = padded.unsqueeze(3) if nd == 5 else padded
+    assert tf.backward_route((dt,) * 5, 64, _bwd_layouts(dt, name, padded)) \
+        == ("cuda_cores", (False,) * 4)
+
+
+@pytest.mark.parametrize("Sq,G,want", [
+    (2048, 3, (21, 3, 1, 98)),      # smollm: 63 rows a tile
+    (2048, 4, (16, 4, 1, 128)),     # phi3.5-moe, pixtral
+    (300, 1, (64, 1, 1, 5)),
+    (40, 65, (1, 64, 2, 80)),       # G > 64: two head blocks a position
+    (7, 64, (1, 64, 1, 7)),
+])
+def test_stat_tiling(Sq, G, want):
+    P, Gb, HB, NT = tf.stat_tiling(Sq, G)
+    assert (P, Gb, HB, NT) == want
+    assert P * Gb <= tf.ROW_TILE and HB * Gb >= G
+    assert NT == -(-Sq // P) * HB
+
+
+def _stat_lse_index(B, Sq, KV, G):
+    """For each pair of the bf16 backward's statistics scratch, in its
+    order (:func:`flash_attn.stat_tiling`), the index into lse (B, KV, G,
+    Sq) flattened, or -1 for a pad row (where the kernel writes (+inf,
+    0)); the kernel's own decode, written out."""
+    P, Gb, HB, NT = tf.stat_tiling(Sq, G)
+    tile = torch.arange(NT)[:, None]
+    j = torch.arange(tf.ROW_TILE)[None, :]
+    s = tile // HB * P + j // Gb
+    g = tile % HB * Gb + j % Gb
+    valid = (j < P * Gb) & (s < Sq) & (g < G)
+    bkv = torch.arange(B * KV)[:, None, None]
+    idx = (bkv * G + g) * Sq + s
+    return torch.where(valid, idx, -1).reshape(-1)
+
+
+def _stat_index(b, h, r, KV, G, Sq):
+    """The f32 kernel's ``stat_index``: lse's flat index of row r = s G +
+    g of the (b, kv) pair."""
+    return ((b * KV + h) * G + r % G) * Sq + r // G
+
+
+@pytest.mark.parametrize("B,Sq,KV,G", [(2, 300, 2, 3), (1, 2048, 8, 4),
+                                       (2, 100, 3, 1), (1, 130, 2, 64),
+                                       (1, 9, 2, 65), (3, 5, 1, 2)])
+def test_stat_order_is_stat_index_order(B, Sq, KV, G):
+    """The scratch holds every row's statistics once; read in its order,
+    a (b, kv) pair's valid slots are ``stat_index``'s rows r = 0, 1, ...
+    (for G > 64 position by position, a head block at a time), and pads
+    fill each tile past its P Gb rows and past the last position."""
+    P, Gb, HB, NT = tf.stat_tiling(Sq, G)
+    idx = _stat_lse_index(B, Sq, KV, G)
+    assert idx.shape == (B * KV * NT * tf.ROW_TILE,)
+    valid = idx[idx >= 0]
+    assert torch.equal(valid.sort().values, torch.arange(B * KV * G * Sq))
+    per = idx.view(B * KV, NT, tf.ROW_TILE)
+    assert bool((per[:, :, P * Gb:] == -1).all())
+    for b in range(B):
+        for h in range(KV):
+            got = per[b * KV + h]
+            got = got[got >= 0].tolist()
+            if G <= tf.ROW_TILE:
+                rows = range(Sq * G)
+            else:
+                rows = [s * G + g for s in range(Sq)
+                        for hb in range(HB)
+                        for g in range(hb * Gb, min(G, (hb + 1) * Gb))]
+            assert got == [_stat_index(b, h, r, KV, G, Sq) for r in rows]
