@@ -18,16 +18,19 @@ Phases, each printing its own lines:
 2. build — compiles the CUDA sources in ``src/repro_torch/kernels/csrc``,
    one ``nvcc`` per source, all at once, and prints each kernel's
    registers and spills; counts the tensor-core instructions in the SASS
-   of B8's bf16 libraries (``cuobjdump -sass``): ``HGMMA`` in the
-   forward's ``flash_attn_sm90`` and in the backward's
-   ``flash_attn_bwd_sm90``, and fails on none; with ``--was DIR`` also
-   builds the backward library of the checkout in DIR (the parent
-   commit, unpacked with ``git archive``) for phase 3's "was" times;
+   of B8's libraries (``cuobjdump -sass``): ``HGMMA`` in the bf16
+   forward's ``flash_attn_sm90`` and backward's ``flash_attn_bwd_sm90``
+   and in the f32 (split TF32) forward's ``flash_attn_tf32`` and
+   backward's ``flash_attn_bwd_tf32``, and fails on none; with ``--was
+   DIR`` also builds the f32 forward and backward libraries of the
+   checkout in DIR (the parent commit, unpacked with ``git archive``:
+   the CUDA-core kernels) for phase 3's "was" times;
 3. kernels — each kernel against its plain PyTorch version on the card at
    its path's shapes, with its median time, the plain version's, one
    PyTorch library call's where one computes the same function, and the
    least time the card could take (bytes over 3.35 TB/s, or operations
-   over 67 TFLOP/s f32), beside the launch floor (an empty kernel's
+   over 67 TFLOP/s f32; B8's f32 route over 495 TFLOP/s TF32 / 3, three
+   TF32 products a product, beside 67), beside the launch floor (an empty kernel's
    device and call ms).  Serving (wdl-s1: V = 502,000, E = 512): the
    hot-set plane of C rows (and the training prefetch plane's pull: 64
    of 512 slots), bags of the stream's 48 history slots, B =
@@ -64,20 +67,23 @@ Phases, each printing its own lines:
    shape (smollm-360m: B = 4, S = 2,048, 5 KV heads x 3, hd = 64,
    causal; the prefill's too) and around it (non-causal, hd 128, hd
    32; phi3.5-moe's and pixtral-12b's training shape, B = 1, 8 KV heads
-   x 4, hd 128, and pixtral's prefill, B = 4): bf16
-   on the
+   x 4, hd 128, and pixtral's prefill, B = 4), each in bf16 and in f32:
+   bf16 on the
    ``wgmma`` kernel (max abs err 1e-2, or up to 2e-2 where it is within
    1.5x ``scaled_dot_product_attention``'s error against the same plain
-   version: both round P to bf16; lse 2e-5), and f32 on the CUDA-core
-   kernel (2e-5); its backward against the plain backward (evaluated in
-   f32): bf16 on the ``wgmma`` kernel of ``flash_attn_bwd_sm90.cu``
-   (each gradient within 1.5x the error of SDPA's backward against it;
-   two calls bitwise equal), f32 on the CUDA-core kernel (1e-4), its
-   route printed, timed beside the plain backward, SDPA's backward and,
-   with ``--was DIR``, DIR's kernel on the same inputs; and the
-   gradients of its autograd Function against autograd of its plain
-   version (1e-4); SDPA timed as the library yardstick, the bound at 989
-   TFLOP/s bf16 (67 f32) and each kernel's TFLOP/s.  The linear
+   version: both round P to bf16; lse 2e-5), and f32 on the split-TF32
+   ``wgmma`` kernel of ``flash_attn_tf32.cu`` (out and lse 2e-5); its
+   backward against the plain backward (evaluated in f32) at the first
+   four of those shapes in both dtypes: bf16 on the ``wgmma`` kernel of
+   ``flash_attn_bwd_sm90.cu`` (each gradient within 1.5x the error of
+   SDPA's backward against it), f32 on ``flash_attn_bwd_tf32.cu``
+   (1e-4), two calls bitwise equal, its route printed, timed beside the
+   plain backward, SDPA's backward and, for f32 with ``--was DIR``,
+   DIR's CUDA-core kernels on the same inputs (forward and backward,
+   timed between two runs of the new kernel); and the gradients of its
+   autograd Function against autograd of its plain version (1e-4); SDPA
+   timed as the library yardstick, in the inputs' dtype, the bound at
+   989 TFLOP/s bf16 (495 / 3 and 67 f32) and each kernel's TFLOP/s.  The linear
    recurrence's kernels (``linear_scan`` and ``linear_scan_bwd``) at
    falcon-mamba-7b's state (B 1, S 2,048, C 8,192 x 16), recurrentgemma-
    2b's (C 2,560) and a ragged shape, against their plain version within
@@ -92,7 +98,9 @@ Phases, each printing its own lines:
    3 steps of ``run_lm`` at smollm-360m's smoke config with S = 2,048
    (the flash route) on the card against the CPU, losses within 1e-4,
    and again in bf16 (the card's wgmma forward and backward against the
-   CPU's plain versions), losses within 5e-2; ``run_dlrm``
+   CPU's plain versions), losses within 5e-2; every f32 B8 launch of the
+   phase, forward and backward, on the ``tf32x3`` route (each run's
+   counts printed, and the phase's total); ``run_dlrm``
    pipelined at wdl-tiny (depth 2; depth 2 with stale decisions; depth 3
    with decide-ahead 2, lookahead 2 and 16 rows a step prefetched into
    64 slots), the card's chain on a stream of its own, against the CPU:
@@ -143,7 +151,10 @@ Phases, each printing its own lines:
    layers, d = 960, vocab 49,152, bf16), B = 4, S = 2,048, 5 steps of
    Adam: ms per step (mean of steps 1-4, each ended by a synchronise),
    tokens/s, losses, peak memory, and 32 launches a step of the flash
-   kernel and 32 of its backward kernel;
+   kernel and 32 of its backward kernel; then in f32 at full width with
+   ``LM_F32_LAYERS`` layers, 3 steps: ms a step, tokens/s, losses, peak
+   memory, B8 and its backward once a layer and step on the ``tf32x3``
+   route;
 10. train-pipeline — ``run_dlrm`` at phase 6's configuration with
    ``--pipeline-depth 2``, exact and with ``--codec int8``: every record
    (loss, counts, cost, Alg.-1 estimate) bit for bit phase 6's, the
@@ -159,8 +170,9 @@ Phases, each printing its own lines:
    ``examples/serve_llm_decode_torch.py``'s ``run`` at B = 4, the
    prefill batch's first 256 tokens teacher-forced and 256 greedy tokens
    into 512 slots (ms a step p50 and p99, tok/s); then in f32 the same
-   prefill and prompt, the decode logits at positions 0..255 within 1e-3
-   of the prefill's;
+   prefill, 3 times (ms; B8 once a layer each, all on the ``tf32x3``
+   route, and its share at phase 3's LM-shape time), and the prompt,
+   the decode logits at positions 0..255 within 1e-3 of the prefill's;
 12. lm-moe — phi3.5-moe at full width (d 4,096, 16 experts top-2, bf16),
    its depth cut to 2 layers: 3 ``run_lm`` steps at B = 1, S = 2,048
    (ms a step, peak memory, finite losses, one B8 and one backward
@@ -254,7 +266,11 @@ Phases, each printing its own lines:
 Each run of phases 5 to 20 sets every kernel's launch counter to 0 just
 before and reads the counters just after; every bf16 LM run (phases 9,
 12, 14, 18, 19, 20) also checks that each of its backward launches took
-the ``wgmma`` route (``flash_attn.BWD_ROUTE_LAUNCHES``).  B1's per-shard and dense
+the ``wgmma`` route (``flash_attn.BWD_ROUTE_LAUNCHES``), and every f32
+one (phases 4, 9 and 11) that its forward and backward launches took the
+``tf32x3`` route (``ROUTE_LAUNCHES``, ``BWD_ROUTE_LAUNCHES``); the
+kernel line counts B8's f32 kernels apart (``flash_attention_f32``,
+``flash_attention_bwd_f32``).  B1's per-shard and dense
 inputs get a line each (time, plain and ``embedding_bag`` times, bound,
 launches).  Then one JSON line of kernel
 records, after the script's wall time, and as the last line ``{"ok":
@@ -284,6 +300,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
+# f32-accurate work on the tensor cores: three TF32 products of the split
+# operands for each f32 one (B8's tf32x3 route), counted in f32 work
+TF32X3_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
 BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"pooled_lookup": CSRC + "emb_lookup.cu",
@@ -298,6 +318,8 @@ SOURCES = {"pooled_lookup": CSRC + "emb_lookup.cu",
            "auction_solve": CSRC + "auction.cu",
            "flash_attention": CSRC + "flash_attn_sm90.cu",
            "flash_attention_bwd": CSRC + "flash_attn_bwd_sm90.cu",
+           "flash_attention_f32": CSRC + "flash_attn_tf32.cu",
+           "flash_attention_bwd_f32": CSRC + "flash_attn_bwd_tf32.cu",
            "linear_scan": CSRC + "linear_scan.cu",
            "linear_scan_bwd": CSRC + "linear_scan.cu"}
 REPLACES = {"pooled_lookup": "src/repro/kernels/emb_lookup.py:88",
@@ -325,6 +347,11 @@ REPLACES = {"pooled_lookup": "src/repro/kernels/emb_lookup.py:88",
             "flash_attention_bwd": "the gradient of src/repro/kernels/"
                                    "flash_attn.py:66 (JAX differentiates "
                                    "src/repro/models/layers.py:141)",
+            "flash_attention_f32": "src/repro/kernels/flash_attn.py:66",
+            "flash_attention_bwd_f32": "the gradient of src/repro/kernels/"
+                                       "flash_attn.py:66 (JAX "
+                                       "differentiates src/repro/models/"
+                                       "layers.py:141)",
             "linear_scan": "src/repro/models/ssm.py:57 chunked_linear_scan "
                            "(jnp, no Pallas kernel)",
             "linear_scan_bwd": "its gradient (JAX differentiates "
@@ -425,17 +452,18 @@ def phase_build(was: Path | None = None):
 
     from repro_torch.kernels import _build
 
-    names = ("emb_lookup", "exchange_pack", "auction", "flash_attn",
-             "flash_attn_sm90", "flash_attn_bwd", "flash_attn_bwd_sm90",
+    names = ("emb_lookup", "exchange_pack", "auction", "flash_attn_sm90",
+             "flash_attn_tf32", "flash_attn_bwd_sm90", "flash_attn_bwd_tf32",
              "linear_scan")
     t = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:
-        was_lib = (pool.submit(lambda: _was_build(was).load_library(
-            "flash_attn_bwd")) if was is not None else None)
+        # the parent's f32 kernels: the CUDA-core forward and backward
+        was_libs = (pool.submit(lambda: _was_build(was).load_libraries(
+            "flash_attn", "flash_attn_bwd")) if was is not None else None)
         _build.load_libraries(*names)
-        was_lib = was_lib.result() if was_lib is not None else None
+        was_libs = was_libs.result() if was_libs is not None else None
     dt = time.perf_counter() - t
-    extra = f" and {was}'s flash_attn_bwd" if was else ""
+    extra = f" and {was}'s flash_attn, flash_attn_bwd" if was else ""
     print(f"[build] {', '.join(names)}{extra} in {dt:.2f} s (in parallel)")
     for name in names:
         # ptxas reports, per kernel: the entry, then its stack and
@@ -443,8 +471,13 @@ def phase_build(was: Path | None = None):
         kernel, facts = "?", []
         for ln in _build.build_log(name).splitlines():
             if "Compiling entry function" in ln:
-                named = re.search(r"([a-z_]+_kernel)I", ln)
-                kernel = named[1] if named else next(
+                # the mangled name's length-prefixed identifier that ends
+                # in _kernel (inside an anonymous namespace's hash too)
+                named = next((m[2][:int(m[1])] for m in re.finditer(
+                    r"(?=(\d+)([A-Za-z_]\w*))", ln)
+                    if m[2][:int(m[1])].endswith("_kernel")
+                    and len(m[2]) >= int(m[1])), None)
+                kernel = named if named else next(
                     (k for k in SOURCES if f"{k}_kernel" in ln),
                     ln.split("'")[1] if "'" in ln else ln)
                 # a template instance: element type (the _sm90
@@ -462,7 +495,9 @@ def phase_build(was: Path | None = None):
                     facts = []
     objdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for name, ops in (("flash_attn_sm90", ("HGMMA",)),
-                      ("flash_attn_bwd_sm90", ("HGMMA",))):
+                      ("flash_attn_bwd_sm90", ("HGMMA",)),
+                      ("flash_attn_tf32", ("HGMMA",)),
+                      ("flash_attn_bwd_tf32", ("HGMMA",))):
         sass = subprocess.run([objdump, "-sass",
                                str(_build.library_path(name))],
                               capture_output=True, text=True, check=True,
@@ -471,7 +506,7 @@ def phase_build(was: Path | None = None):
         print(f"[build] {name} SASS: {counts}")
         check(sum(counts.values()) > 0, f"{name} runs on the tensor cores "
                                         f"({' or '.join(ops)} in its SASS)")
-    return was_lib
+    return was_libs
 
 
 def _launch_counters():
@@ -495,7 +530,7 @@ def _read_launches() -> dict:
 
 
 def _bwd_routes() -> dict:
-    """B8's backward launches by route (``wgmma``: bf16, ``cuda_cores``:
+    """B8's backward launches by route (``wgmma``: bf16, ``tf32x3``:
     f32), counted like the launches."""
     from repro_torch.kernels import flash_attn
 
@@ -506,9 +541,31 @@ def _check_bwd_wgmma(n: int, what: str, routes: dict | None = None):
     """A bf16 run's n backward launches of B8 all took the wgmma
     route."""
     routes = _bwd_routes() if routes is None else routes
-    check(routes == {"wgmma": n, "cuda_cores": 0},
+    check(routes == {"wgmma": n, "tf32x3": 0},
           f"{what}: B8's {n} backward launches on the wgmma route "
           f"({routes})")
+
+
+def _routes() -> tuple[dict, dict]:
+    """B8's forward and backward launches by route, as counted so far."""
+    from repro_torch.kernels import flash_attn
+
+    return (dict(flash_attn.ROUTE_LAUNCHES),
+            dict(flash_attn.BWD_ROUTE_LAUNCHES))
+
+
+def _check_routes(before: tuple[dict, dict], route: str,
+                  what: str) -> tuple[int, int]:
+    """Every B8 launch since ``before`` (``_routes()``), forward and
+    backward, took ``route`` (``wgmma`` for bf16, ``tf32x3`` for f32):
+    returns (forward, backward) launches."""
+    (f0, b0), (f1, b1) = before, _routes()
+    fwd = {k: f1[k] - f0[k] for k in f1}
+    bwd = {k: b1[k] - b0[k] for k in b1}
+    check(all(fwd[k] == bwd[k] == 0 for k in fwd if k != route),
+          f"{what}: every B8 launch on the {route} route (forward {fwd}, "
+          f"backward {bwd})")
+    return fwd[route], bwd[route]
 
 
 # B1's inputs on this slice's paths beside the decide's compact table:
@@ -1752,12 +1809,28 @@ def phase_simulate(seed: int) -> dict:
     return launches
 
 
+def _was_forward(lib, q, k, v, causal):
+    """(out, lse) from the f32 forward kernel of another checkout's
+    ``flash_attn`` library (``--was DIR``: the CUDA-core kernel that the
+    split-TF32 route replaced), called as that checkout's wrapper calls
+    it."""
+    B, Sq, KV, G, hd = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B, KV, G, Sq), dtype=torch.float32, device=q.device)
+    rc = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), B, Sq, k.shape[1], KV, G, hd, int(causal),
+        *q.stride(), *k.stride(), *v.stride(),
+        torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"the --was forward kernel launched (cudaError {rc})")
+    return out, lse
+
+
 def _was_backward(lib, q, k, v, out, lse, dout, causal):
-    """(dq, dk, dv) from the backward kernel of another checkout's
-    ``flash_attn_bwd`` library (``--was DIR``), called as that
-    checkout's wrapper calls it (the launcher of PR 16 to 27: one
-    library for bf16 and f32, a dtype flag, D's scratch), on inputs its
-    wrapper would pass as they are."""
+    """(dq, dk, dv) from the f32 backward kernel of another checkout's
+    ``flash_attn_bwd`` library (``--was DIR``: the CUDA-core kernel that
+    the split-TF32 route replaced, D's scratch beside it), called as that
+    checkout's wrapper calls it on contiguous inputs."""
     B, Sq, KV, G, hd = q.shape
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty_like(lse)
@@ -1765,17 +1838,28 @@ def _was_backward(lib, q, k, v, out, lse, dout, causal):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, Sq, k.shape[1], KV, G, hd,
-        int(q.dtype == torch.bfloat16), int(causal), *q.stride()[:4],
-        *k.stride()[:3], *v.stride()[:3], *dout.stride()[:4],
-        torch.cuda.current_stream().cuda_stream)
+        int(causal), *q.stride()[:4], *k.stride()[:3], *v.stride()[:3],
+        *dout.stride()[:4], torch.cuda.current_stream().cuda_stream)
     check(rc == 0, f"the --was backward kernel launched (cudaError {rc})")
     return dq, dk, dv
 
 
-def phase_flash_kernels(seed: int, was_lib=None) -> dict:
+# B8's shapes in phase 3, each timed in bf16 and in f32: the LM path's
+# (smollm-360m, also phase 11's prefill), non-causal, hd 128 at B 2,
+# phi3.5-moe's and pixtral-12b's training shape, pixtral's prefill, hd 32
+FLASH_SHAPES = [(4, 2048, 5, 3, 64, True), (2, 1024, 5, 3, 64, False),
+                (2, 2048, 2, 4, 128, True), (1, 2048, 8, 4, 128, True),
+                (4, 2048, 8, 4, 128, True), (2, 2048, 4, 2, 32, True)]
+FLASH_BWD_SHAPES = FLASH_SHAPES[:4]
+# B8's time at the LM shape by dtype, for phase 11's share of the prefill
+FLASH_LM_MS: dict = {}
+
+
+def phase_flash_kernels(seed: int, was_libs=None) -> dict:
     """B8, the flash attention, and its backward kernel, at the LM path's
-    shape and around it; with ``was_lib`` (``--was DIR``'s backward
-    library) that kernel's times beside the backward's."""
+    shape and around it, in bf16 and in f32; with ``was_libs`` (``--was
+    DIR``'s ``flash_attn`` and ``flash_attn_bwd``) the f32 kernels these
+    replace, timed beside them on the same inputs."""
     from repro_torch.kernels import flash_attn as FA
 
     dev = torch.device("cuda")
@@ -1803,14 +1887,21 @@ def phase_flash_kernels(seed: int, was_lib=None) -> dict:
     def pairs(B, S, KV, G, causal):
         return B * KV * G * (S * (S + 1) // 2 if causal else S * S)
 
-    for B, S, KV, G, hd, causal, dtype in (
-            (4, 2048, 5, 3, 64, True, torch.bfloat16),
-            (4, 2048, 5, 3, 64, True, torch.float32),
-            (2, 1024, 5, 3, 64, False, torch.bfloat16),
-            (2, 2048, 2, 4, 128, True, torch.bfloat16),
-            (1, 2048, 8, 4, 128, True, torch.bfloat16),
-            (4, 2048, 8, 4, 128, True, torch.bfloat16),
-            (2, 2048, 4, 2, 32, True, torch.bfloat16)):
+    def bounds(n_bytes, n_ops, bf16):
+        """(bound ms, bound_by, its text): bf16 at 989 TFLOP/s; f32 at
+        495 TFLOP/s of TF32 over three products (the card's least time
+        for f32-accurate products), beside 67 TFLOP/s on the CUDA cores"""
+        if bf16:
+            b_ms, b_by = bound(n_bytes, n_ops, BF16_FLOPS_PER_S)
+            return b_ms, b_by, f"bound {b_ms:.6f} ms ({b_by})"
+        b_ms, b_by = bound(n_bytes, n_ops, TF32X3_FLOPS_PER_S)
+        c_ms, c_by = bound(n_bytes, n_ops, F32_FLOPS_PER_S)
+        return b_ms, b_by, (f"bound {b_ms:.6f} ms ({b_by}, 3xTF32 at "
+                            f"{TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s; "
+                            f"{c_ms:.6f} ms on the CUDA cores, {c_by})")
+
+    for (B, S, KV, G, hd, causal), dtype in itertools.product(
+            FLASH_SHAPES, (torch.bfloat16, torch.float32)):
         q, k, v = qkv(B, S, KV, G, hd, dtype)
         out, lse = FA.flash_attention(q, k, v, causal)
         ref, ref_lse = FA.flash_attention_ref(q, k, v, causal)
@@ -1832,6 +1923,16 @@ def phase_flash_kernels(seed: int, was_lib=None) -> dict:
               f"flash_attention {what}: out within {tol} (max err {e}), "
               f"lse within 2e-5 (max err {lse_err}) of plain")
         ms, call_ms = device_ms(lambda: FA.flash_attention(q, k, v, causal))
+        was = ""
+        if was_libs is not None and not bf16:
+            w_out, w_lse = _was_forward(was_libs[0], q, k, v, causal)
+            was_ms, was_call = device_ms(lambda: _was_forward(
+                was_libs[0], q, k, v, causal))
+            # the new kernel again after the old one, in turns
+            ms2, _ = device_ms(lambda: FA.flash_attention(q, k, v, causal))
+            was = (f", then {ms2:.4f} ms; was {was_ms:.4f} ms (call "
+                   f"{was_call:.4f}; max err {err(w_out, ref):.3g}, lse "
+                   f"{err(w_lse, ref_lse):.3g})")
         plain_ms, _ = device_ms(
             lambda: FA.flash_attention_ref(q, k, v, causal), reps=10)
         qs = q.reshape(B, S, KV * G, hd).transpose(1, 2).contiguous()
@@ -1844,27 +1945,23 @@ def phase_flash_kernels(seed: int, was_lib=None) -> dict:
         n_ops = 4 * hd * pairs(B, S, KV, G, causal)
         n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
             + lse.numel() * 4
-        b_ms, b_by = bound(n_bytes, n_ops,
-                           BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S)
+        b_ms, b_by, b_text = bounds(n_bytes, n_ops, bf16)
         route = FA.kernel_route((dtype,) * 3, hd)
         print(f"[kernel] flash_attention {what} ({route}): max err {e:.3g} "
               f"(lse {lse_err:.3g}; tolerance {tol}), {ms:.4f} ms (call "
-              f"{call_ms:.4f}), {n_ops / ms / 1e9:.2f} TFLOP/s, "
+              f"{call_ms:.4f}), {n_ops / ms / 1e9:.2f} TFLOP/s{was}, "
               f"plain {plain_ms:.4f} ms, scaled_dot_product_attention "
-              f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
-        if (S, hd, causal, dtype) == (2048, 64, True, torch.bfloat16):
-            rec["flash_attention"] = dict(
+              f"{lib_ms:.4f} ms, {b_text}")
+        if (B, S, hd, causal) == (4, 2048, 64, True):
+            FLASH_LM_MS[dtype] = ms
+            rec["flash_attention" if bf16 else "flash_attention_f32"] = dict(
                 max_abs_err=e, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=b_ms, bound_by=b_by)
         del q, k, v, qs, ks, vs, out, ref
 
     # the backward kernel against the plain backward, and SDPA's backward
-    for B, S, KV, G, hd, causal, dtype in (
-            (4, 2048, 5, 3, 64, True, torch.bfloat16),
-            (4, 2048, 5, 3, 64, True, torch.float32),
-            (2, 1024, 5, 3, 64, False, torch.bfloat16),
-            (2, 2048, 2, 4, 128, True, torch.bfloat16),
-            (1, 2048, 8, 4, 128, True, torch.bfloat16)):
+    for (B, S, KV, G, hd, causal), dtype in itertools.product(
+            FLASH_BWD_SHAPES, (torch.bfloat16, torch.float32)):
         q, k, v = qkv(B, S, KV, G, hd, dtype)
         out, lse = FA.flash_attention(q, k, v, causal)
         dout = torch.randn(out.shape, generator=g, device=dev).to(dtype)
@@ -1900,11 +1997,11 @@ def phase_flash_kernels(seed: int, was_lib=None) -> dict:
         ms, call_ms = device_ms(lambda: FA.flash_attention_backward(
             q, k, v, out, lse, dout, causal))
         was = ""
-        if was_lib is not None:
+        if was_libs is not None and not bf16:
             was_errs = [err(a, b) for a, b in zip(_was_backward(
-                was_lib, q, k, v, out, lse, dout, causal), want)]
+                was_libs[1], q, k, v, out, lse, dout, causal), want)]
             was_ms, was_call = device_ms(lambda: _was_backward(
-                was_lib, q, k, v, out, lse, dout, causal))
+                was_libs[1], q, k, v, out, lse, dout, causal))
             # the new kernel again after the old one, in turns
             ms2, _ = device_ms(lambda: FA.flash_attention_backward(
                 q, k, v, out, lse, dout, causal))
@@ -1927,24 +2024,23 @@ def phase_flash_kernels(seed: int, was_lib=None) -> dict:
         n_ops = 10 * hd * pairs(B, S, KV, G, causal)
         n_bytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
             + lse.numel() * 4
-        b_ms, b_by = bound(n_bytes, n_ops,
-                           BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S)
+        b_ms, b_by, b_text = bounds(n_bytes, n_ops, bf16)
         print(f"[kernel] flash_attention_bwd {what} ({route}): max err dq, "
               f"dk, dv {[float(f'{x:.3g}') for x in errs]} (SDPA's backward "
               f"{[float(f'{x:.3g}') for x in sdpa_errs]}; mean error "
               f"over SDPA's {[round(x, 3) for x in mean_ratio]}; two calls "
               f"bitwise equal), {ms:.4f} ms (call {call_ms:.4f}), "
               f"{n_ops / ms / 1e9:.2f} TFLOP/s{was}, plain {plain_ms:.4f} "
-              f"ms, SDPA's backward {lib_ms:.4f} ms, bound {b_ms:.6f} ms "
-              f"({b_by})")
-        if (S, hd, causal, dtype) == (2048, 64, True, torch.bfloat16):
-            rec["flash_attention_bwd"] = dict(
+              f"ms, SDPA's backward {lib_ms:.4f} ms, {b_text}")
+        if (B, S, hd, causal) == (4, 2048, 64, True):
+            rec["flash_attention_bwd" if bf16
+                else "flash_attention_bwd_f32"] = dict(
                 max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
         del q, k, v, out, dout, got, again, want, leaves, so, sg, hs, hout
 
-    # gradients through the autograd Function (f32: the forward's and the
-    # backward's CUDA-core kernels) against autograd of the plain version
+    # gradients through the autograd Function (f32: the tf32x3 forward and
+    # backward kernels) against autograd of the plain version
     worst = 0.0
     for causal in (True, False):
         leaves = [t.float() for t in qkv(2, 640, 5, 3, 64, torch.float32)]
@@ -1991,12 +2087,11 @@ def phase_lm_parity(seed: int):
         gpu = copy.deepcopy(cpu).to("cuda")
         runs = {}
         for dev, model in (("cpu", cpu), ("cuda", gpu)):
-            n0, r0 = dict(FA.LAUNCHES), _bwd_routes()
+            n0, r0 = dict(FA.LAUNCHES), _routes()
             out = run_lm(build_parser().parse_args(argv + ["--device", dev]),
                          model=model, cfg=cfg)
             runs[dev] = [r["loss"] for r in out["metrics"]]
             ran = {k: FA.LAUNCHES[k] - n0[k] for k in n0}
-            routes = {k: v - r0[k] for k, v in _bwd_routes().items()}
         err = max(abs(a - b) for a, b in zip(runs["cpu"], runs["cuda"]))
         check(all(np.isfinite(runs["cuda"])) and err <= tol,
               f"LM losses ({cfg.dtype}) on card vs CPU within {tol} (max "
@@ -2004,14 +2099,14 @@ def phase_lm_parity(seed: int):
         check(ran == {k: cfg.n_layers * 3 for k in ran},
               f"the card's {cfg.dtype} LM steps ran B8's forward and "
               f"backward kernels once per layer and step ({ran})")
-        route = "wgmma" if cfg.dtype == "bfloat16" else "cuda_cores"
-        check(routes == {"wgmma": 0, "cuda_cores": 0, route: ran[
-            "flash_attention_bwd"]}, f"the card's {cfg.dtype} LM steps: "
-            f"B8's backward on the {route} route ({routes})")
+        route = "wgmma" if cfg.dtype == "bfloat16" else "tf32x3"
+        on_route = _check_routes(r0, route, f"the card's {cfg.dtype} LM "
+                                            f"steps")
         print(f"[parity] 3 LM steps, smollm-360m smoke (2 layers, d 256, 4 "
               f"heads over 2, {cfg.dtype}), B 1, S 2048, card vs CPU: "
               f"losses {runs['cuda']} vs {runs['cpu']}, max abs err "
-              f"{err:.3g} (tolerance {tol}); card kernel launches {ran}")
+              f"{err:.3g} (tolerance {tol}); card kernel launches {ran}, "
+              f"forward and backward on the {route} route: {on_route}")
 
 
 def phase_lm_decode_parity(seed: int):
@@ -2063,7 +2158,7 @@ def phase_lm_decode_parity(seed: int):
         ctx.MOE_BLOCKS = nb
         try:
             for dev, model in (("cpu", cpu), ("cuda", gpu)):
-                n0 = dict(FA.LAUNCHES)
+                n0, r0 = dict(FA.LAUNCHES), _routes()
                 out = run_lm(build_parser().parse_args(
                     argv + ["--device", dev]), model=model)
                 runs[dev] = [r["loss"] for r in out["metrics"]]
@@ -2077,10 +2172,13 @@ def phase_lm_decode_parity(seed: int):
         check(ran == {k: cfg.n_layers * 3 for k in ran},
               f"the card's phi3.5-moe smoke steps ran B8's forward and "
               f"backward once per layer and step ({ran})")
+        on_route = _check_routes(r0, "tf32x3", "the card's phi3.5-moe "
+                                               "smoke steps")
         print(f"[parity] 3 LM steps, {cfg.name} (2 layers, d 256, 4 experts "
               f"top-2, f32), B 1, S 2048, MOE_BLOCKS {nb}, card vs CPU: "
               f"losses {runs['cuda']} vs {runs['cpu']}, max abs err "
-              f"{err:.3g} (tolerance 1e-4); card kernel launches {ran}")
+              f"{err:.3g} (tolerance 1e-4); card kernel launches {ran}, "
+              f"forward and backward on the tf32x3 route: {on_route}")
 
 
 def phase_lm_train(seed: int) -> dict:
@@ -2110,7 +2208,37 @@ def phase_lm_train(seed: int) -> dict:
     check(launches.get("flash_attention_bwd") == cfg.n_layers * len(recs),
           "the flash backward kernel launched once per layer and step")
     _check_bwd_wgmma(cfg.n_layers * len(recs), "LM training")
+
+    # f32 (B8's tf32x3 route): full width, depth cut to LM_F32_LAYERS
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=LM_F32_LAYERS)
+    args32 = build_parser().parse_args(
+        LM_ARGV[:-4] + ["--steps", "3", "--device", "cuda", "--seed",
+                        str(seed)])
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    before = _routes()
+    out = run_lm(args32, cfg=cfg32)
+    fwd, bwd = _check_routes(before, "tf32x3", "f32 LM training")
+    recs = out["metrics"]
+    losses = [r["loss"] for r in recs]
+    n = cfg32.n_layers * len(recs)
+    check(all(np.isfinite(losses)) and fwd == bwd == n,
+          f"f32 LM training: finite losses, B8 and its backward once a "
+          f"layer and step on the tf32x3 route ({fwd}, {bwd})")
+    print(f"[lm-train] {cfg.name} in f32 at full width, {cfg32.n_layers} of "
+          f"{cfg.n_layers} layers, B {out['batch']}, S {out['seq_len']}, "
+          f"{len(recs)} steps: {out['step_ms_mean']:.3f} ms per step (mean "
+          f"of steps 1..), {out['tokens_per_s']:.1f} tokens/s; losses "
+          f"{losses}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; B8 on the "
+          f"tf32x3 route: {fwd} forward, {bwd} backward launches")
+    launches["flash_attention_f32"] = fwd
+    launches["flash_attention_bwd_f32"] = bwd
     return launches
+
+
+# phase 9's f32 run: smollm-360m at full width, 8 of its 32 layers
+LM_F32_LAYERS = 8
 
 
 # the LM serving path: smollm-360m at full width and depth
@@ -2194,8 +2322,12 @@ def phase_lm_serve(seed: int) -> dict:
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     model = api.init_model(cfg32, generator=torch.Generator(
         device=dev).manual_seed(seed), device=dev)
-    want = make_prefill_step(cfg32)(model, {"tokens": toks})[
-        :, :SERVE_PROMPT].clone()
+    prefill32 = make_prefill_step(cfg32)
+    before = _routes()
+    ms32, logits = _timed_calls(lambda: prefill32(model, {"tokens": toks}),
+                                3)
+    want = logits[:, :SERVE_PROMPT].clone()
+    del logits
     got = torch.empty_like(want)
 
     def keep(pos, logits):
@@ -2210,10 +2342,22 @@ def phase_lm_serve(seed: int) -> dict:
     check(err <= SERVE_F32_TOL, f"f32 decode logits at positions 0..255 "
                                 f"within {SERVE_F32_TOL} of the prefill's "
                                 f"(max err {err})")
-    print(f"[lm-serve] f32: decode logits at positions 0..{SERVE_PROMPT - 1} "
+    fwd, bwd = _check_routes(before, "tf32x3", "the f32 prefills and decode")
+    check(fwd == 3 * cfg.n_layers and bwd == 0,
+          f"3 f32 prefills launched B8 once a layer each, decode none "
+          f"({fwd}, {bwd})")
+    lm_ms = FLASH_LM_MS.get(torch.float32)
+    share = (f"{cfg.n_layers} x {lm_ms:.4f} = {cfg.n_layers * lm_ms:.3f} ms "
+             f"of B8 a prefill at phase 3's time" if lm_ms else
+             "phase 3 not run")
+    print(f"[lm-serve] f32: prefill B {SERVE_B} x S {SERVE_S} "
+          f"{ms32[0]:.3f} ms first, {statistics.median(ms32[1:]):.3f} ms "
+          f"(median of 2 after), B8 on the tf32x3 route {fwd} launches "
+          f"({share}); decode logits at positions 0..{SERVE_PROMPT - 1} "
           f"against the prefill's [:, :{SERVE_PROMPT}]: max abs err "
           f"{err:.3g} (tolerance {SERVE_F32_TOL}; |logits| up to "
           f"{float(want.abs().max()):.3g})")
+    launches["flash_attention_f32"] = fwd
     return launches
 
 
@@ -3216,7 +3360,7 @@ def phase_vlm_audio_parity(seed: int):
         runs, ran = {}, {}
         for dev, model in (("cpu", cpu), ("cuda", gpu)):
             batch = _train_batch(cfg, np.random.default_rng(seed), B, S, dev)
-            n0 = _read_launches()
+            n0, r0 = _read_launches(), _routes()
             with torch.no_grad():
                 first = float(api.train_loss(model, cfg, batch))
             step = make_train_step(cfg, model, get_optimizer("adam", 1e-2),
@@ -3234,6 +3378,7 @@ def phase_vlm_audio_parity(seed: int):
         check(ran == want, f"{arch} smoke: B8 once a layer a forward and "
                            f"its backward once a layer a step on the VLM, "
                            f"no kernel on the audio model ({ran})")
+        on_route = _check_routes(r0, "tf32x3", f"{arch} smoke steps")
         gpu = copy.deepcopy(cpu).to("cuda")
         toks = torch.as_tensor(np.random.default_rng(seed).integers(
             0, cfg.vocab, (4, 8)))
@@ -3253,8 +3398,9 @@ def phase_vlm_audio_parity(seed: int):
         print(f"[parity] {cfg.name} (f32, {cfg.n_layers} layers), B {B}, "
               f"{what}: loss and 3 steps, card vs CPU: {runs['cuda']} vs "
               f"{runs['cpu']}, max abs err {err:.3g} (tolerance 1e-4); card "
-              f"kernel launches {ran}; 8 decode steps after, B 4: logits "
-              f"max abs err {derr:.3g} (tolerance 1e-5)")
+              f"kernel launches {ran} (B8 forward and backward on the "
+              f"tf32x3 route: {on_route}); 8 decode steps after, B 4: "
+              f"logits max abs err {derr:.3g} (tolerance 1e-5)")
 
 
 # phase 18: pixtral-12b at full width, its 40 layers cut to
@@ -3935,25 +4081,26 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--was", type=Path, default=None,
                     help="a checkout of the parent commit (git archive): "
-                         "phase 3 times its B8 backward kernel beside "
-                         "this one's")
+                         "phase 3 times its f32 B8 kernels (forward and "
+                         "backward) beside this one's")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = phase_device()
     sys.path.insert(0, str(ROOT / "src"))
-    was_lib = phase_build(args.was)
+    was_libs = phase_build(args.was)
     rec = phase_kernels(args.seed)
     rec.update(phase_train_kernels(args.seed))
     rec.update(phase_quant_kernels(args.seed))
     rec.update(phase_auction_kernels(args.seed))
-    rec.update(phase_flash_kernels(args.seed, was_lib))
+    rec.update(phase_flash_kernels(args.seed, was_libs))
     rec.update(phase_scan_kernels(args.seed))
     phase_parity(args.seed)
     phase_train_parity(args.seed)
     phase_train_parity(args.seed, codec="int8")
     phase_sim_parity(args.seed)
+    before = _routes()
     phase_lm_parity(args.seed)
     phase_lm_decode_parity(args.seed)
     phase_train_pipeline_parity(args.seed)
@@ -3961,6 +4108,10 @@ def main(argv=None) -> int:
     phase_elastic_parity(args.seed)
     phase_ssm_parity(args.seed)
     phase_vlm_audio_parity(args.seed)
+    (f0, b0), (f1, b1) = before, _routes()
+    print(f"[parity] B8's f32 launches in phase 4, all on the tf32x3 route: "
+          f"{f1['tf32x3'] - f0['tf32x3']} forward, "
+          f"{b1['tf32x3'] - b0['tf32x3']} backward")
     # launches on the main paths: each run counted from zero, then summed
     launches: dict = {}
     for run in (lambda: phase_serve(args.seed),

@@ -6,7 +6,9 @@ the checkout, named by a hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited kernel is rebuilt and an
 unchanged one is loaded as it is.  The library
 has a plain C interface: its launchers take device pointers, ints and a
-stream, and return ``cudaGetLastError()``.  A failed build raises.
+stream, and return ``cudaGetLastError()`` (a ``*_scratch`` function
+returns how many floats of scratch its launcher needs).  A failed build
+raises.
 """
 from __future__ import annotations
 
@@ -56,26 +58,33 @@ SIGNATURES = {
         "auction_bids_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
         "auction_solve_launch": [_P] * 6 + [_I] * 7 + [_L, _P],
     },
-    "flash_attn": {
-        "flash_attention_launch": [_P] * 5 + [_I] * 7 + [_L] * 13 + [_P],
-    },
     "flash_attn_sm90": {
         "flash_attention_sm90_launch": [_P] * 5 + [_I] * 7 + [_L] * 10
                                        + [_P],
     },
-    "flash_attn_bwd": {
-        "flash_attention_bwd_launch": [_P] * 10 + [_I] * 7 + [_L] * 14
-                                      + [_P],
+    "flash_attn_tf32": {
+        "flash_attention_tf32_launch": [_P] * 6 + [_I] * 7 + [_L] * 13
+                                       + [_P],
+        "flash_attention_tf32_scratch": [_I] * 6,
     },
     "flash_attn_bwd_sm90": {
         "flash_attention_bwd_sm90_launch": [_P] * 10 + [_I] * 7 + [_L] * 15
                                            + [_P],
+    },
+    "flash_attn_bwd_tf32": {
+        "flash_attention_bwd_tf32_launch": [_P] * 10 + [_I] * 7 + [_L] * 18
+                                           + [_P],
+        "flash_attention_bwd_tf32_scratch": [_I] * 6,
     },
     "linear_scan": {
         "linear_scan_launch": [_P] * 5 + [_I] * 4 + [_P],
         "linear_scan_bwd_launch": [_P] * 8 + [_I] * 4 + [_P],
     },
 }
+
+# launchers return a CUDA error code (int); these return a count
+RESTYPES = {"flash_attention_tf32_scratch": ctypes.c_longlong,
+            "flash_attention_bwd_tf32_scratch": ctypes.c_longlong}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _paths: dict[str, Path] = {}
@@ -133,7 +142,7 @@ def load_libraries(*names: str) -> list[ctypes.CDLL]:
         lib = ctypes.CDLL(str(out))
         for fn, argtypes in SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = RESTYPES.get(fn, ctypes.c_int)
         _loaded[name] = lib
         _paths[name] = out
     return [_loaded[name] for name in names]

@@ -5,8 +5,8 @@
 // of B8's forward (flash_attn_sm90.cu), which replaces the gradient of the
 // Pallas TPU kernel src/repro/kernels/flash_attn.py:66 flash_attention:
 // that kernel had no backward, JAX differentiates the jnp scan of
-// src/repro/models/layers.py:attention_flash.  f32 inputs keep the
-// CUDA-core kernel of flash_attn_bwd.cu.  From the saved q (B, Sq, KV, G,
+// src/repro/models/layers.py:attention_flash.  f32 inputs take
+// flash_attn_bwd_tf32.cu.  From the saved q (B, Sq, KV, G,
 // hd), k, v (B, Sk, KV, hd), out, lse (natural log, (B, KV, G, Sq)) and
 // the incoming dout it computes, with f32 accumulators and positions
 // 0 .. S-1 on both sides,
@@ -165,29 +165,6 @@ __device__ __forceinline__ void let_next_start() {
 }
 __device__ __forceinline__ void grid_dep_wait() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void release(uint64_t* bar) {
-  __syncwarp();
-  if (threadIdx.x % 32 == 0) mbar_arrive(bar);
-}
-
-// 2^x in one MUFU instruction (results below 2^-126, about 1e-38, flush
-// to 0: nothing that P or dS in bf16 could carry into a sum)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// a register A operand stays allocated until the product reading it has
-// finished: call this after the wait that retires that product
-template <int N>
-__device__ __forceinline__ void keep(const uint32_t (&f)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-    asm volatile("" :: "r"(f[i][0]), "r"(f[i][1]), "r"(f[i][2]),
-                 "r"(f[i][3]) : "memory");
 }
 
 // the rows of each 64-row tile that TMA never writes (P G < 64) stay zero

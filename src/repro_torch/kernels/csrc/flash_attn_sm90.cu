@@ -3,7 +3,7 @@
 //
 // flash_attention_sm90_launch replaces, for bf16 inputs, the Pallas TPU
 // kernel src/repro/kernels/flash_attn.py:flash_attention (_kernel); f32
-// inputs keep the CUDA-core kernel of flash_attn.cu.  It computes what that
+// inputs take flash_attn_tf32.cu.  It computes what that
 // kernel computes: for q (B, Sq, KV, G, hd) and k, v (B, Sk, KV, hd), every
 // query row (b, s, kv, g) is
 //     out = softmax_t(q . k_t / sqrt(hd)) v_t   over t <= s (causal) or all t

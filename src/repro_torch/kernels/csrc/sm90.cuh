@@ -2,7 +2,8 @@
 // wgmma shared-memory descriptors and products, mbarriers, TMA and bulk
 // loads, and the host side's tensor-map encoder.  Included by
 // flash_attn_sm90.cu (the forward) and flash_attn_bwd_sm90.cu (the
-// backward); each builds into a library of its own.
+// backward), and through sm90_tf32.cuh by the f32 route's two sources;
+// each builds into a library of its own.
 #pragma once
 
 #include <cuda.h>
@@ -62,6 +63,16 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
 }
 
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2, int c3) {
@@ -93,6 +104,30 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n"
       :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// a warp's arrival on an mbarrier, once all its lanes are past this point
+__device__ __forceinline__ void release(uint64_t* bar) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(bar);
+}
+
+// 2^x in one MUFU instruction (relative error near 2^-22; results below
+// 2^-126, about 1e-38, flush to 0: nothing a sum of P or dS could carry)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// a register A operand stays allocated until the product reading it has
+// finished: call this after the wait that retires that product
+template <int N>
+__device__ __forceinline__ void keep(const uint32_t (&f)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    asm volatile("" :: "r"(f[i][0]), "r"(f[i][1]), "r"(f[i][2]),
+                 "r"(f[i][3]) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {

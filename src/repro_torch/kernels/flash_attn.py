@@ -13,22 +13,28 @@ the backward reads.  Positions are 0 .. S-1 on both sides, as the LM's
 model's blockwise route).  Replaces the Pallas TPU kernel
 ``repro/kernels/flash_attn.py:flash_attention``.  The card has two
 kernels for it, chosen by dtype (:func:`kernel_route`), openly and
-never as a fallback: bf16 runs on the tensor cores
-(``csrc/flash_attn_sm90.cu``: ``wgmma`` fed by TMA, P rounded to bf16
-for the P V product), f32 on the CUDA cores
-(``csrc/flash_attn.cu``, read through any strides).  Each source states
-what bounds it and how its design answers it.
+never as a fallback, both on the tensor cores by ``wgmma`` fed by TMA:
+bf16 on route ``"wgmma"`` (``csrc/flash_attn_sm90.cu``, P rounded to
+bf16 for the P V product), f32 on route ``"tf32x3"``
+(``csrc/flash_attn_tf32.cu``: every f32 product as three TF32 products
+of its operands' split hi and lo parts, ``csrc/sm90_tf32.cuh``; q, k, v
+read through any strides).  Each source states what bounds it and how
+its design answers it.
 
 :func:`flash_attention_backward` — the gradients (dq, dk, dv) of
 ``out`` for ``dout``, from the saved q, k, v, out and lse.  The card has
-two kernels for it too, chosen by dtype (:func:`backward_route`): bf16
-on the tensor cores (``csrc/flash_attn_bwd_sm90.cu``: ``wgmma`` fed by
-TMA, a producer and two consumer warpgroups, D and the log-sum-exp
-first gathered in row-tile order, :func:`stat_tiling`), f32 on the CUDA
-cores (``csrc/flash_attn_bwd.cu``).  Both are deterministic: no atomics,
-every gradient summed in one fixed order, so two calls agree bit for
-bit.  Its plain version :func:`flash_attention_bwd` recomputes P in f32
-one key tile at a time.  The TPU kernel had no backward: JAX
+two kernels for it too, chosen by dtype (:func:`backward_route`), both
+``wgmma`` fed by TMA: bf16 (``csrc/flash_attn_bwd_sm90.cu``: a producer
+and two consumer warpgroups, D and the log-sum-exp first gathered in
+row-tile order, :func:`stat_tiling`), f32 as split TF32 products
+(``csrc/flash_attn_bwd_tf32.cu``: q, k, v and dout split, and
+transposed where a product needs it, by one pass into scratch, then a
+dK/dV and a dQ pass).  Both are deterministic: no atomics, every
+gradient summed in one fixed order, so two calls agree bit for bit.
+Its plain version :func:`flash_attention_bwd` recomputes P in f32 one
+key tile at a time.  The f32 route's arithmetic is emulated on the CPU
+in ``tests/test_torch_flash_tf32.py``; its kernels run only on the
+card.  The TPU kernel had no backward: JAX
 differentiates the jnp scan.
 
 The wrappers check device, dtype, shapes and strides and raise on
@@ -56,8 +62,8 @@ __all__ = ["LAUNCHES", "ROUTE_LAUNCHES", "BWD_ROUTE_LAUNCHES", "BLOCK",
            "flash_attention_backward", "flash_attention_bwd", "flash_attn"]
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
-ROUTE_LAUNCHES = {"wgmma": 0, "cuda_cores": 0}
-BWD_ROUTE_LAUNCHES = {"wgmma": 0, "cuda_cores": 0}
+ROUTE_LAUNCHES = {"wgmma": 0, "tf32x3": 0}
+BWD_ROUTE_LAUNCHES = {"wgmma": 0, "tf32x3": 0}
 NEG = -1e30
 BLOCK = 512          # key tile of the plain version and of the backward
 HEAD_DIMS = (32, 64, 128)
@@ -122,18 +128,17 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, m + torch.log(l)
 
 
-def tma_layout_fault(shape, strides, data_ptr: int,
-                     itemsize: int = 2) -> str | None:
-    """Why a tensor of this shape, element strides and address cannot be
-    read 16 bytes a row chunk (TMA boxes for k and v, vector loads for
-    q), or ``None`` when it can: the innermost stride must be 1, every
-    other dimension longer than 1 must step a positive multiple of 16
-    bytes, and the data must start 16-byte aligned."""
+def tma_layout_fault(shape, strides, data_ptr: int) -> str | None:
+    """Why a bf16 tensor of this shape, element strides and address
+    cannot be read 16 bytes a row chunk (TMA boxes for k and v, vector
+    loads for q), or ``None`` when it can: the innermost stride must be
+    1, every other dimension longer than 1 must step a positive multiple
+    of 16 bytes, and the data must start 16-byte aligned."""
     shape, strides = tuple(shape), tuple(strides)
     if shape[-1] > 1 and strides[-1] != 1:
         return f"innermost stride {strides[-1]}, not 1"
     for n, st in zip(shape[:-1], strides[:-1]):
-        if n > 1 and (st <= 0 or st * itemsize % 16):
+        if n > 1 and (st <= 0 or st * 2 % 16):
             return (f"stride {st} of a dimension of {n} is not a positive "
                     f"multiple of 16 bytes")
     if data_ptr % 16:
@@ -143,10 +148,12 @@ def tma_layout_fault(shape, strides, data_ptr: int,
 
 def kernel_route(dtypes, hd: int, layouts=()) -> str:
     """The card kernel for q, k, v of these dtypes and head width:
-    ``"wgmma"`` (bf16, tensor cores) or ``"cuda_cores"`` (f32).  Raises on
-    mixed or other dtypes, on an hd the kernels do not take, and, on the
-    bf16 route, on a (shape, strides, data_ptr) in ``layouts`` that
-    :func:`tma_layout_fault` refuses: the route never copies a view."""
+    ``"wgmma"`` (bf16) or ``"tf32x3"`` (f32 as split TF32 products), both
+    on the tensor cores.  Raises on mixed or other dtypes, on an hd the
+    kernels do not take, and, on the bf16 route, on a (shape, strides,
+    data_ptr) in ``layouts`` that :func:`tma_layout_fault` refuses: the
+    route never copies a view.  The f32 route reads q, k and v by threads
+    in its split pass, through any strides."""
     dtypes = tuple(dtypes)
     if len(set(dtypes)) != 1 or dtypes[0] not in (torch.bfloat16,
                                                   torch.float32):
@@ -156,7 +163,7 @@ def kernel_route(dtypes, hd: int, layouts=()) -> str:
         raise ValueError(f"flash_attention takes hd in {HEAD_DIMS}, got "
                          f"{hd}")
     if dtypes[0] == torch.float32:
-        return "cuda_cores"
+        return "tf32x3"
     for name, (shape, strides, ptr) in zip("qkv", layouts):
         fault = tma_layout_fault(shape, strides, ptr)
         if fault is not None:
@@ -175,13 +182,13 @@ def backward_route(dtypes, hd: int, layouts) -> tuple[str, tuple]:
     like the forward it raises on a q, k or v that
     :func:`tma_layout_fault` refuses (the forward took them as they
     are), and it copies such a dout (autograd hands dout over permuted).
-    f32 takes ``"cuda_cores"``, which loads rows 16 bytes at a time and
-    copies any of the four it cannot read so."""
+    f32 takes ``"tf32x3"``, whose split pass reads all four by threads
+    through any strides (TMA then reads only its own scratch), so it
+    copies none."""
     route = kernel_route(dtypes, hd, layouts[:3])
-    itemsize = 2 if route == "wgmma" else 4
     return route, tuple(
-        tma_layout_fault(*lay, itemsize) is not None
-        and (route == "cuda_cores" or name == "dout")
+        route == "wgmma" and name == "dout"
+        and tma_layout_fault(*lay) is not None
         for name, lay in zip(("q", "k", "v", "dout"), layouts))
 
 
@@ -215,7 +222,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True):
     """B8's forward: (out (B, Sq, KV, G, hd) in q's dtype, lse (B, KV, G,
     Sq) f32).  q, k and v share one dtype on the card: bf16 (strides as
-    :func:`tma_layout_fault` allows) or f32 (any strides)."""
+    :func:`tma_layout_fault` allows) or f32 (any strides; the kernel
+    splits k and v into a scratch it is handed)."""
     B, Sq, KV, G, hd, Sk = _shapes(q, k, v)
     if not _on_cuda(q, k, v):
         return flash_attention_ref(q, k, v, causal)
@@ -235,10 +243,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *_tma_strides(q)[:4], *_tma_strides(k)[:3],
             *_tma_strides(v)[:3], stream)
     else:
-        rc = load_library("flash_attn").flash_attention_launch(
+        lib = load_library("flash_attn_tf32")
+        scratch = torch.empty(
+            lib.flash_attention_tf32_scratch(B, Sq, Sk, KV, G, hd),
+            dtype=torch.float32, device=q.device)
+        rc = lib.flash_attention_tf32_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B, Sq, Sk, KV, G, hd, int(causal),
-            *q.stride(), *k.stride(), *v.stride(), stream)
+            lse.data_ptr(), scratch.data_ptr(), B, Sq, Sk, KV, G, hd,
+            int(causal), *q.stride(), *k.stride(), *v.stride(), stream)
     _raise_on(rc, f"flash_attention ({route})")
     LAUNCHES["flash_attention"] += 1
     ROUTE_LAUNCHES[route] += 1
@@ -250,8 +262,8 @@ def flash_attention_backward(q, k, v, out, lse, dout, causal: bool = True):
     the inputs' dtypes.  On the card q, k, v and dout share one dtype:
     bf16 runs ``csrc/flash_attn_bwd_sm90.cu`` (strides as
     :func:`tma_layout_fault` allows; a dout it cannot read is copied
-    first), f32 ``csrc/flash_attn_bwd.cu`` (views it cannot read copied
-    first); out and lse as the forward returns them.  On the CPU the plain
+    first), f32 ``csrc/flash_attn_bwd_tf32.cu`` (any strides); out and
+    lse as the forward returns them.  On the CPU the plain
     :func:`flash_attention_bwd`."""
     B, Sq, KV, G, hd, Sk = _shapes(q, k, v)
     if not _on_cuda(q, k, v, out, lse, dout):
@@ -295,13 +307,16 @@ def flash_attention_backward(q, k, v, out, lse, dout, causal: bool = True):
                 *_tma_strides(k)[:3], *_tma_strides(v)[:3],
                 *_tma_strides(dout)[:4], stream)
     else:
-        delta = torch.empty_like(lse)
-        rc = load_library("flash_attn_bwd").flash_attention_bwd_launch(
+        lib = load_library("flash_attn_bwd_tf32")
+        scratch = torch.empty(
+            lib.flash_attention_bwd_tf32_scratch(B, Sq, Sk, KV, G, hd),
+            dtype=torch.float32, device=q.device)
+        rc = lib.flash_attention_bwd_tf32_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, KV, G,
-            hd, int(causal), *q.stride()[:4], *k.stride()[:3],
-            *v.stride()[:3], *dout.stride()[:4], stream)
+            hd, int(causal), *q.stride(), *k.stride(), *v.stride(),
+            *dout.stride(), stream)
     _raise_on(rc, f"flash_attention_bwd ({route})")
     LAUNCHES["flash_attention_bwd"] += 1
     BWD_ROUTE_LAUNCHES[route] += 1

@@ -39,7 +39,11 @@ scripts/flash_bwd_error_ratio.py measured at most 1.77 on an H100 over
 9 seeds at these shapes and at S = 1,000, the mean's at most 1.02.
 chip_smoke.py holds the max to 1.5 times SDPA's at the LM path's shape
 and around it.  Two bf16 calls and two f32 calls give bitwise-equal
-gradients: neither kernel uses atomics.
+gradients: neither kernel uses atomics.  f32 runs on the tensor cores
+too, as three TF32 products a product of its operands' split hi and lo
+parts (route "tf32x3", flash_attn_tf32.cu and flash_attn_bwd_tf32.cu):
+its forward is held to 2e-5 and its gradients to 1e-4, as the CUDA-core
+kernels it replaced were, through any strides.
 """
 import numpy as np
 import pytest
@@ -337,6 +341,9 @@ def test_pooled_lookup_narrow_and_wide_rows_match_plain(cuda, E, F):
     (1, 128, 384, 1, 4, 32, False, torch.float32),
     (2, 256, 256, 2, 4, 128, True, torch.bfloat16),
     (1, 100, 40, 3, 1, 128, True, torch.float32),     # Sq > Sk
+    (1, 256, 256, 2, 4, 128, False, torch.float32),   # hd 128, full
+    (2, 200, 200, 3, 3, 32, True, torch.float32),     # hd 32, G 3
+    (1, 40, 100, 2, 3, 64, True, torch.float32),      # Sq < Sk
 ])
 def test_flash_attention_matches_plain(cuda, B, Sq, Sk, KV, G, hd, causal,
                                        dtype):
@@ -489,6 +496,10 @@ def test_flash_attention_bf16_raises_on_a_view_tma_cannot_take(cuda):
     (1, 128, 384, 1, 4, 32, False, torch.float32),
     (1, 200, 200, 2, 2, 128, True, torch.float32),
     (1, 100, 40, 3, 1, 64, True, torch.float32),      # Sq > Sk
+    (2, 512, 512, 5, 3, 64, True, torch.float32),     # the LM's heads
+    (2, 256, 256, 3, 1, 32, True, torch.float32),     # G 1 at hd 32
+    (1, 300, 300, 3, 3, 128, False, torch.float32),   # hd 128, full
+    (1, 384, 200, 3, 2, 32, False, torch.float32),    # Sq > Sk, full
     (2, 300, 300, 5, 3, 64, True, torch.bfloat16),
     (1, 300, 300, 2, 1, 32, False, torch.bfloat16),
     (1, 256, 256, 2, 4, 128, True, torch.bfloat16),
@@ -551,11 +562,11 @@ def test_flash_attention_bwd_is_deterministic(cuda, dtype):
 
 
 def test_flash_attention_bwd_routes_by_dtype(cuda):
-    """bf16 runs the wgmma kernel, f32 the CUDA-core kernel, each counted
-    on its route and both under the one launch count."""
+    """bf16 runs the wgmma kernel, f32 the split-TF32 kernel, each
+    counted on its route and both under the one launch count."""
     g = torch.Generator(device=cuda).manual_seed(17)
     for dtype, route in ((torch.bfloat16, "wgmma"),
-                         (torch.float32, "cuda_cores")):
+                         (torch.float32, "tf32x3")):
         q = torch.randn((1, 128, 2, 2, 64), generator=g,
                         device=cuda).to(dtype)
         k = torch.randn((1, 128, 2, 64), generator=g, device=cuda).to(dtype)
@@ -567,6 +578,65 @@ def test_flash_attention_bwd_routes_by_dtype(cuda):
             n0["flash_attention_bwd"] + 1
         assert tf.BWD_ROUTE_LAUNCHES == {
             r: r0[r] + (r == route) for r in r0}
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_flash_attention_f32_bwd_is_deterministic_at_every_hd(cuda, hd):
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    q = torch.randn((1, 333, 3, 3, hd), generator=g, device=cuda)
+    k = torch.randn((1, 333, 3, hd), generator=g, device=cuda)
+    v = torch.randn((1, 333, 3, hd), generator=g, device=cuda)
+    out, lse = tf.flash_attention(q, k, v, True)
+    dout = torch.randn(out.shape, generator=g, device=cuda)
+    first = tf.flash_attention_backward(q, k, v, out, lse, dout, True)
+    again = tf.flash_attention_backward(q, k, v, out, lse, dout, True)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_flash_attention_f32_runs_the_tf32x3_route(cuda):
+    """Every f32 launch, forward and backward, at every hd and on strided
+    views, lands on the split-TF32 route and on no other."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    f0, b0 = dict(tf.ROUTE_LAUNCHES), dict(tf.BWD_ROUTE_LAUNCHES)
+    n = 0
+    for hd in (32, 64, 128):
+        qkv = torch.randn((1, 130, 2, 5, hd), generator=g, device=cuda)
+        for q, k, v in ((qkv[:, :, :, :3], qkv[:, :, :, 3], qkv[:, :, :, 4]),
+                        (qkv[:, :, :, :3].contiguous(),
+                         qkv[:, :, :, 3].contiguous(),
+                         qkv[:, :, :, 4].contiguous())):
+            out, lse = tf.flash_attention(q, k, v, True)
+            tf.flash_attention_backward(q, k, v, out, lse, out, True)
+            n += 1
+    torch.cuda.synchronize()
+    assert tf.ROUTE_LAUNCHES == {"wgmma": f0["wgmma"],
+                                 "tf32x3": f0["tf32x3"] + n}
+    assert tf.BWD_ROUTE_LAUNCHES == {"wgmma": b0["wgmma"],
+                                     "tf32x3": b0["tf32x3"] + n}
+
+
+def test_flash_attention_f32_reads_any_strides(cuda):
+    """f32 q, k, v and dout with an innermost stride that is not 1 (and
+    rows TMA could not box): the split pass reads them as they are, the
+    forward and backward match the plain versions on contiguous copies."""
+    g = torch.Generator(device=cuda).manual_seed(23)
+    q = torch.randn((1, 2, 3, 64, 150), generator=g,
+                    device=cuda).permute(0, 4, 1, 2, 3)   # inner stride 150
+    k = torch.randn((1, 2, 64, 150), generator=g,
+                    device=cuda).permute(0, 3, 1, 2)
+    v = torch.randn((1, 150, 2, 68), generator=g, device=cuda)[..., :64]
+    dout = torch.randn((1, 2, 3, 64, 150), generator=g,
+                       device=cuda).permute(0, 4, 1, 2, 3)
+    c = [t.contiguous() for t in (q, k, v, dout)]
+    out, lse = tf.flash_attention(q, k, v, True)
+    want, want_lse = tf.flash_attention_ref(*c[:3], True)
+    torch.testing.assert_close(out, want, rtol=0, atol=2e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=2e-5)
+    got = tf.flash_attention_backward(q, k, v, out, lse, dout, True)
+    ref = tf.flash_attention_bwd(*c[:3], out, lse, c[3], True)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
 
 
 def test_flash_attn_backward_runs_the_kernel_on_card(cuda):

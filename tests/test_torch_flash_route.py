@@ -1,18 +1,19 @@
 """B8's route rule on the CPU: which card kernel takes which inputs.
 
 The bf16 forward runs on the tensor cores (``wgmma`` fed by TMA), which
-read k and v by TMA boxes and q by 16-byte loads; f32 runs on the CUDA
-cores through any strides.  The rule is a pure function of dtypes, hd and
+read k and v by TMA boxes and q by 16-byte loads; f32 runs on the tensor
+cores too, as split TF32 products (route ``tf32x3``), its split pass
+reading q, k and v by threads through any strides.  The rule is a pure function of dtypes, hd and
 each tensor's (shape, strides, address), so it is tested here without a
 card, on CPU tensors' layouts.  The smoke LM's q, k and v, as they reach
 B8, must meet the bf16 route's rule.  The autograd Function's backward
 goes through :func:`flash_attention_backward`, which on the CPU is the
 plain :func:`flash_attention_bwd`, exactly.  The backward's rule
 (:func:`backward_route`: bf16 -> ``wgmma``, raising on a q, k or v that
-TMA cannot read and copying such a dout; f32 -> CUDA cores, copying any
-view it cannot read 16 bytes at a time) and its row tiles
+TMA cannot read and copying such a dout; f32 -> ``tf32x3``, whose split
+pass reads every view, copying none) and its row tiles
 (:func:`stat_tiling`, the statistics' order held against the f32
-kernel's ``stat_index`` order) are tested here the same way.
+route's row order r = s G + g) are tested here the same way.
 """
 import dataclasses
 
@@ -33,8 +34,8 @@ def _layout(t):
     (torch.bfloat16, 32, "wgmma"),
     (torch.bfloat16, 64, "wgmma"),
     (torch.bfloat16, 128, "wgmma"),
-    (torch.float32, 64, "cuda_cores"),
-    (torch.float32, 128, "cuda_cores"),
+    (torch.float32, 64, "tf32x3"),
+    (torch.float32, 128, "tf32x3"),
 ])
 def test_route_by_dtype(dtype, hd, route):
     assert tf.kernel_route((dtype,) * 3, hd) == route
@@ -100,7 +101,7 @@ def test_bf16_route_raises_on_a_view_tma_cannot_take():
     # f32 takes any strides
     assert tf.kernel_route((torch.float32,) * 3, 64,
                            [_layout(q), _layout(k), _layout(good)]) \
-        == "cuda_cores"
+        == "tf32x3"
 
 
 def test_tma_strides_fill_length_one_dims():
@@ -188,7 +189,7 @@ def _transposed(dtype, nd):
 
 
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
-                                         (torch.float32, "cuda_cores")])
+                                         (torch.float32, "tf32x3")])
 @pytest.mark.parametrize("hd", [32, 64, 128])
 def test_backward_route_by_dtype(dtype, route, hd):
     assert tf.backward_route((dtype,) * 5, hd, _bwd_layouts(dtype)) == \
@@ -228,17 +229,18 @@ def test_backward_bf16_copies_a_dout_tma_cannot_take(view):
 
 @pytest.mark.parametrize("name", ["q", "k", "v", "dout"])
 def test_backward_f32_copies_any_view_it_cannot_read(name):
-    """f32 loads rows 16 bytes at a time: an innermost stride of 64 is
-    copied first, rows of 68 floats (272 bytes) are read as they are."""
+    """f32's split pass reads q, k, v and dout by threads through any
+    strides (TMA reads only the split's scratch), so no view is one it
+    cannot read: an innermost stride of 64 and rows of 68 floats (272
+    bytes) are both read as they are, nothing copied."""
     dt, nd = torch.float32, 5 if name in ("q", "dout") else 4
-    i = ("q", "k", "v", "dout").index(name)
     got = tf.backward_route((dt,) * 5, 64,
                             _bwd_layouts(dt, name, _transposed(dt, nd)))
-    assert got == ("cuda_cores", tuple(j == i for j in range(4)))
+    assert got == ("tf32x3", (False,) * 4)
     padded = torch.zeros((1, 64, 3, 68), dtype=dt)[..., :64]
     padded = padded.unsqueeze(3) if nd == 5 else padded
     assert tf.backward_route((dt,) * 5, 64, _bwd_layouts(dt, name, padded)) \
-        == ("cuda_cores", (False,) * 4)
+        == ("tf32x3", (False,) * 4)
 
 
 @pytest.mark.parametrize("Sq,G,want", [
@@ -272,8 +274,8 @@ def _stat_lse_index(B, Sq, KV, G):
 
 
 def _stat_index(b, h, r, KV, G, Sq):
-    """The f32 kernel's ``stat_index``: lse's flat index of row r = s G +
-    g of the (b, kv) pair."""
+    """lse's flat index of row r = s G + g of the (b, kv) pair: the row
+    order of the f32 route's statistics."""
     return ((b * KV + h) * G + r % G) * Sq + r // G
 
 
