@@ -32,8 +32,13 @@ Phases, each printing its own lines:
    over 67 TFLOP/s f32; B8's f32 route over 495 TFLOP/s TF32 / 3, three
    TF32 products a product, beside 67), beside the launch floor (an empty kernel's
    device and call ms).  Serving (wdl-s1: V = 502,000, E = 512): the
-   hot-set plane of C rows (and the training prefetch plane's pull: 64
-   of 512 slots), bags of the stream's 48 history slots, B =
+   hot-set plane of C rows: the in-place TTL refresh ``plane_refresh``
+   at phase 5's budget of 64 on a cold plane's ties, without a budget
+   at ~1/4 due (its list then pulled by ``staged_pull``) and
+   select-only, bit for bit (rows, expiry, count, list), beside the
+   out-of-place ``staged_gather`` at ~1/4 due; the training prefetch
+   plane's pull (64 of 512 slots) by ``staged_pull`` and by
+   ``staged_gather``; bags of the stream's 48 history slots, B =
    16 and 4,096, bit for bit (and with an all-PAD bag, weights, and at
    E = 510).  Training: the decide stage's per-id cost table (U, 4)
    pooled over one S1 batch of 256 x 74 (and the pooled lookup again at
@@ -90,40 +95,43 @@ Phases, each printing its own lines:
    2e-6 of the largest output, beside the byte bound (no PyTorch call
    computes a linear recurrence), and the autograd Function's gradients
    against autograd of the plain version;
-4. parity — the serve step and a TTL refresh, and 3 steps of the training
-   stages, exact and with ``--codec int8``, on the card against the same
-   calls on the CPU at wdl-tiny; the simulator with ``opt="auction"``
-   (tiny workload, 4 workers on distinct links, 4 iterations) and the
-   serving simulator (S1, 8 workers, 0.5 s) on the card against the CPU;
-   3 steps of ``run_lm`` at smollm-360m's smoke config with S = 2,048
-   (the flash route) on the card against the CPU, losses within 1e-4,
-   and again in bf16 (the card's wgmma forward and backward against the
-   CPU's plain versions), losses within 5e-2; every f32 B8 launch of the
-   phase, forward and backward, on the ``tf32x3`` route (each run's
-   counts printed, and the phase's total); ``run_dlrm``
-   pipelined at wdl-tiny (depth 2; depth 2 with stale decisions; depth 3
-   with decide-ahead 2, lookahead 2 and 16 rows a step prefetched into
-   64 slots), the card's chain on a stream of its own, against the CPU:
-   integer fields equal, losses and Alg.-1 costs within 1e-5, the final
-   prefetch plane's ids, expiry and rows equal; 8 decode steps of
-   smollm-360m's and phi3.5-moe's smoke configs (f32, B 4), logits
-   within 1e-5, and 3 ``run_lm`` steps of phi3.5-moe's smoke config at
-   S = 2,048, with one dispatch block and with ``MOE_BLOCKS = 2``,
-   losses within 1e-4; ``run_dlrm --fault-plan`` at wdl-tiny
-   (a straggler, a graceful crash, a droop and a warm rejoin; 6 steps;
+4. parity — the serve step and a TTL refresh (exact and int8), and 3
+   steps of the training stages, exact and with ``--codec int8``, on the
+   card against the same calls on the CPU at wdl-tiny; the simulator
+   with ``opt="auction"`` (tiny workload, 4 workers on distinct links, 4
+   iterations) and the serving simulator (S1, 8 workers, 0.5 s) on the
+   card against the CPU; 3 steps of ``run_lm`` at smollm-360m's smoke
+   config with S = 2,048 (the flash route) on the card against the CPU,
+   losses within 1e-4, and again in bf16 (the card's wgmma forward and
+   backward against the CPU's plain versions), losses within 5e-2; every
+   f32 B8 launch of the phase, forward and backward, on the ``tf32x3``
+   route (each run's counts printed, and the phase's total);
+   ``run_dlrm`` pipelined at wdl-tiny (depth 2; depth 2 with stale
+   decisions; depth 3 with decide-ahead 2, lookahead 2 and 16 rows a
+   step prefetched into 64 slots), the card's chain on a stream of its
+   own, against the CPU: integer fields equal, losses and Alg.-1 costs
+   within 1e-5, the final prefetch plane's ids, expiry and rows equal; 8
+   decode steps of smollm-360m's and phi3.5-moe's smoke configs (f32, B
+   4), logits within 1e-5, and 3 ``run_lm`` steps of phi3.5-moe's smoke
+   config at S = 2,048, with one dispatch block and with ``MOE_BLOCKS =
+   2``, losses within 1e-4; ``run_dlrm --fault-plan`` at wdl-tiny (a
+   straggler, a graceful crash, a droop and a warm rejoin; 6 steps;
    depth 1 exact and int8, depth 2) card against CPU: integer fields
    equal, losses and costs within 1e-5; ``run_dlrm --n-ps 3 --ps-layout
    hashed --ps-hetero`` and ``--esd-engine dense`` at depth 2, card
-   against CPU alike; 3 ``run_lm`` steps at S 2,048 and 8 decode steps of
-   falcon-mamba's and recurrentgemma's smoke configs (f32), losses within
-   1e-4, logits within 1e-5, the scan kernels once a recurrent layer and
-   step; the loss and 3 ``make_train_step`` steps of pixtral-12b's smoke
-   config (16 patches + 2,032 tokens: B8's route) and whisper-large-v3's
-   (64 frames, 64 tokens) on ``make_train_batch``'s draws, and 8 decode
-   steps of each (f32), card against CPU, losses within 1e-4, logits
-   within 1e-5;
+   against CPU alike; 3 ``run_lm`` steps at S 2,048 and 8 decode steps
+   of falcon-mamba's and recurrentgemma's smoke configs (f32), losses
+   within 1e-4, logits within 1e-5, the scan kernels once a recurrent
+   layer and step; the loss and 3 ``make_train_step`` steps of
+   pixtral-12b's smoke config (16 patches + 2,032 tokens: B8's route)
+   and whisper-large-v3's (64 frames, 64 tokens) on
+   ``make_train_batch``'s draws, and 8 decode steps of each (f32), card
+   against CPU, losses within 1e-4, logits within 1e-5;
 5. serve — ``run_serve`` at wdl-s1 (4 workers, 2,000 QPS for 1 s), then
-   for 0.5 s with ``--codec int8``;
+   for 0.5 s with ``--codec int8``: one ``plane_refresh`` launch a
+   worker refresh (and one each for the warm-up and the 4 seeds), no
+   ``staged_gather``; ``staged_pull`` only for the seeds' lists (with
+   the codec once a refresh, writing the quantized rows);
 6. train — ``run_dlrm`` at wdl-s1 (4 workers x 256 samples, ESD alpha 1,
    ragged exchange, 10 steps), then again with ``--codec int8``: one
    launch of the fused auction kernel a step, its rounds per step equal
@@ -162,8 +170,9 @@ Phases, each printing its own lines:
    step beside depth 1's; with ``--stale-decide`` (step 0's
    ``alg1_realized`` equal to its ``alg1_est`` within 1e-6); and the
    README's configuration (depth 4, lookahead 4, decide-ahead 3, 64 rows
-   a step prefetched into 512 slots): one staged_gather launch a step,
-   rows prefetched after step 0, demand misses within the misses;
+   a step prefetched into 512 slots): one staged_pull launch a step and
+   no staged_gather, rows prefetched after step 0, demand misses within
+   the misses;
 11. lm-serve — smollm-360m at full width and depth (bf16, tied head): a
    prefill of B = 4 x S = 2,048 through ``make_prefill_step`` (32 B8
    launches, 4 times: ms and peak memory), then
@@ -204,7 +213,7 @@ Phases, each printing its own lines:
 16. train-dense — ``run_dlrm --esd-engine dense`` at phase 6's
    configuration at depth 1 and 2, every record bit for bit phase 6's
    (the sparse engine), and with the README's prefetch configuration
-   (one staged_gather a step); then ``esd_dispatch`` with the dense
+   (one staged_pull a step); then ``esd_dispatch`` with the dense
    cost (B1 over the (502,000, 4) per-id table) on the run's final
    state: 4 B1 launches, one auction_solve and one pack_send_all, the
    compact cost's assignment and exchange;
@@ -310,6 +319,8 @@ SOURCES = {"pooled_lookup": CSRC + "emb_lookup.cu",
            "pack_send_all": CSRC + "exchange_pack.cu",
            "gather_rows": CSRC + "exchange_pack.cu",
            "staged_gather": CSRC + "emb_lookup.cu",
+           "plane_refresh": CSRC + "emb_lookup.cu",
+           "staged_pull": CSRC + "emb_lookup.cu",
            "pooled_lookup_staged": CSRC + "emb_lookup.cu",
            "gather_rows_quant": CSRC + "exchange_pack.cu",
            "pack_send_all_quant": CSRC + "exchange_pack.cu",
@@ -328,6 +339,12 @@ REPLACES = {"pooled_lookup": "src/repro/kernels/emb_lookup.py:88",
                              "src/repro/exchange/ragged.py:36 (pack_send)",
             "gather_rows": "src/repro/kernels/exchange_pack.py:34",
             "staged_gather": "src/repro/kernels/emb_lookup.py:174",
+            "plane_refresh": "src/repro/kernels/emb_lookup.py:174 with the "
+                             "selection around it: src/repro/serve/"
+                             "plane.py:82 (refresh_plane), :58 (_pull_rows)",
+            "staged_pull": "src/repro/kernels/emb_lookup.py:174 on the "
+                           "prefetch pull: src/repro/pipeline/prefetch.py:"
+                           "112 (prefetch_step)",
             "pooled_lookup_staged": "src/repro/kernels/emb_lookup.py:245",
             "gather_rows_quant": "src/repro/kernels/exchange_pack.py:108",
             "pack_send_all_quant": "src/repro/kernels/exchange_pack.py:108 "
@@ -1048,6 +1065,80 @@ def phase_kernels(seed: int) -> dict:
     print(f"[kernel] launch floor (an empty kernel): {floor_ms:.4f} ms "
           f"(call {floor_call:.4f})")
 
+    # plane_refresh, in place: phase 5's refresh (step 32, ttl 32, budget
+    # 64) on a cold plane whose every slot is due with one expiry (the
+    # ties), without a budget at ~1/4 due (two launches: the list, then
+    # staged_pull over the grid), and select-only (the codec's route)
+    hot_ids = torch.as_tensor(hot.astype(np.int32), device=dev)
+    rng_r = np.random.default_rng(seed + 2)
+    quarter = torch.as_tensor(np.where(rng_r.random(C) < 0.25, 32, 33)
+                              .astype(np.int32), device=dev)
+    ties = torch.full((C,), 32, dtype=torch.int32, device=dev)
+    live = plane_rows.clone()
+    for what, exp, budget, pull in (("budget 64, ties", ties, 64, True),
+                                    ("no budget, 1/4 due", quarter, None,
+                                     True),
+                                    ("select-only, budget 64, ties", ties,
+                                     64, False)):
+        got = PrefetchPlane(ids=hot_ids, rows=plane_rows.clone(),
+                            expiry=exp.clone())
+        want = PrefetchPlane(ids=hot_ids, rows=plane_rows.clone(),
+                             expiry=exp.clone())
+        n, sl, si = K.plane_refresh(got, table, 32, 32, budget, pull=pull)
+        n_ref, sl_ref, si_ref = K.plane_refresh_ref(want, table, 32, 32,
+                                                    budget, pull=pull)
+        torch.cuda.synchronize()
+        check(int(n) == int(n_ref) and torch.equal(got.rows, want.rows)
+              and torch.equal(got.expiry, want.expiry)
+              and (pull or (torch.equal(sl, sl_ref)
+                            and torch.equal(si, si_ref))),
+              f"plane_refresh ({what}) is bitwise equal to plain")
+        n = int(n)
+        # every call takes a fresh copy of the expiry (the rows are
+        # shared), so each finds the same backlog
+        pools = [itertools.cycle([PrefetchPlane(
+            ids=hot_ids, rows=live, expiry=exp.clone()) for _ in range(k)])
+            for k in (110, 50)]
+        ms, call_ms = device_ms(lambda: K.plane_refresh(
+            next(pools[0]), table, 32, 32, budget, pull=pull))
+        plain_ms, plain_call = device_ms(lambda: K.plane_refresh_ref(
+            next(pools[1]), table, 32, 32, budget, pull=pull), reps=20)
+        cap = C if budget is None else budget
+        n_bytes = C * 8 + n * 4 + (n * E * 8 if pull else cap * 8)
+        b_ms, b_by = bound(n_bytes, 0)
+        if budget == 64 and pull:
+            rec["plane_refresh"] = dict(max_abs_err=0.0, ms=ms,
+                                        plain_ms=plain_ms, bound_ms=b_ms,
+                                        bound_by=b_by)
+        print(f"[kernel] plane_refresh C={C} E={E} {what}: {n} refreshed,"
+              f" exact, {ms:.4f} ms (call {call_ms:.4f}; launch floor "
+              f"{floor_ms:.4f}), plain {plain_ms:.4f} ms (call "
+              f"{plain_call:.4f}), bound {b_ms:.6f} ms ({b_by})")
+
+    # staged_pull, in place: the training prefetch pull, the same 64 of
+    # 512 slots as staged_gather's above
+    slot_p = torch.nonzero(src_p >= 0).flatten().to(torch.int32)
+    pull_src = src_p[slot_p.long()].contiguous()
+    want = K.staged_gather(plane_p, table, src_p)
+    ref = K.staged_pull_ref(plane_p.clone(), table, slot_p, pull_src)
+    out = K.staged_pull(plane_p.clone(), table, slot_p, pull_src)
+    torch.cuda.synchronize()
+    check(torch.equal(out, ref) and torch.equal(out, want),
+          "staged_pull is bitwise equal to plain and to staged_gather")
+    target = plane_p.clone()
+    ms_s, call_s = device_ms(lambda: K.staged_pull(target, table, slot_p,
+                                                   pull_src))
+    plain_s, plain_call_s = device_ms(lambda: K.staged_pull_ref(
+        target, table, slot_p, pull_src))
+    bs_ms, bs_by = bound(pulls * E * 8 + pulls * 8, 0)
+    rec["staged_pull"] = dict(max_abs_err=0.0, ms=ms_s, plain_ms=plain_s,
+                              bound_ms=bs_ms, bound_by=bs_by)
+    print(f"[kernel] staged_pull (training prefetch pull) C={Cp} E={E} "
+          f"pulled={pulls}: exact, {ms_s:.4f} ms (call {call_s:.4f}; "
+          f"staged_gather {ms_p:.4f}, call {call_p:.4f}), plain "
+          f"{plain_s:.4f} ms (call {plain_call_s:.4f}), bound {bs_ms:.6f} "
+          f"ms ({bs_by})")
+
     # pooled_lookup_staged: history bags of the synthetic stream against
     # the hot-set plane, at the serving micro-batch and at a large batch
     plane = PrefetchPlane(ids=torch.as_tensor(hot.astype(np.int32),
@@ -1117,7 +1208,7 @@ def phase_parity(seed: int):
     from repro_torch.models.dlrm import init_params
     from repro_torch.serve import make_serve_step, refresh_plane, seed_plane
 
-    worst = 0.0
+    worst = worst_rows = 0.0
     for arch in ("wdl-tiny", "dfm-tiny", "dcn-tiny"):
         cfg = DLRM_CONFIGS[arch]
         wl = WORKLOADS[cfg.workload]
@@ -1129,29 +1220,43 @@ def phase_parity(seed: int):
         ids = np.unique(sparse[sparse >= 0])
         hot = ids[rng.random(ids.size) < 0.6]
         step_fn = make_serve_step(cfg, wl.n_fields)
-        pc = seed_plane(cpu.embed, hot, step=0, ttl=4)
-        pg = seed_plane(gpu.embed, hot, step=0, ttl=4)
-        for step in (0, 6):
-            if step:
-                pc, nc = refresh_plane(pc, cpu.embed * 1.5, step, ttl=4,
-                                       budget=max(1, hot.size // 2))
-                pg, ng = refresh_plane(pg, gpu.embed * 1.5, step, ttl=4,
-                                       budget=max(1, hot.size // 2))
-                check(int(nc) == int(ng), "refresh counts agree")
-                for f in ("ids", "rows", "expiry"):
-                    check(torch.equal(getattr(pc, f),
-                                      getattr(pg, f).cpu()),
-                          f"refreshed plane {f} equal on card and CPU")
-            lc, qc = step_fn(cpu, pc, sparse, dense, step)
-            lg, qg = step_fn(gpu, pg, sparse, dense, step)
-            for a, b, what in ((lc, lg, "logits"), (qc, qg, "pooled")):
-                b = b.cpu()
-                check(bool(torch.isfinite(b).all()), f"{arch} {what} finite")
-                check(torch.allclose(a, b, rtol=1e-5, atol=1e-5),
-                      f"{arch} {what} on card vs CPU within 1e-5")
-                worst = max(worst, float((a - b).abs().max()))
-    print(f"[parity] serve step + refresh, card vs CPU, wdl/dfm/dcn-tiny: "
-          f"max abs err {worst:.3g} (tolerance 1e-5)")
+        for codec in (None, "int8"):
+            pc = seed_plane(cpu.embed, hot, step=0, ttl=4, codec=codec)
+            pg = seed_plane(gpu.embed, hot, step=0, ttl=4, codec=codec)
+            for step in (0, 6):
+                if step:
+                    pc, nc = refresh_plane(pc, cpu.embed * 1.5, step, ttl=4,
+                                           budget=max(1, hot.size // 2),
+                                           codec=codec)
+                    pg, ng = refresh_plane(pg, gpu.embed * 1.5, step, ttl=4,
+                                           budget=max(1, hot.size // 2),
+                                           codec=codec)
+                    check(int(nc) == int(ng), "refresh counts agree")
+                    for f in ("ids", "expiry"):
+                        check(torch.equal(getattr(pc, f),
+                                          getattr(pg, f).cpu()),
+                              f"refreshed plane {f} equal on card and CPU "
+                              f"(codec {codec})")
+                    # exact rows are copies; the codec's round trip is
+                    # computed by each device's own passes
+                    d = float((pc.rows - pg.rows.cpu()).abs().max())
+                    check(d == 0.0 if codec is None else d <= 1e-6,
+                          f"refreshed plane rows on card and CPU (codec "
+                          f"{codec}): max abs diff {d}")
+                    worst_rows = max(worst_rows, d)
+                lc, qc = step_fn(cpu, pc, sparse, dense, step)
+                lg, qg = step_fn(gpu, pg, sparse, dense, step)
+                for a, b, what in ((lc, lg, "logits"), (qc, qg, "pooled")):
+                    b = b.cpu()
+                    check(bool(torch.isfinite(b).all()),
+                          f"{arch} {what} finite")
+                    check(torch.allclose(a, b, rtol=1e-5, atol=1e-5),
+                          f"{arch} {what} on card vs CPU within 1e-5")
+                    worst = max(worst, float((a - b).abs().max()))
+    print(f"[parity] serve step + refresh (exact and int8), card vs CPU, "
+          f"wdl/dfm/dcn-tiny: max abs err {worst:.3g} (tolerance 1e-5); "
+          f"refreshed rows max abs diff {worst_rows:.3g} (exact: 0, int8: "
+          f"1e-6)")
 
 
 def phase_train_parity(seed: int, codec=None):
@@ -1319,12 +1424,18 @@ def phase_serve(seed: int, codec=None, duration: float = 1.0) -> dict:
           f"launches {launches} ({per_batch} per micro-batch)")
     check(launches.get("pooled_lookup_staged", 0) > 0,
           "the pooled history bag kernel launched on the serving path")
-    if codec is None:
-        check(launches.get("staged_gather", 0) > 0,
-              "the refresh kernel launched on the exact serving path")
-    else:      # the quantized pull is a gather and the codec's round trip
-        check("staged_gather" not in launches,
-              "the quantized refresh pull skips the exact-pull kernel")
+    # a refresh for each worker step, the warm-up's and each seed's
+    refreshes = out["worker_steps"] + 1 + 4
+    check(launches.get("plane_refresh") == refreshes,
+          f"one plane_refresh launch a refresh ({refreshes})")
+    check("staged_gather" not in launches,
+          "the refresh runs in place: no staged_gather")
+    # the seeds take no budget: their lists are pulled by staged_pull; with
+    # the codec every refresh writes its quantized rows by staged_pull
+    pulls = 4 if codec is None else refreshes
+    check(launches.get("staged_pull") == pulls,
+          f"staged_pull {pulls} times: one launch a worker refresh"
+          + ("" if codec is None else " and one for its quantized rows"))
     check(out["n_requests"] == n_stream, "every request of the stream served")
     check(out["nonfinite_logits"] == 0, "all logits finite")
     check(out["refresh_rows"] > 0, "TTL refreshes happened")
@@ -1405,7 +1516,7 @@ def phase_train_pipeline(seed: int) -> dict:
     the auction's rounds and the launches a step depth 1's; depth 2 with
     stale decisions; and the README's configuration (depth 4, lookahead 4,
     decide-ahead 3, 64 rows a step into 512 slots), its prefetch pull one
-    staged_gather launch a step."""
+    staged_pull launch a step, in place."""
     from repro_torch.configs import DLRM_CONFIGS
     from repro_torch.kernels import auction as A
     from repro_torch.launch.train import build_parser, run_dlrm
@@ -1474,8 +1585,9 @@ def phase_train_pipeline(seed: int) -> dict:
     out, per_step, _ = run(AHEAD_ARGV)
     recs = out["metrics"]
     wire = row_wire_bytes(DLRM_CONFIGS[TRAIN_ARGV[1]].embedding_dim, None)
-    check(per_step.get("staged_gather") == 1.0,
-          "the prefetch pull launched staged_gather once a step")
+    check(per_step.get("staged_pull") == 1.0
+          and "staged_gather" not in per_step,
+          "the prefetch pull launched staged_pull once a step, in place")
     check(all(r["prefetch_bytes"] > 0 for r in recs[1:]),
           "prefetch_bytes > 0 after step 0")
     check(all(r["demand_miss_bytes"] <= r["miss_pull"] * wire for r in recs),
@@ -2793,7 +2905,7 @@ def phase_train_dense(seed: int) -> dict:
     """Phase 16: ``run_dlrm --esd-engine dense`` at phase 6's
     configuration (the (4, 502,000) planes updated whole every step) at
     depth 1 and 2, each record bit for bit phase 6's; the README's
-    prefetch configuration on the dense engine (one staged_gather a
+    prefetch configuration on the dense engine (one staged_pull a
     step); then ``esd_dispatch`` with the dense cost (B1 over the
     (502,000, 4) per-id table) on the run's final state and the next
     batch: 4 B1 launches, one auction_solve and one pack_send_all, the
@@ -2819,9 +2931,10 @@ def phase_train_dense(seed: int) -> dict:
               f"wall {one['wall_ms_mean']:.3f}, advance "
               f"{one['advance_ms_mean']:.3f}); launches {per_step} a step")
         if extra == AHEAD_ARGV:
-            check(per_step.get("staged_gather") == 1.0
+            check(per_step.get("staged_pull") == 1.0
+                  and "staged_gather" not in per_step
                   and all(r["prefetch_bytes"] > 0 for r in recs[1:]),
-                  "dense engine, README configuration: one staged_gather "
+                  "dense engine, README configuration: one staged_pull "
                   "a step, rows prefetched after step 0")
             print(f"[train-dense] README configuration: prefetch_hit_rate "
                   f"{[r['prefetch_hit_rate'] for r in recs]}, n_reassigned "
@@ -3827,8 +3940,9 @@ def phase_trace(seed: int) -> dict:
               f"{rep['bitwise']}, overhead {rep['overhead']}, overlap "
               f"{rep['overlap']}, trace {rep['trace']}; launches "
               f"{launches}")
-        check(launches.get("staged_gather", 0) > 0,
-              "obs_bench_torch's prefetch pull launched staged_gather")
+        check(launches.get("staged_pull", 0) > 0
+              and "staged_gather" not in launches,
+              "obs_bench_torch's prefetch pull launched staged_pull")
 
         from repro_torch.configs import get_config
 
@@ -4137,12 +4251,13 @@ def main(argv=None) -> int:
         for k, v in run().items():
             launches[k] = launches.get(k, 0) + v
         print(f"[wall] phase took {time.perf_counter() - t:.1f} s")
-    # B5, the row pack and the pack-quantize alone and the standalone bid
-    # kernel run on no driver path (phase 3 holds them); every other
-    # kernel must have launched on a main path
+    # B5, the row pack and the pack-quantize alone, the standalone bid
+    # kernel and the out-of-place staged_gather run on no driver path
+    # (phase 3 holds them); every other kernel must have launched on a
+    # main path
     for k in SOURCES:
         check(k in ("pooled_lookup_quant", "auction_bids", "gather_rows",
-                    "gather_rows_quant")
+                    "gather_rows_quant", "staged_gather")
               or launches.get(k, 0) > 0, f"{k} launched on a main path")
     for what, r in B1_INPUTS.items():
         print(f"[kernel] pooled_lookup, the {what} table (phases 3, "

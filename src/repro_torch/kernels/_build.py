@@ -38,6 +38,8 @@ SIGNATURES = {
     "emb_lookup": {
         "pooled_lookup_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
         "staged_gather_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "staged_pull_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "plane_refresh_launch": [_P] * 7 + [_I] * 9 + [_P],
         "pooled_lookup_staged_launch": [_P, _P, _P, _P, _P, _P,
                                         _I, _I, _I, _I, _I, _I, _P],
         "pooled_lookup_quant_launch": [_P, _P, _P, _P, _P, _P,

@@ -39,7 +39,61 @@
 // ONLY the selected source row (the TPU kernel DMA'd both candidate rows
 // and selected in registers) and copies it with 16-byte float4 loads and
 // stores when E % 4 == 0 and every base is 16-byte aligned, else with
-// scalar loads; neighbouring lanes touch neighbouring addresses.
+// scalar loads; neighbouring lanes touch neighbouring addresses.  It is
+// the TPU function's own counterpart and stays out of place; no main path
+// runs it since the in-place pulls below took over.
+//
+// staged_pull_launch and plane_refresh_launch replace the same Pallas TPU
+// kernel (staged_gather) on the port's two paths, in place.  A TPU kernel
+// writes a new array, so the TPU function copies all C rows of the plane
+// to change a few: at the serving plane (C = 23,564, E = 512) 96.5 MB to
+// refresh at most 64 rows.  Neither of these reads or writes a row it
+// does not pull.
+//   - staged_pull: rows[slot[r]] = table[src[r]] for r < n, src null
+//     meaning src[r] = r.  A slot outside [0, C) (C marks none) is
+//     skipped; an index outside the table clamps into it.  Slots are
+//     distinct, so no two warps write one row and nothing is atomic.
+//     Bytes bound it, n*E*4*2 + n*8; at the training prefetch shape (64
+//     rows of 512) that is 0.26 MB, under the launch floor.  A warp per
+//     two entries, both rows' loads (up to 512 columns each, float4 where
+//     E % 4 == 0 and every base is 16-byte aligned) in flight before the
+//     stores; a few warps a block, so a short list spreads over SMs.
+//   - plane_refresh: the serving plane's TTL refresh, which the TPU
+//     function leaves to XLA around B3 (src/repro/serve/plane.py:82
+//     refresh_plane: compares, a stable argsort of every slot's key, a
+//     rank scatter, B3, a sum).  due = ids >= 0 && expiry <= step; with a
+//     budget K < C the due slots whose (key, slot) rank below K are kept,
+//     key = due ? expiry : INT32_MAX, exactly the ranks of the stable
+//     argsort.  The kept rows are pulled (ids clamped into the table),
+//     their expiry set to step + ttl, and their count written to a 0-dim
+//     int32 on the device.  With pull = 0 it writes the kept (slot, id)
+//     list in slot order instead, padded to cap with (C, -1), and pulls
+//     nothing: the codec path quantizes those rows and staged_pull writes
+//     them.  Bytes bound it, C*8 (ids and expiry) + n*E*8 + n*4: 0.45 MB
+//     at the serving plane, 0.00013 ms, so the launch floor (0.005 ms)
+//     sets its floor.  Its cost is latency: one block does it all, so
+//     nothing spins on another block.  The keys, as unsigned (key ^
+//     2^31 keeps the order), are read with 16-byte loads and go into
+//     shared memory when C*4 fits (kKeysSmem), else every later pass
+//     reads them again from L2; the same pass counts the keys below
+//     INT32_MAX and takes their min and max.  A radix select finds the
+//     K-th smallest key T by 8-bit digits (a 256-bin histogram a pass; a
+//     warp whose lanes share a digit adds once), starting at the first
+//     byte in which that min and max differ: a cold plane's ties (one
+//     expiry) need no pass, expiries within 256 steps one.  need = K -
+//     #(key < T) slots whose key equals T are kept, in slot order.  Then
+//     each thread walks its own run of consecutive slots (an odd length,
+//     so a warp's reads of shared memory meet no bank twice): one block
+//     scan gives each key-T slot its rank, a second the kept slots'
+//     places in the list, so the list is in slot order and the tie-break
+//     is the stable sort's.  When the budget holds every key below
+//     INT32_MAX the select is skipped.  With a list of at most kBlockPull
+//     rows the block's 32 warps pull it, two rows in flight a warp: one
+//     launch a refresh.  A larger list (no budget: the seed) is written
+//     out and staged_pull pulls it over the grid: two launches.  The
+//     first design (four digit passes always, each warp's equal digits
+//     found by __match_any_sync) took 0.043 ms at the serving shape on
+//     an H100 (700 W), this one 0.017.
 //
 // pooled_lookup_staged_launch replaces the Pallas TPU kernel
 // src/repro/kernels/emb_lookup.py:pooled_lookup_staged
@@ -128,6 +182,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int kGatherThreads = 256;   // 8 warps = 8 slots per block
@@ -140,6 +196,13 @@ constexpr int kLookupThreads = 256;   // (bag, column) pairs per block
 constexpr int kNarrowE = 32;          // widest row of the warp-per-bag layout
 constexpr int kNarrowWarps = 2;       // bags per block
 constexpr int kNarrowBuf = 1024;      // products a warp stages a pass
+constexpr int kPullWarps = 4;         // staged_pull: warps a block
+constexpr int kPullChunk = 4;         // float4s (or floats) a lane loads
+                                      // of a row before its stores
+constexpr int kRefreshThreads = 1024; // plane_refresh: its one block
+constexpr int kBlockPull = 256;       // the longest list the block pulls
+constexpr int kKeysSmem = 48 * 1024;  // keys kept in shared memory (192 KB)
+constexpr int kRadixBins = 256;
 
 // B1's PAD rule, as its plain version applies it: a PAD id (< 0) reads
 // row 0 with weight 0, no weights are all ones
@@ -315,6 +378,332 @@ __global__ void staged_gather_kernel(const float* __restrict__ plane,
     for (int e = lane; e < (E >> 2); e += 32) d4[e] = r4[e];
   } else {
     for (int e = lane; e < E; e += 32) dst[e] = row[e];
+  }
+}
+
+// one warp copies the rows s0 -> d0 and s1 -> d1 (a null source skips its
+// row), kPullChunk loads a lane of both rows in flight before the stores
+__device__ __forceinline__ void copy_two_rows(float* d0, const float* s0,
+                                              float* d1, const float* s1,
+                                              int E, int vec4, int lane) {
+  if (vec4) {
+    const int E4 = E >> 2;
+    const float4* a = reinterpret_cast<const float4*>(s0);
+    const float4* b = reinterpret_cast<const float4*>(s1);
+    for (int c0 = 0; c0 < E4; c0 += 32 * kPullChunk) {
+      float4 va[kPullChunk], vb[kPullChunk];
+#pragma unroll
+      for (int k = 0; k < kPullChunk; ++k) {
+        const int c = c0 + k * 32 + lane;
+        if (c < E4) {
+          if (a != nullptr) va[k] = __ldg(a + c);
+          if (b != nullptr) vb[k] = __ldg(b + c);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kPullChunk; ++k) {
+        const int c = c0 + k * 32 + lane;
+        if (c < E4) {
+          if (a != nullptr) reinterpret_cast<float4*>(d0)[c] = va[k];
+          if (b != nullptr) reinterpret_cast<float4*>(d1)[c] = vb[k];
+        }
+      }
+    }
+  } else {
+    for (int c0 = 0; c0 < E; c0 += 32 * kPullChunk) {
+      float va[kPullChunk], vb[kPullChunk];
+#pragma unroll
+      for (int k = 0; k < kPullChunk; ++k) {
+        const int c = c0 + k * 32 + lane;
+        if (c < E) {
+          if (s0 != nullptr) va[k] = __ldg(s0 + c);
+          if (s1 != nullptr) vb[k] = __ldg(s1 + c);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kPullChunk; ++k) {
+        const int c = c0 + k * 32 + lane;
+        if (c < E) {
+          if (s0 != nullptr) d0[c] = va[k];
+          if (s1 != nullptr) d1[c] = vb[k];
+        }
+      }
+    }
+  }
+}
+
+// rows[slot[r]] = table[src[r]] (src null: r), a warp per two entries
+__global__ void staged_pull_kernel(float* __restrict__ rows,
+                                   const float* __restrict__ table,
+                                   const int* __restrict__ slot,
+                                   const int* __restrict__ src, int n, int C,
+                                   int E, int V, int vec4) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * (blockDim.x >> 5);
+  for (int64_t r = 2 * (static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5)
+                        + (threadIdx.x >> 5));
+       r < n; r += 2 * warps) {
+    float* d[2] = {nullptr, nullptr};
+    const float* s[2] = {nullptr, nullptr};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t e = r + h;
+      if (e < n) {
+        const int sl = slot[e];
+        if (sl >= 0 && sl < C) {
+          const int at = src != nullptr ? src[e] : static_cast<int>(e);
+          d[h] = rows + static_cast<int64_t>(sl) * E;
+          s[h] = table + static_cast<int64_t>(min(max(at, 0), V - 1)) * E;
+        }
+      }
+    }
+    copy_two_rows(d[0], s[0], d[1], s[1], E, vec4, lane);
+  }
+}
+
+// a slot's refresh key as an unsigned whose order is the int32 key's:
+// expiry where the slot is due, INT32_MAX (0xffffffff here) elsewhere
+__device__ __forceinline__ unsigned refresh_key(int id, int exp, int step) {
+  const bool due = id >= 0 && exp <= step;
+  return static_cast<unsigned>(due ? exp : 0x7fffffff) ^ 0x80000000u;
+}
+
+// exclusive prefix sum of v over the block's threads in thread order,
+// *total the block's sum; every thread of the block calls it
+__device__ __forceinline__ int block_scan(int v, int* s_warp, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) s_warp[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < nw ? s_warp[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    if (lane < nw) s_warp[lane] = w;
+  }
+  __syncthreads();
+  const int out = (warp ? s_warp[warp - 1] : 0) + x - v;
+  *total = s_warp[nw - 1];
+  __syncthreads();
+  return out;
+}
+
+// the TTL refresh in one block (see the header); kSmem: the C keys are
+// kept in dynamic shared memory
+template <bool kSmem>
+__global__ void __launch_bounds__(kRefreshThreads, 1)
+plane_refresh_kernel(const int* __restrict__ ids, int* __restrict__ expiry,
+                     float* __restrict__ rows,
+                     const float* __restrict__ table,
+                     int* __restrict__ list_slot, int* __restrict__ list_id,
+                     int* __restrict__ count, int C, int E, int V, int step,
+                     int ttl, int K, int cap, int pull, int vec4,
+                     int keys4) {
+  extern __shared__ unsigned s_keys[];
+  __shared__ int s_hist[kRadixBins];
+  __shared__ int s_warp[32];
+  __shared__ int s_sel[kBlockPull];
+  __shared__ int s_misc[3];             // keys below INT32_MAX; bin; rank
+  __shared__ unsigned s_lohi[2];        // their min and max
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  auto key = [&](int i) -> unsigned {
+    return kSmem ? s_keys[i] : refresh_key(ids[i], expiry[i], step);
+  };
+
+  // the keys, their count below INT32_MAX and that count's min and max
+  if (tid == 0) {
+    s_misc[0] = 0;
+    s_lohi[0] = 0xffffffffu;
+    s_lohi[1] = 0u;
+  }
+  __syncthreads();
+  int below = 0;
+  unsigned klo = 0xffffffffu, khi = 0u;
+  auto take = [&](int i, int id, int ex) {
+    const unsigned u = refresh_key(id, ex, step);
+    if (kSmem) s_keys[i] = u;
+    if (u != 0xffffffffu) {
+      ++below;
+      klo = min(klo, u);
+      khi = max(khi, u);
+    }
+  };
+  int done = 0;
+  if (keys4) {                           // 16-byte loads, 8 in flight
+    const int4* id4 = reinterpret_cast<const int4*>(ids);
+    const int4* ex4 = reinterpret_cast<const int4*>(expiry);
+    done = C & ~3;
+#pragma unroll 4
+    for (int j = tid; j < (C >> 2); j += nt) {
+      const int4 a = id4[j], b = ex4[j];
+      take(4 * j, a.x, b.x);
+      take(4 * j + 1, a.y, b.y);
+      take(4 * j + 2, a.z, b.z);
+      take(4 * j + 3, a.w, b.w);
+    }
+  }
+#pragma unroll 4
+  for (int i = done + tid; i < C; i += nt) take(i, ids[i], expiry[i]);
+  below = __reduce_add_sync(0xffffffffu, below);
+  klo = __reduce_min_sync(0xffffffffu, klo);
+  khi = __reduce_max_sync(0xffffffffu, khi);
+  if (lane == 0) {
+    atomicAdd(&s_misc[0], below);
+    atomicMin(&s_lohi[0], klo);
+    atomicMax(&s_lohi[1], khi);
+  }
+  __syncthreads();
+
+  // the kept slots: key < T, and the first `need` with key == T in slot
+  // order; every key lies in [klo, khi] or is INT32_MAX
+  unsigned T;
+  int need;
+  below = s_misc[0];
+  klo = s_lohi[0];
+  khi = s_lohi[1];
+  if (K >= C) {                        // every due slot ranks below K
+    T = 0xffffffffu;
+    need = C;
+  } else if (K <= 0) {
+    T = 0u;
+    need = 0;
+  } else if (below <= K) {             // every key below INT32_MAX
+    T = 0xffffffffu;
+    need = K - below;
+  } else if (klo == khi) {               // the K-th key is the only one
+    T = klo;
+    need = K;
+  } else {
+    // radix select of the K-th key from the first byte in which klo and
+    // khi differ: the bytes above it are every candidate's
+    const int top = ((31 - __clz(klo ^ khi)) >> 3) << 3;
+    unsigned mask = top == 24 ? 0u : 0xffffffffu << (top + 8);
+    unsigned prefix = klo & mask;
+    int k = K;
+    for (int shift = top; shift >= 0; shift -= 8) {
+      for (int b = tid; b < kRadixBins; b += nt) s_hist[b] = 0;
+      __syncthreads();
+      for (int base = 0; base < C; base += nt) {
+        const int i = base + tid;
+        unsigned d = kRadixBins;       // no bin
+        if (i < C) {
+          const unsigned u = key(i);
+          if ((u & mask) == prefix) d = (u >> shift) & 0xffu;
+        }
+        // a warp whose lanes share one bin adds once; else each lane
+        if (__all_sync(0xffffffffu, d == __shfl_sync(0xffffffffu, d, 0))) {
+          if (lane == 0 && d < kRadixBins) atomicAdd(&s_hist[d], 32);
+        } else if (d < kRadixBins) {
+          atomicAdd(&s_hist[d], 1);
+        }
+      }
+      __syncthreads();
+      if (warp == 0) {                 // the bin that holds rank k
+        int c[8], sum = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          c[j] = s_hist[lane * 8 + j];
+          sum += c[j];
+        }
+        int incl = sum;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int y = __shfl_up_sync(0xffffffffu, incl, o);
+          if (lane >= o) incl += y;
+        }
+        const int excl = incl - sum;
+        if (excl < k && k <= incl) {
+          int acc = excl, bin = -1, left = 0;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (bin < 0 && k <= acc + c[j]) {
+              bin = j;
+              left = k - acc;
+            }
+            acc += c[j];
+          }
+          s_misc[1] = lane * 8 + bin;
+          s_misc[2] = left;
+        }
+      }
+      __syncthreads();
+      prefix |= static_cast<unsigned>(s_misc[1]) << shift;
+      mask |= 0xffu << shift;
+      k = s_misc[2];
+      __syncthreads();
+    }
+    T = prefix;
+    need = k;
+  }
+
+  // each thread's run of consecutive slots: ranks among the key-T slots,
+  // then places in the list, both in slot order
+  const bool step_max = step == 0x7fffffff;
+  // an odd run length keeps a warp's 32 runs on 32 banks
+  const int per = ((C + nt - 1) / nt) | 1;
+  const int lo = min(tid * per, C), hi = min(lo + per, C);
+  int n_eq = 0;
+  for (int i = lo; i < hi; ++i) n_eq += key(i) == T;
+  int total;
+  const int eq0 = block_scan(n_eq, s_warp, &total);
+  int n_keep = 0;
+  for (int i = lo, r = eq0; i < hi; ++i) {
+    const unsigned u = key(i);
+    const bool due = u != 0xffffffffu || (step_max && ids[i] >= 0);
+    n_keep += due && (u < T || (u == T && r < need));
+    r += u == T;
+  }
+  int n_sel;
+  int at = block_scan(n_keep, s_warp, &n_sel);
+  const int stamp = static_cast<int>(static_cast<unsigned>(step) +
+                                     static_cast<unsigned>(ttl));
+  for (int i = lo, r = eq0; i < hi; ++i) {
+    const unsigned u = key(i);
+    const bool due = u != 0xffffffffu || (step_max && ids[i] >= 0);
+    if (due && (u < T || (u == T && r < need)) && at < cap) {
+      expiry[i] = stamp;
+      if (pull) {
+        s_sel[at] = i;
+      } else {
+        list_slot[at] = i;
+        list_id[at] = ids[i];
+      }
+      ++at;
+    }
+    r += u == T;
+  }
+  if (tid == 0) *count = min(n_sel, cap);
+  if (!pull) {
+    for (int j = n_sel + tid; j < cap; j += nt) {
+      list_slot[j] = C;
+      list_id[j] = -1;
+    }
+    return;
+  }
+  __syncthreads();
+  const int n = min(n_sel, cap);
+  for (int r = 2 * warp; r < n; r += 2 * (nt >> 5)) {
+    float* d[2] = {nullptr, nullptr};
+    const float* s[2] = {nullptr, nullptr};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (r + h < n) {
+        const int sl = s_sel[r + h];
+        d[h] = rows + static_cast<int64_t>(sl) * E;
+        s[h] = table + static_cast<int64_t>(min(max(ids[sl], 0), V - 1)) * E;
+      }
+    }
+    copy_two_rows(d[0], s[0], d[1], s[1], E, vec4, lane);
   }
 }
 
@@ -507,6 +896,63 @@ extern "C" int staged_gather_launch(const void* plane, const void* table,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(plane), static_cast<const float*>(table),
       static_cast<const int*>(src), static_cast<float*>(out), C, E, V, vec4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int staged_pull_launch(void* rows, const void* table,
+                                  const void* slot, const void* src, int n,
+                                  int C, int E, int V, int vec4,
+                                  void* stream) {
+  if (n == 0 || C == 0 || E == 0) return 0;
+  if (V < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks = std::min<int64_t>(
+      ((static_cast<int64_t>(n) + 1) / 2 + kPullWarps - 1) / kPullWarps,
+      static_cast<int64_t>(kSMs) * 16);
+  staged_pull_kernel<<<static_cast<unsigned>(blocks), kPullWarps * 32, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(rows), static_cast<const float*>(table),
+      static_cast<const int*>(slot), static_cast<const int*>(src), n, C, E, V,
+      vec4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K: the budget, C or more for none; cap: the list's length (min(K, C));
+// pull: the block pulls the kept rows (cap <= kBlockPull), else it writes
+// the list
+extern "C" int plane_refresh_launch(const void* ids, void* expiry,
+                                    void* rows, const void* table,
+                                    void* list_slot, void* list_id,
+                                    void* count, int C, int E, int V,
+                                    int step, int ttl, int K, int cap,
+                                    int pull, int vec4, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C == 0) return static_cast<int>(cudaMemsetAsync(count, 0, 4, st));
+  if ((pull && (cap > kBlockPull || V < 1)) || cap > C)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int* i = static_cast<const int*>(ids);
+  int* x = static_cast<int*>(expiry);
+  float* r = static_cast<float*>(rows);
+  const float* t = static_cast<const float*>(table);
+  int* ls = static_cast<int*>(list_slot);
+  int* li = static_cast<int*>(list_id);
+  int* n = static_cast<int*>(count);
+  const int keys4 = reinterpret_cast<uintptr_t>(ids) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(expiry) % 16 == 0;
+  if (C <= kKeysSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        plane_refresh_kernel<true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kKeysSmem * sizeof(unsigned)));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    plane_refresh_kernel<true>
+        <<<1, kRefreshThreads, C * sizeof(unsigned), st>>>(
+            i, x, r, t, ls, li, n, C, E, V, step, ttl, K, cap, pull, vec4,
+            keys4);
+  } else {
+    plane_refresh_kernel<false><<<1, kRefreshThreads, 0, st>>>(
+        i, x, r, t, ls, li, n, C, E, V, step, ttl, K, cap, pull, vec4,
+        keys4);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,8 +6,16 @@
   Replaces the Pallas TPU kernel ``repro/kernels/emb_lookup.py:
   pooled_lookup``.
 * :func:`staged_gather` — ``out[s] = table[src[s]] if src[s] >= 0 else
-  plane[s]``: the TTL refresh pull and merge into a cache plane.  Replaces
-  the Pallas TPU kernel ``repro/kernels/emb_lookup.py:staged_gather``.
+  plane[s]``, out of place, as the TPU function writes a new plane.
+  Replaces the Pallas TPU kernel ``repro/kernels/emb_lookup.py:
+  staged_gather``; no main path runs it.
+* :func:`staged_pull` — ``rows[slot[r]] = table[src[r]]`` in place over a
+  compacted list: the training prefetch pull and the codec refresh's
+  write.  :func:`plane_refresh` — the serving plane's TTL refresh in
+  place: the due slots, the budget's stalest by a stable (expiry, slot)
+  select, their rows pulled and expiry stamped, the count on the
+  device.  Both replace ``staged_gather`` on the port's paths and touch
+  only the rows they pull.
 * :func:`pooled_lookup_staged` — the pooled history bag read from the
   plane where a live slot holds the id and from the table elsewhere, a
   warp per (bag, 128 columns) with its row loads in flight.  Replaces
@@ -38,10 +46,13 @@ from ..quant.codecs import dequantize_rows, get_codec, group_size
 
 __all__ = ["LAUNCHES", "pooled_lookup", "pooled_lookup_ref",
            "staged_gather", "staged_gather_ref",
+           "staged_pull", "staged_pull_ref",
+           "plane_refresh", "plane_refresh_ref",
            "pooled_lookup_staged", "pooled_lookup_staged_ref",
            "pooled_lookup_quant", "pooled_lookup_quant_ref"]
 
-LAUNCHES = {"pooled_lookup": 0, "staged_gather": 0,
+LAUNCHES = {"pooled_lookup": 0, "staged_gather": 0, "staged_pull": 0,
+            "plane_refresh": 0,
             "pooled_lookup_staged": 0, "pooled_lookup_quant": 0}
 
 _MAX_F = 4096   # the longest bag pooled_lookup_staged takes
@@ -184,6 +195,156 @@ def staged_gather(plane_rows: torch.Tensor, table: torch.Tensor,
     _raise_on(rc, "staged_gather")
     LAUNCHES["staged_gather"] += 1
     return out
+
+
+# --------------------------------------------------------------------------
+# staged_pull
+# --------------------------------------------------------------------------
+def staged_pull_ref(rows: torch.Tensor, table: torch.Tensor,
+                    slot: torch.Tensor,
+                    src: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`staged_pull`."""
+    C, V = rows.shape[0], table.shape[0]
+    if src is None:
+        src = torch.arange(slot.shape[0], dtype=torch.int32,
+                           device=slot.device)
+    keep = (slot >= 0) & (slot < C)
+    rows[slot[keep].long()] = table[src[keep].long().clamp(0, V - 1)]
+    return rows
+
+
+def staged_pull(rows: torch.Tensor, table: torch.Tensor, slot: torch.Tensor,
+                src: torch.Tensor | None = None) -> torch.Tensor:
+    """In place: ``rows[slot[r]] = table[src[r]]`` for every r, and
+    returns ``rows``.
+
+    rows: (C, E) f32; table: (V, E) f32; slot: (n,) int32, distinct, a
+    slot outside [0, C) skipped (C marks none); src: (n,) int32, an index
+    outside the table clamped into it, or None for ``src[r] = r``.  Only
+    the pulled rows are read and written.
+    """
+    _check("rows", rows, torch.float32, (None, None))
+    C, E = rows.shape
+    _check("table", table, torch.float32, (None, E))
+    _check("slot", slot, torch.int32, (None,))
+    n = slot.shape[0]
+    if src is not None:
+        _check("src", src, torch.int32, (n,))
+    if not _on_cuda(rows, table, slot, src):
+        return staged_pull_ref(rows, table, slot, src)
+    if table.shape[0] == 0 and n and C:
+        raise ValueError("staged_pull needs a table with rows")
+    from ._build import load_library
+
+    lib = load_library("emb_lookup")
+    rc = lib.staged_pull_launch(
+        rows.data_ptr(), table.data_ptr(), slot.data_ptr(),
+        None if src is None else src.data_ptr(), n, C, E, table.shape[0],
+        _vec4(E, rows, table),
+        torch.cuda.current_stream(rows.device).cuda_stream)
+    _raise_on(rc, "staged_pull")
+    LAUNCHES["staged_pull"] += 1
+    return rows
+
+
+# --------------------------------------------------------------------------
+# plane_refresh
+# --------------------------------------------------------------------------
+_INT32_MAX = torch.iinfo(torch.int32).max
+_BLOCK_PULL = 256   # the longest list plane_refresh's block pulls itself
+
+
+def _int32(name: str, v: int) -> int:
+    v = int(v)
+    if not -2 ** 31 <= v < 2 ** 31:
+        raise ValueError(f"{name} = {v} does not fit int32")
+    return v
+
+
+def plane_refresh_ref(plane, table: torch.Tensor, step: int, ttl: int,
+                      budget: int | None = None, *, pull: bool = True):
+    """Plain PyTorch version of :func:`plane_refresh`: the reference's
+    stable argsort of the keys and its rank scatter."""
+    ids, rows, expiry = plane.ids, plane.rows, plane.expiry
+    C, V = ids.shape[0], table.shape[0]
+    due = (ids >= 0) & (expiry <= step)
+    if budget is not None and budget < C:
+        order = torch.argsort(torch.where(due, expiry, _INT32_MAX),
+                              stable=True)
+        rank = torch.empty_like(order)
+        rank[order] = torch.arange(C, device=order.device)
+        due = due & (rank < budget)
+    cap = C if budget is None else max(0, min(int(budget), C))
+    sel = torch.nonzero(due).flatten()
+    n = sel.shape[0]
+    expiry[sel] = int(step) + int(ttl)
+    n_refreshed = torch.tensor(n, dtype=torch.int32, device=ids.device)
+    if pull:
+        rows[sel] = table[ids[sel].long().clamp(0, V - 1)]
+        return n_refreshed, None, None
+    sel_slot = torch.full((cap,), C, dtype=torch.int32, device=ids.device)
+    sel_ids = torch.full((cap,), -1, dtype=torch.int32, device=ids.device)
+    sel_slot[:n] = sel.to(torch.int32)
+    sel_ids[:n] = ids[sel]
+    return n_refreshed, sel_slot, sel_ids
+
+
+def plane_refresh(plane, table: torch.Tensor, step: int, ttl: int,
+                  budget: int | None = None, *, pull: bool = True):
+    """One TTL round over a cache plane, in place.
+
+    A slot is due when ``ids >= 0`` and ``expiry <= step``.  With a
+    ``budget`` only the due slots ranked below it by ``(expiry, slot)``
+    are kept (the stalest first, ties by slot); without one every due
+    slot.  The kept slots get ``expiry = step + ttl`` and, with ``pull``,
+    their rows ``table[ids]`` (clamped into the table).  ``plane`` has
+    ``ids`` (C,) int32, ``rows`` (C, E) f32 and ``expiry`` (C,) int32,
+    updated in place; no row that is not kept is read or written.
+
+    Returns ``(n_refreshed, sel_slot, sel_ids)``: the count, a 0-dim
+    int32 on the plane's device; with ``pull=False`` the kept slots in
+    slot order and their ids, (cap,) int32 padded with ``(C, -1)``, cap
+    ``min(budget, C)`` (C without a budget), and the rows left as they
+    were; with ``pull`` None and None.  One launch with a list of at most
+    256 rows, else a second, :func:`staged_pull`; no host sync.
+    """
+    ids, rows, expiry = plane.ids, plane.rows, plane.expiry
+    _check("ids", ids, torch.int32, (None,))
+    C = ids.shape[0]
+    _check("expiry", expiry, torch.int32, (C,))
+    _check("rows", rows, torch.float32, (C, None))
+    E = rows.shape[1]
+    _check("table", table, torch.float32, (None, E))
+    step, ttl = _int32("step", step), _int32("ttl", ttl)
+    if budget is not None:
+        budget = _int32("budget", budget)
+    if not _on_cuda(ids, rows, expiry, table):
+        return plane_refresh_ref(plane, table, step, ttl, budget, pull=pull)
+    if pull and table.shape[0] == 0 and C:
+        raise ValueError("plane_refresh needs a table with rows")
+    from ._build import load_library
+
+    lib = load_library("emb_lookup")
+    K = C if budget is None else max(0, min(budget, C))
+    block_pull = pull and K <= _BLOCK_PULL
+    count = torch.empty((), dtype=torch.int32, device=ids.device)
+    sel_slot = sel_ids = None
+    if not block_pull:
+        sel_slot = torch.empty((K,), dtype=torch.int32, device=ids.device)
+        sel_ids = torch.empty((K,), dtype=torch.int32, device=ids.device)
+    rc = lib.plane_refresh_launch(
+        ids.data_ptr(), expiry.data_ptr(), rows.data_ptr(),
+        table.data_ptr(), None if sel_slot is None else sel_slot.data_ptr(),
+        None if sel_ids is None else sel_ids.data_ptr(), count.data_ptr(),
+        C, E, table.shape[0], step, ttl, K, K, int(block_pull),
+        _vec4(E, rows, table),
+        torch.cuda.current_stream(ids.device).cuda_stream)
+    _raise_on(rc, "plane_refresh")
+    LAUNCHES["plane_refresh"] += 1
+    if pull and not block_pull:
+        staged_pull(rows, table, sel_slot, sel_ids)
+        sel_slot = sel_ids = None
+    return count, sel_slot, sel_ids
 
 
 # --------------------------------------------------------------------------

@@ -9,13 +9,15 @@ cache plane seeded with the workload's hot set.  Every micro-batch
   2. is dispatched with the latency-SLO ESD cost
      (:func:`repro_torch.serve.cost.serve_cost_matrix` + Alg. 2) or
      uniformly at random (``--mechanism random``),
-  3. for each worker that got requests: a TTL refresh of its plane
-     (:func:`repro_torch.serve.plane.refresh_plane`, through the
-     ``staged_gather`` kernel; with ``--codec`` a gather and the codec's
-     round trip, as the quantized wire delivers rows), then the serve step
+  3. for each worker that got requests: a TTL refresh of its plane in
+     place (:func:`repro_torch.serve.plane.refresh_plane`, one
+     ``plane_refresh`` launch; with ``--codec`` the kept rows also go
+     through a gather, the codec's round trip, as the quantized wire
+     delivers rows, and a ``staged_pull``), then the serve step
      (:func:`repro_torch.serve.step.make_serve_step`, the pooled bag
      through the ``pooled_lookup_staged`` kernel), synchronised so that
-     latency means completion.
+     latency means completion; the refresh's count is read after that
+     synchronise, so no host wait sits between the refresh and the step.
 
 Latency is wall clock (completion - arrival), reported as p50/p99/mean,
 SLO-violation rate, QPS-per-worker and plane staleness age.  Model
@@ -44,6 +46,7 @@ from ..data.synthetic import WORKLOADS
 from ..device import resolve_device
 from ..models.dlrm import init_params
 from ..obs import MetricsRegistry, log_step
+from ..pipeline.prefetch import PrefetchPlane
 from ..quant.codecs import codec_name, get_codec, resolve_link_codecs
 from ..serve import (StreamConfig, make_serve_step, micro_batches,
                      plane_ages, refresh_plane, request_arrivals, seed_plane,
@@ -140,7 +143,11 @@ def run_serve(args) -> dict:
     pad_sparse = np.full((args.max_batch, W), -1, np.int64)
     pad_dense = np.zeros((args.max_batch, wl.n_dense), np.float32)
     serve_step(model, planes[0], pad_sparse, pad_dense, 0)
-    refresh_plane(planes[0], table, 0, ttl=args.ttl_batches,
+    # the refresh runs in place: warm it up on a scratch copy
+    scratch = PrefetchPlane(ids=planes[0].ids.clone(),
+                            rows=planes[0].rows.clone(),
+                            expiry=planes[0].expiry.clone())
+    refresh_plane(scratch, table, 0, ttl=args.ttl_batches,
                   budget=args.refresh_budget, codec=codec)
     _sync(device)
 
@@ -175,9 +182,9 @@ def run_serve(args) -> dict:
             planes[j], n_ref = refresh_plane(
                 planes[j], table, bi, ttl=args.ttl_batches,
                 budget=args.refresh_budget, codec=codec)
-            n_refresh += int(n_ref)
             logits, _ = serve_step(model, planes[j], sp, dn, bi)
             _sync(device)
+            n_refresh += int(n_ref)
             done = time.perf_counter() - t0
             worker_h.observe(time.perf_counter() - t_w0)
             busy_until[j] = done

@@ -600,13 +600,15 @@ def run_dlrm(args, model=None) -> dict:
         def pull(sel):
             """The prefetch pull reads the table train updates in place:
             on the train stream at its place in host order, after the
-            trains issued so far and before the next."""
+            trains issued so far and before the next.  It writes the
+            plane's rows in place, and nothing else reads or writes them
+            (the selection and ``staged_membership`` read ids and expiry
+            only), so they stay on the train stream."""
             nonlocal pf_plane, pull_done
             selected = streams.mark()
             with streams.trainer():
                 streams.wait(selected)
-                streams.give((sel.src, sel.sel_ids, sel.sel_slot,
-                              sel.sel_ok))
+                streams.give((sel.sel_ids, sel.sel_slot, pf_plane.rows))
                 rows = prefetch_pull(pf_plane.rows, model.embed.detach(), sel,
                                      codec)
                 pull_done = streams.mark()

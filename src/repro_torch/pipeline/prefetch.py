@@ -20,9 +20,10 @@ Per step:
      halves, which a pipelined driver issues on different CUDA streams:
      :func:`prefetch_select` reads only the plane's ids and expiry and
      the cache state, and :func:`prefetch_pull` reads the table.  The
-     exact pull is one launch of :func:`repro_torch.kernels.emb_lookup.
-     staged_gather` (kernel B3), which writes the chosen table rows into
-     a new plane and carries every other slot through; with a ``codec``
+     pull is one launch of :func:`repro_torch.kernels.emb_lookup.
+     staged_pull`, which writes the chosen table rows into their slots
+     of the plane's rows in place and touches no other row (the JAX
+     package's ``staged_gather`` writes a new plane); with a ``codec``
      the pulled rows go through :func:`fake_quant` first, so the plane
      holds what the quantized wire would deliver;
   3. :func:`staged_membership` projects the plane onto a (V,) bool mask,
@@ -41,7 +42,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..kernels.emb_lookup import staged_gather
+from ..kernels.emb_lookup import staged_pull
 from ..quant.codecs import fake_quant, get_codec
 
 __all__ = ["PrefetchPlane", "prefetch_init", "prefetch_candidates",
@@ -100,15 +101,13 @@ def prefetch_candidates(meta, step: int, max_cands: int,
 @dataclasses.dataclass
 class PrefetchSelection:
     """What one prefetch round decided, before any row moves: the plane's
-    new ``ids`` and ``expiry``; ``src`` (C,), the table row each slot
-    pulls or -1 (the exact pull's input); ``sel_ids``, ``sel_slot`` and
-    ``sel_ok`` (budget,), the pulled ids, their slots (C = none) and
-    which ranks pulled (the codec pull's inputs); ``n_pulled``, 0-dim
+    new ``ids`` and ``expiry``; ``sel_ids`` and ``sel_slot`` (budget,),
+    the pulled ids and their slots (C = none), the pull's inputs;
+    ``sel_ok`` (budget,), which ranks pulled; ``n_pulled``, 0-dim
     int32."""
 
     ids: torch.Tensor
     expiry: torch.Tensor
-    src: torch.Tensor
     sel_ids: torch.Tensor
     sel_slot: torch.Tensor
     sel_ok: torch.Tensor
@@ -174,26 +173,23 @@ def prefetch_select(plane: PrefetchPlane, resident: torch.Tensor,
     return PrefetchSelection(
         ids=_scatter_drop(ids0, sel_slot, sel_ids),
         expiry=_scatter_drop(expiry0, sel_slot, sel_exp),
-        src=_scatter_drop(torch.full((C,), -1, dtype=torch.int32,
-                                     device=dev),
-                          sel_slot, sel_ids.clamp(0, V - 1)),
         sel_ids=sel_ids, sel_slot=sel_slot, sel_ok=sel_ok,
         n_pulled=take.sum(dtype=torch.int32))
 
 
 def prefetch_pull(rows: torch.Tensor, table: torch.Tensor,
                   sel: PrefetchSelection, codec=None) -> torch.Tensor:
-    """The pull half of :func:`prefetch_step`: the plane's new (C, E)
-    rows, the selected table rows written into their slots.  Exact: one
-    :func:`staged_gather` launch.  With a ``codec``: the reference's
-    path, a gather, :func:`fake_quant`, and a scatter into the slots."""
+    """The pull half of :func:`prefetch_step`: the selected table rows
+    written into their slots of ``rows``, in place, and ``rows``
+    returned.  One :func:`staged_pull` launch over ``sel.sel_slot`` (C
+    marks none); with a ``codec`` its rows are the selected ones through
+    :func:`fake_quant`, the reference's wire-format path."""
     c = get_codec(codec)
     if c is None:
-        return staged_gather(rows, table, sel.src)
+        return staged_pull(rows, table, sel.sel_slot, sel.sel_ids)
     V = table.shape[0]
     pulled = fake_quant(table[sel.sel_ids.clamp(0, V - 1).long()], c)
-    return _scatter_drop(rows, sel.sel_slot,
-                         torch.where(sel.sel_ok[:, None], pulled, 0.0))
+    return staged_pull(rows, pulled, sel.sel_slot)
 
 
 def prefetch_step(plane: PrefetchPlane, table: torch.Tensor,
@@ -207,7 +203,8 @@ def prefetch_step(plane: PrefetchPlane, table: torch.Tensor,
     caches is never a future miss); cand_ids / cand_expiry: (P,) int32
     from :func:`prefetch_candidates`; step: the current absolute step
     (the expiry clock).  Returns ``(new_plane, n_pulled)``, ``n_pulled``
-    a 0-dim int32 tensor."""
+    a 0-dim int32 tensor; ``new_plane.rows`` is ``plane.rows``, updated
+    in place."""
     sel = prefetch_select(plane, resident, cand_ids, cand_expiry, step,
                           budget=budget)
     rows = prefetch_pull(plane.rows, table, sel, codec)

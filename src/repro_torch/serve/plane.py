@@ -6,26 +6,30 @@ answers lookups from its staged copy until the TTL lapses, then a
 refresh re-pulls the current table value.  The step clock is the
 micro-batch sequence number.
 
-An exact (fp32) pull goes through :func:`repro_torch.kernels.
-emb_lookup.staged_gather`, which writes a new plane: each refresh
-rewrites all C rows, not only the due ones, as the JAX package's
-out-of-place pull does.  With a wire ``codec`` the pull follows the
-reference's quantized path instead: a plain gather of the rows, then
+A refresh runs in place on the plane it is given: one launch of
+:func:`repro_torch.kernels.emb_lookup.plane_refresh` (two without a
+budget, as when seeding: the list is then pulled over the grid) finds
+the due slots, keeps the budget's stalest (a stable select by expiry,
+ties by slot: the reference's argsort ranks), pulls their rows, stamps
+their expiry and counts them on the device.  No other row is read or written,
+where the JAX package's out-of-place pull rewrites all C rows.  With a
+wire ``codec`` the kernel only selects and stamps: the kept rows (at
+most the budget) are gathered, go through
 :func:`repro_torch.quant.codecs.fake_quant` (the rows as the quantized
-wire delivers them), then a select over the plane.
+wire delivers them; its groups lie within a row, so a row's value does
+not depend on the others) and :func:`repro_torch.kernels.emb_lookup.
+staged_pull` writes them into their slots.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..kernels.emb_lookup import staged_gather
+from ..kernels.emb_lookup import plane_refresh, staged_pull
 from ..pipeline.prefetch import PrefetchPlane, prefetch_init
 from ..quant.codecs import fake_quant, get_codec
 
 __all__ = ["seed_plane", "refresh_plane", "plane_ages"]
-
-_INT32_MAX = torch.iinfo(torch.int32).max
 
 
 def seed_plane(table: torch.Tensor, ids: np.ndarray, *, step: int,
@@ -38,55 +42,39 @@ def seed_plane(table: torch.Tensor, ids: np.ndarray, *, step: int,
     if ids.size and len(np.unique(ids)) != ids.size:
         raise ValueError("seed_plane ids must be unique")
     plane = prefetch_init(int(ids.size), int(table.shape[1]), table.device)
+    # every occupied slot is due at ``step``: the refresh without a budget
+    # pulls them all (same codec treatment) and stamps step + ttl
+    expiry = np.where(ids >= 0, int(step), int(step) + int(ttl))
     plane = PrefetchPlane(
         ids=torch.as_tensor(ids, device=table.device),
         rows=plane.rows,
-        expiry=torch.full((ids.size,), int(step) + int(ttl),
-                          dtype=torch.int32, device=table.device),
+        expiry=torch.as_tensor(expiry.astype(np.int32), device=table.device),
     )
-    # pull every row through the refresh path (same codec treatment)
-    which = torch.ones((ids.size,), dtype=torch.bool, device=table.device)
-    return _pull_rows(plane, table, which, codec=codec)
-
-
-def _pull_rows(plane: PrefetchPlane, table: torch.Tensor,
-               which: torch.Tensor, *, codec=None) -> PrefetchPlane:
-    """Re-pull ``which`` slots' rows from ``table`` (in the wire format
-    of ``codec``), carrying every other slot through."""
-    V = table.shape[0]
-    src = torch.where(which & (plane.ids >= 0), plane.ids.clamp(0, V - 1),
-                      -1)
-    c = get_codec(codec)
-    if c is None:
-        rows = staged_gather(plane.rows, table, src)
-    else:
-        pulled = fake_quant(table[src.clamp(0, V - 1)], c)
-        rows = torch.where((src >= 0)[:, None], pulled, plane.rows)
-    return PrefetchPlane(ids=plane.ids, rows=rows, expiry=plane.expiry)
+    return refresh_plane(plane, table, step, ttl=ttl, codec=codec)[0]
 
 
 def refresh_plane(plane: PrefetchPlane, table: torch.Tensor, step: int, *,
                   ttl: int, budget: int | None = None, codec=None):
-    """One TTL round: re-pull up to ``budget`` expired rows.
+    """One TTL round: re-pull up to ``budget`` expired rows, in place.
 
     A slot is due when ``expiry <= step``.  Refreshed slots get
     ``expiry = step + ttl``; with a ``budget`` the stalest slots (lowest
     expiry, ties by slot) go first and the rest keep serving their old
-    rows until a later round.  Returns ``(new_plane, n_refreshed)``, the
-    count a 0-dim int tensor on the plane's device.
+    rows until a later round.  Returns ``(plane, n_refreshed)``: the same
+    plane, its ``rows`` and ``expiry`` updated in place, and the count, a
+    0-dim int32 tensor on the plane's device (reading it waits for the
+    device).
     """
-    C = plane.ids.shape[0]
-    due = (plane.ids >= 0) & (plane.expiry <= step)
-    if budget is not None:
-        order = torch.argsort(torch.where(due, plane.expiry, _INT32_MAX),
-                              stable=True)
-        rank = torch.empty_like(order)
-        rank[order] = torch.arange(C, device=order.device)
-        due = due & (rank < budget)
-    plane = _pull_rows(plane, table, due, codec=codec)
-    new_exp = torch.where(due, int(step) + int(ttl), plane.expiry)
-    return (PrefetchPlane(ids=plane.ids, rows=plane.rows, expiry=new_exp),
-            due.sum())
+    c = get_codec(codec)
+    if c is None:
+        n, _, _ = plane_refresh(plane, table, step, ttl, budget)
+        return plane, n
+    n, slot, sel_ids = plane_refresh(plane, table, step, ttl, budget,
+                                     pull=False)
+    V = table.shape[0]
+    pulled = fake_quant(table[sel_ids.clamp(0, V - 1).long()], c)
+    staged_pull(plane.rows, pulled, slot)
+    return plane, n
 
 
 def plane_ages(plane: PrefetchPlane, step: int, *, ttl: int) -> np.ndarray:

@@ -124,6 +124,119 @@ def test_mixed_devices_raise(cuda):
         tk.staged_gather(x["plane"].cpu(), x["table"], x["src"])
 
 
+class _Plane:
+    def __init__(self, ids, rows, expiry):
+        self.ids, self.rows, self.expiry = ids, rows, expiry
+
+    def clone(self):
+        return _Plane(self.ids.clone(), self.rows.clone(),
+                      self.expiry.clone())
+
+
+def _refresh_plane_inputs(rng, V, C, E, device, *, cold=False,
+                          unaligned=False):
+    ids = rng.choice(V, C, replace=False).astype(np.int32)
+    ids[rng.random(C) < 0.1] = -1
+    exp = (np.full(C, 32, np.int32) if cold
+           else rng.integers(-1, 40, C).astype(np.int32))
+    rows = torch.from_numpy(rng.normal(size=(C, E)).astype(np.float32))
+    if unaligned:                    # 4 bytes into its storage
+        big = torch.zeros(C * E + 1, device=device)
+        big[1:].copy_(rows.flatten())
+        rows = big[1:].view(C, E)
+    plane = _Plane(torch.from_numpy(ids).to(device), rows.to(device),
+                   torch.from_numpy(exp).to(device))
+    table = torch.from_numpy(rng.normal(size=(V, E)).astype(np.float32))
+    return plane, table.to(device)
+
+
+@pytest.mark.parametrize("C,E,budget,cold", [
+    (23_564, 512, 64, True), (23_564, 512, 64, False),
+    (23_564, 512, None, False), (23_564, 512, 1, False),
+    (3_000, 130, 256, False), (3_000, 130, 257, False),
+    (3_000, 16, 2_999, False), (3_000, 16, 5_000, True),
+    (3_000, 16, 0, False), (60_000, 8, 64, True), (60_000, 8, 100, False),
+    (60_000, 8, None, False), (1, 4, 64, True), (777, 33, 5, False)])
+def test_plane_refresh_matches_plain(cuda, C, E, budget, cold):
+    """Bit for bit the plain version (rows, expiry, count and, without the
+    pull, the list) on both key layouts (shared memory up to 49,152
+    slots, L2 above), cold ties, every budget route; one launch with a
+    list of at most 256 rows, a staged_pull beside it above."""
+    rng = np.random.default_rng(C + E)
+    V = max(2 * C, 1_000)
+    plane, table = _refresh_plane_inputs(rng, V, C, E, cuda, cold=cold)
+    for step, pull in ((32, True), (33, False), (35, True)):
+        want = plane.clone()
+        n_ref, s_ref, i_ref = tk.plane_refresh_ref(want, table, step, 7,
+                                                   budget, pull=pull)
+        n0 = dict(tk.LAUNCHES)
+        got = plane
+        n, s, i = tk.plane_refresh(got, table, step, 7, budget, pull=pull)
+        torch.cuda.synchronize()
+        ran = {k: tk.LAUNCHES[k] - n0[k] for k in n0 if tk.LAUNCHES[k]
+               != n0[k]}
+        K = C if budget is None else min(budget, C)
+        assert ran == ({"plane_refresh": 1} if not pull or K <= 256 else
+                       {"plane_refresh": 1, "staged_pull": 1})
+        assert int(n) == int(n_ref) and n.dtype == torch.int32
+        for f in ("ids", "rows", "expiry"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+        if pull:
+            assert s is None and i is None
+        else:
+            assert torch.equal(s, s_ref) and torch.equal(i, i_ref)
+        plane = want                  # the next round from the same state
+
+
+def test_plane_refresh_edge_cases_match_plain(cuda):
+    """Nothing due, step = INT32_MAX (a due key ties with the slots that
+    are not due), an unaligned plane (the scalar pull) and E not a
+    multiple of 4."""
+    rng = np.random.default_rng(11)
+    INT32_MAX = 2 ** 31 - 1
+    for step, budget, unaligned, E, exp_set in (
+            (-5, 64, False, 64, None), (INT32_MAX, 40, False, 64, INT32_MAX),
+            (INT32_MAX, None, False, 8, INT32_MAX), (20, 64, True, 32, None),
+            (20, None, True, 30, None)):
+        plane, table = _refresh_plane_inputs(rng, 5_000, 2_000, E, cuda,
+                                             unaligned=unaligned)
+        if exp_set is not None:
+            plane.expiry[::3] = exp_set
+        want = plane.clone()
+        n_ref, _, _ = tk.plane_refresh_ref(want, table, step, 0, budget)
+        n, _, _ = tk.plane_refresh(plane, table, step, 0, budget)
+        torch.cuda.synchronize()
+        assert int(n) == int(n_ref)
+        for f in ("rows", "expiry"):
+            assert torch.equal(getattr(plane, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("C,n,E,with_src,unaligned", [
+    (512, 64, 512, True, False), (512, 64, 512, False, False),
+    (100, 37, 130, True, False), (4_000, 3_000, 16, True, False),
+    (64, 20, 32, True, True), (10, 1, 5, False, False)])
+def test_staged_pull_matches_plain(cuda, C, n, E, with_src, unaligned):
+    rng = np.random.default_rng(C + n)
+    V = 5_000
+    plane, table = _refresh_plane_inputs(rng, V, C, E, cuda,
+                                         unaligned=unaligned)
+    slot = rng.permutation(C)[:n].astype(np.int32)
+    slot[rng.random(n) < 0.2] = C                # none
+    slot = torch.from_numpy(slot).to(cuda)
+    if with_src:
+        src = torch.from_numpy(rng.integers(-3, V + 3, n).astype(np.int32)
+                               ).to(cuda)
+    else:
+        src, table = None, table[:n].contiguous()
+    want = plane.rows.clone()
+    tk.staged_pull_ref(want, table, slot, src)
+    n0 = tk.LAUNCHES["staged_pull"]
+    out = tk.staged_pull(plane.rows, table, slot, src)
+    torch.cuda.synchronize()
+    assert out is plane.rows and torch.equal(out, want)
+    assert tk.LAUNCHES["staged_pull"] == n0 + 1
+
+
 @pytest.mark.parametrize("E", [4, 16, 512, 130])
 def test_pooled_lookup_matches_plain(cuda, E):
     rng = np.random.default_rng(E + 1)

@@ -4,9 +4,10 @@ repro_torch against the JAX package on the CPU.
 * ``prefetch_candidates`` (numpy, single- and multi-PS): exact.
 * ``prefetch_step`` over rounds that reuse, refresh, expire and reclaim
   slots, against the reference's with ``interpret=True`` (its pull is
-  the Pallas ``staged_gather`` in interpret mode): ids, expiry and
-  ``n_pulled`` exact, rows bit for bit.  With ``codec="int8"`` against
-  the jitted reference (its ``fake_quant`` path): the same, bit for bit.
+  the Pallas ``staged_gather`` in interpret mode; the port's pulls in
+  place): ids, expiry and ``n_pulled`` exact, rows bit for bit.  With
+  ``codec="int8"`` against the jitted reference (its ``fake_quant``
+  path): the same, bit for bit.
 * ``staged_membership``: exact.
 * ``DispatchingLoader``: the same dispatched items in the same order.
 """
@@ -93,23 +94,31 @@ def test_prefetch_step_codec_matches_reference(seed):
 
 
 def test_exact_pull_is_one_staged_gather():
-    """The exact pull is one B3 call a round (the kernel on a card, its
-    plain version here); the codec pull never calls it."""
-    calls = []
-    real = emb_lookup.staged_gather_ref
+    """The pull is one call a round of B3's in-place form, staged_pull
+    (the kernel on a card, its plain version here), exact and with the
+    codec (over the quantized rows), and the out-of-place staged_gather
+    is never called."""
+    calls = {"staged_pull": [], "staged_gather": []}
+    real = {k: getattr(emb_lookup, f"{k}_ref") for k in calls}
 
-    def counted(*a):
-        calls.append(1)
-        return real(*a)
+    def counted(name):
+        def call(*a):
+            calls[name].append(1)
+            return real[name](*a)
+        return call
 
-    emb_lookup.staged_gather_ref = counted
+    for name in calls:
+        setattr(emb_lookup, f"{name}_ref", counted(name))
     try:
         _rounds(0, 8, 4)
-        n_exact = len(calls)
+        n_exact = len(calls["staged_pull"])
         _rounds(0, 8, 4, codec="int8")
     finally:
-        emb_lookup.staged_gather_ref = real
-    assert n_exact == len(calls) == 10
+        for name in calls:
+            setattr(emb_lookup, f"{name}_ref", real[name])
+    assert n_exact == 10
+    assert len(calls["staged_pull"]) == 20
+    assert calls["staged_gather"] == []
 
 
 def test_prefetch_select_reads_no_rows():
@@ -125,7 +134,7 @@ def test_prefetch_select_reads_no_rows():
     plane.rows = torch.from_numpy(rng.standard_normal((8, E))
                                   .astype(np.float32))
     b = TP.prefetch_select(plane, resident, cids, cexp, 0, budget=2)
-    for key in ("ids", "expiry", "src", "sel_ids", "sel_slot", "sel_ok",
+    for key in ("ids", "expiry", "sel_ids", "sel_slot", "sel_ok",
                 "n_pulled"):
         assert torch.equal(getattr(a, key), getattr(b, key)), key
     assert int(a.n_pulled) == 2
