@@ -1,0 +1,103 @@
+"""The system under test: the port's ESD training step, assembled from
+its public pieces as ``repro_torch.launch.train.run_dlrm`` assembles it
+for these options (ESD, ragged exchange, the sparse cache engine, one
+PS, no prefetch, no fault plan), with the benchmark's weights and link
+times.  Every module is looked up when the step is built, so a test can
+break the path underneath."""
+from __future__ import annotations
+
+import torch
+
+from .peaks import link_times
+from .reference.check import capacity_of
+from .weights import leaf_blocks, leaf_specs
+
+__all__ = ["Program"]
+
+
+class Program:
+    def __init__(self, cfg: dict, mix: dict, weights: dict, device):
+        from repro_torch.configs.dlrm_configs import DLRMConfig
+        from repro_torch.core import dispatch as D
+        from repro_torch.data.synthetic import WORKLOADS
+        from repro_torch.launch import steps as S
+        from repro_torch.launch import train as T
+        from repro_torch.models import dlrm as M
+        from repro_torch.optim import optimizers as O
+
+        wl = WORKLOADS[cfg["program_workload"]]
+        if (tuple(wl.table_sizes) != tuple(cfg["table_sizes"])
+                or wl.n_dense != cfg["n_dense"]):
+            raise SystemExit(f"the program's workload "
+                             f"{cfg['program_workload']} is not the "
+                             f"configuration {cfg['name']}'s shape")
+        self.cfg, self.mix, self.device = cfg, mix, device
+        n, m = mix["workers"], mix["batch_per_worker"]
+        V = sum(cfg["table_sizes"])
+        pcfg = DLRMConfig(cfg["name"], cfg["kind"], cfg["program_workload"],
+                          embedding_dim=cfg["embedding_dim"],
+                          n_dense=cfg["n_dense"],
+                          mlp_dims=tuple(cfg["mlp_dims"]),
+                          cross_layers=cfg["cross_layers"])
+        L = len(cfg["mlp_dims"]) + 1
+        extra = {k: weights[k] for k in ("wide", "cross_w", "cross_b")
+                 if k in weights}
+        self.model = M.DLRM(pcfg, weights["embed"],
+                            [weights[f"bottom.{i}"] for i in range(L)],
+                            [weights[f"top.{i}"] for i in range(L)],
+                            **extra)
+        self.names = [name for name, _ in self.model.named_parameters()]
+        if sorted(self.names) != sorted(s[0] for s in leaf_specs(cfg)):
+            raise SystemExit(f"the program's leaves {self.names} are not "
+                             f"the benchmark's")
+        optimizer = O.get_optimizer(mix["optimizer"], mix["lr"])
+        self.step = T.make_train_step(self.model, M.bce_loss, optimizer,
+                                      mix["codec"])
+        if mix.get("codec_policy", "uniform") != "uniform":
+            raise SystemExit("only the uniform codec policy is wired")
+        t_tran = torch.tensor(
+            link_times(cfg["embedding_dim"], mix["bandwidths_gbps"],
+                       mix["codec"]),
+            dtype=torch.float32, device=device)
+        capacity = capacity_of(cfg, mix)
+        self.decide_stage, self.advance_stage, _, out_rows = \
+            S.make_dlrm_esd_stages(n, m, t_tran, mix["esd_alpha"],
+                                   exchange=mix["exchange"],
+                                   capacity=capacity, codec=mix["codec"])
+        self._init_state = lambda: D.esd_sparse_init(
+            n, V, capacity, max_ids=out_rows * (len(cfg["table_sizes"])
+                                                + cfg["hist_max"]),
+            device=device)
+
+    def init_state(self):
+        return self._init_state()
+
+    def decide(self, state, sparse):
+        return self.decide_stage(state, sparse)
+
+    def advance(self, state, s, d, l, assign):
+        return self.advance_stage(state, s, d, l, assign)
+
+    def train(self, x):
+        return self.step(*x)
+
+    def grad_norms(self) -> dict:
+        """Each leaf's first gradient norm from the optimizer's state
+        after one step (row-wise Adagrad: a row's mean square)."""
+        params = dict(self.model.named_parameters())
+        return {name: torch.sqrt(a.double().sum() * params[name].shape[-1])
+                for name, a in zip(self.names, self.step.state["opt"])}
+
+    def change_norms(self, seed: int) -> dict:
+        """Each leaf's distance from the weights ``seed`` made, block by
+        block (the start made again, so no copy is held)."""
+        params = dict(self.model.named_parameters())
+        out = {}
+        for i, spec in enumerate(leaf_specs(self.cfg)):
+            p = params[spec[0]].detach()
+            sq = torch.zeros((), dtype=torch.float64, device=p.device)
+            for r0, blk in leaf_blocks(seed, i, spec, p.device):
+                d = (p[r0:r0 + blk.shape[0]] - blk).double()
+                sq += (d * d).sum()
+            out[spec[0]] = torch.sqrt(sq)
+        return out
