@@ -9,9 +9,9 @@ prefetch 16, ragged exchange; 12 steps with ``--quick``, 24 without),
 through :func:`repro_torch.launch.train.run_dlrm`.  Three claims the obs
 layer makes, measured on the depth-2 pipelined DLRM driver:
 
-  * bitwise  — with the tracer *disabled* (the default NOOP singleton)
-    the per-step losses are bitwise identical to a traced run: tracing
-    observes the computation, it never perturbs it;
+  * bitwise  — with the tracer *disabled* (the NOOP singleton,
+    installed) the per-step losses are bitwise identical to a traced
+    run: tracing observes the computation, it never perturbs it;
   * overhead — with the tracer *enabled* the median per-step wall time
     regresses <= 3% (ItpS gate); the bench retries fresh measurement
     pairs, up to ``MAX_ATTEMPTS``, and keeps the best;
@@ -43,8 +43,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.launch.train import build_parser, run_dlrm  # noqa: E402
-from repro_torch.obs import (Tracer, set_tracer, validate_timing,  # noqa: E402
-                             write_bench)
+from repro_torch.obs import (NOOP, Tracer, set_tracer,  # noqa: E402
+                             validate_timing, write_bench)
 
 WARMUP = 2          # steps dropped before the median (kernel build spike)
 OVERHEAD_GATE = 0.03
@@ -63,9 +63,9 @@ def _args(depth: int, steps: int, seed: int = 0, device: str = "cuda"):
 
 def _run(depth: int, steps: int, tracer: Tracer | None = None,
          device: str = "cuda") -> list[dict]:
-    """One in-process driver run under the given tracer (None = NOOP);
-    returns its per-step records."""
-    prev = set_tracer(tracer)
+    """One in-process driver run under the given tracer (None installs
+    NOOP); returns its per-step records."""
+    prev = set_tracer(NOOP if tracer is None else tracer)
     try:
         return run_dlrm(_args(depth, steps, device=device))["metrics"]
     finally:

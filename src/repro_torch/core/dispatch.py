@@ -50,6 +50,7 @@ from ..exchange.ragged import ragged_exchange_many
 from ..kernels import auction as KA
 from ..kernels.ops import (cost_matrix_kernel, cost_matrix_sparse_kernel,
                            cost_matrix_sparse_ps_kernel)
+from ..obs.trace import get_tracer
 from .cost import unique_padded
 
 __all__ = ["heu_dispatch", "changed_samples_mask", "esd_reassign",
@@ -190,7 +191,14 @@ def hybrid_dispatch(C: torch.Tensor, m: int, alpha: float,
     the rest to the greedy.  Per-worker capacity defaults to the hard
     m/n split; ``cap > m/n`` lets the assignment skew.  C: (k, n), or
     (B, k, n) for B workers' independent decisions -> (k,) / (B, k)
-    int32."""
+    int32.
+
+    Spans: ``decide.auction`` (the regret sort, the gather, the eps
+    table and the auction's launch), ``decide.auction_wait`` (the host's
+    wait for the auction's result), ``decide.straggler`` with ``rows``,
+    the rows the auction left (only when it left some), and
+    ``decide.greedy``."""
+    tr = get_tracer()
     single = C.dim() == 2
     C = C[None] if single else C
     B, k, n = C.shape
@@ -209,36 +217,46 @@ def hybrid_dispatch(C: torch.Tensor, m: int, alpha: float,
     opt_rows = (min(int(np.floor(k * alpha)), opt_cap * n)
                 if alpha > 0.0 else 0)
     if opt_rows == 0:
-        return out(torch.stack([heu_dispatch(C[b], cap) for b in range(B)]))
-    order = torch.argsort(-_regret(C), dim=1, stable=True)         # (B, k)
-    opt_idx, heu_idx = order[:, :opt_rows], order[:, opt_rows:]
-    C_opt = torch.gather(C, 1, opt_idx[:, :, None].expand(B, opt_rows, n))
-    a_opt = auction_fixed(C_opt, opt_cap)
-    placed = a_opt >= 0
-    if not bool(placed.all()):
+        with tr.span("decide.greedy"):
+            return out(torch.stack([heu_dispatch(C[b], cap)
+                                    for b in range(B)]))
+    with tr.span("decide.auction"):
+        order = torch.argsort(-_regret(C), dim=1, stable=True)     # (B, k)
+        opt_idx, heu_idx = order[:, :opt_rows], order[:, opt_rows:]
+        C_opt = torch.gather(C, 1,
+                             opt_idx[:, :, None].expand(B, opt_rows, n))
+        a_opt = auction_fixed(C_opt, opt_cap)
+        placed = a_opt >= 0
+    with tr.span("decide.auction_wait"):
+        all_placed = bool(placed.all())
+    if not all_placed:
         # stragglers: each unplaced row, in order, takes its cheapest
         # worker with spare capacity (the reference's capacity-respecting
         # scan changes nothing at placed rows, so it runs over the rest)
-        pref = torch.argsort(C_opt, dim=2, stable=True).tolist()
         a_host = a_opt.tolist()
-        for b in range(B):
-            wl = [0] * n
-            for j in a_host[b]:
-                if j >= 0:
-                    wl[j] += 1
-            for i, j in enumerate(a_host[b]):
-                if j < 0:
-                    j_new = _first_free(pref[b][i], wl, opt_cap)
-                    wl[j_new] += 1
-                    a_host[b][i] = j_new
-        a_opt = torch.tensor(a_host, dtype=torch.int32, device=dev)
+        rows = sum(row.count(-1) for row in a_host)
+        with tr.span("decide.straggler", rows=rows):
+            pref = torch.argsort(C_opt, dim=2, stable=True).tolist()
+            for b in range(B):
+                wl = [0] * n
+                for j in a_host[b]:
+                    if j >= 0:
+                        wl[j] += 1
+                for i, j in enumerate(a_host[b]):
+                    if j < 0:
+                        j_new = _first_free(pref[b][i], wl, opt_cap)
+                        wl[j_new] += 1
+                        a_host[b][i] = j_new
+            a_opt = torch.tensor(a_host, dtype=torch.int32, device=dev)
     assign = torch.full((B, k), -1, dtype=torch.int32, device=dev)
     assign.scatter_(1, opt_idx, a_opt)
     if opt_rows < k:
-        for b in range(B):
-            workload = torch.bincount(a_opt[b].long(), minlength=n)
-            a_heu = heu_dispatch(C[b][heu_idx[b]], cap, workload=workload)
-            assign[b].scatter_(0, heu_idx[b], a_heu)
+        with tr.span("decide.greedy"):
+            for b in range(B):
+                workload = torch.bincount(a_opt[b].long(), minlength=n)
+                a_heu = heu_dispatch(C[b][heu_idx[b]], cap,
+                                     workload=workload)
+                assign[b].scatter_(0, heu_idx[b], a_heu)
     return out(assign)
 
 
@@ -297,11 +315,14 @@ def esd_decide(samples: torch.Tensor, state, t_tran: torch.Tensor,
     :func:`esd_cost_matrix`) and ``cap`` overrides the default
     ``dispatch_cap(m, n, cap_slack)`` — a churn-tolerant driver raises
     the static capacity so the survivors of the worst planned
-    simultaneous loss can absorb every sample."""
+    simultaneous loss can absorb every sample.
+
+    Span: ``decide.cost``, the n workers' Alg.-1 matrices."""
     n, m, _ = samples.shape
-    C = torch.stack([esd_cost_matrix(samples[i], state, t_tran, col_bias,
-                                     sparse_cost, part)
-                     for i in range(n)])                          # (n, m, n)
+    with get_tracer().span("decide.cost"):
+        C = torch.stack([esd_cost_matrix(samples[i], state, t_tran,
+                                         col_bias, sparse_cost, part)
+                         for i in range(n)])                      # (n, m, n)
     if cap is None:
         cap = dispatch_cap(m, n, cap_slack)
     assign = hybrid_dispatch(C, m, alpha, cap=cap)

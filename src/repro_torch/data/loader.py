@@ -4,7 +4,9 @@ into that overlap.
 
 The port's copy of the JAX package's ``PrefetchLoader`` and
 ``DispatchingLoader``; each upstream pull is a ``data.load`` span on the
-``loader`` track of the port's tracer (:mod:`repro_torch.obs.trace`).
+``loader`` track of the port's tracer (:mod:`repro_torch.obs.trace`),
+and each consumer's wait for a batch a ``data.wait`` span on the
+consumer's thread.
 """
 from __future__ import annotations
 
@@ -53,7 +55,8 @@ class PrefetchLoader:
     def __next__(self):
         if getattr(self, "_done", False):
             raise StopIteration
-        item = self._q.get()
+        with get_tracer().span("data.wait"):
+            item = self._q.get()
         if item is _SENTINEL:
             self._done = True          # re-raisable: queue is empty now
             if self._err is not None:

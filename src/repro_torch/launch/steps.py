@@ -29,6 +29,7 @@ from ..core.dispatch import (changed_samples_mask, dispatch_cap,
 from ..elastic import mask_state
 from ..exchange.ragged import ragged_exchange_many
 from ..models import api, backbone, whisper
+from ..obs.trace import get_tracer
 from ..optim import get_optimizer
 from ..quant.codecs import get_codec
 
@@ -206,6 +207,8 @@ def make_dlrm_esd_stages(n: int, m: int, t_tran: torch.Tensor, alpha: float,
     and -1 after (pair with the PAD-masked loss).  ``codec`` (needs
     ``exchange="ragged"``) sends the dense features over the quantized
     wire.  Returns ``(decide, advance, realized_cost, out_rows)``.
+    ``advance`` records the spans ``advance.exchange`` (the pack) and
+    ``advance.cache`` (the cache state's update).
 
     Multi-PS: with ``part`` (a :class:`repro_torch.ps.PsPartition`) and
     (n, n_ps) link times every stage takes the batch's global ids to
@@ -281,15 +284,19 @@ def make_dlrm_esd_stages(n: int, m: int, t_tran: torch.Tensor, alpha: float,
 
     def exchange_update(esd_state, sparse, dense, labels, assign,
                         staged=None):
-        (s2, d2, l2), overflow = route(
-            (ids(sparse), split(dense), split(labels)), split(assign))
-        if sparse_esd:
-            new_state, counts = esd_state_update_sparse(
-                esd_state, need_ids_list(s2), capacity, part, staged=staged)
-        else:
-            new_state, counts = esd_state_update(
-                esd_state, need_matrix(s2, esd_state.latest.shape[1]),
-                capacity, staged=staged)
+        tr = get_tracer()
+        with tr.span("advance.exchange"):
+            (s2, d2, l2), overflow = route(
+                (ids(sparse), split(dense), split(labels)), split(assign))
+        with tr.span("advance.cache"):
+            if sparse_esd:
+                new_state, counts = esd_state_update_sparse(
+                    esd_state, need_ids_list(s2), capacity, part,
+                    staged=staged)
+            else:
+                new_state, counts = esd_state_update(
+                    esd_state, need_matrix(s2, esd_state.latest.shape[1]),
+                    capacity, staged=staged)
         counts = dict(counts)
         counts["exchange_overflow"] = overflow
         return (flat(s2), flat(d2), flat(l2)), new_state, counts

@@ -225,7 +225,10 @@ def make_train_step(model, loss_fn, optimizer, codec=None):
 
     ``step.state`` holds what a checkpoint reads and replaces: ``"opt"``,
     the optimizer's state, and ``"qres"``, each table's residual by its
-    parameter name (empty without a codec)."""
+    parameter name (empty without a codec).  Spans: ``train.forward``
+    (the loss), ``train.backward`` (``autograd.grad``) and
+    ``train.update`` (the codec's feedback, the optimizer and the
+    copy), each the host's issue of its part."""
     model.requires_grad_(True)
     names = [name for name, _ in model.named_parameters()]
     params = list(model.parameters())
@@ -243,16 +246,21 @@ def make_train_step(model, loss_fn, optimizer, codec=None):
                        sparse, dense, labels)
 
     def step(sparse, dense, labels):
-        loss = loss_of(sparse, dense, labels)
-        grads = list(torch.autograd.grad(loss, params))
-        res = state["qres"]
-        for i in tables:
-            grads[i], res[names[i]] = quantize_with_feedback(
-                grads[i], res[names[i]], codec)
-        new, state["opt"] = optimizer.update(grads, state["opt"], params)
-        with torch.no_grad():
-            for p, q in zip(params, new):
-                p.copy_(q)
+        tr = get_tracer()
+        with tr.span("train.forward"):
+            loss = loss_of(sparse, dense, labels)
+        with tr.span("train.backward"):
+            grads = list(torch.autograd.grad(loss, params))
+        with tr.span("train.update"):
+            res = state["qres"]
+            for i in tables:
+                grads[i], res[names[i]] = quantize_with_feedback(
+                    grads[i], res[names[i]], codec)
+            new, state["opt"] = optimizer.update(grads, state["opt"],
+                                                 params)
+            with torch.no_grad():
+                for p, q in zip(params, new):
+                    p.copy_(q)
         return loss.detach()
 
     step.state = state

@@ -9,13 +9,13 @@ All benchmarks land their results through :func:`write_bench`, which
   (:mod:`repro_torch.obs.schema`) *before* anything lands on disk, so a
   bench can never publish an artifact that the schema would reject;
 * writes atomically (tmp file + ``os.replace``) so an interrupted bench
-  never leaves a truncated artifact behind;
-* mirrors the artifact's scalar gate fields into the process metrics
-  registry under ``bench.<name>.<path>`` gauges.
+  never leaves a truncated artifact behind.
 
-The JAX package's writer, with one difference: the default directory is
-``benchmarks/results_torch/``, not ``benchmarks/results/``, where the JAX
-package's committed artifacts live.  The port's artifacts come from runs
+The JAX package's writer, with two differences: the default directory
+is ``benchmarks/results_torch/``, not ``benchmarks/results/``, where the
+JAX package's committed artifacts live; and no ``bench.<name>.<path>``
+gauges are mirrored into the metrics registry, since nothing reads
+them.  The port's artifacts come from runs
 on a card, and that directory is not committed.
 """
 from __future__ import annotations
@@ -25,7 +25,6 @@ import os
 from pathlib import Path
 from typing import Optional
 
-from .metrics import get_registry
 from .schema import validate_bench
 
 __all__ = ["write_bench", "default_results_dir"]
@@ -37,15 +36,6 @@ _REPO_ROOT = Path(__file__).resolve().parents[3]
 
 def default_results_dir() -> Path:
     return _REPO_ROOT / "benchmarks" / "results_torch"
-
-
-def _mirror_gauges(name: str, node, path: str) -> None:
-    reg = get_registry()
-    if isinstance(node, dict):
-        for k, v in node.items():
-            _mirror_gauges(name, v, f"{path}.{k}" if path else str(k))
-    elif isinstance(node, (int, float)) and not isinstance(node, bool):
-        reg.gauge(f"bench.{name}.{path}").set(node)
 
 
 def write_bench(name: str, report: dict, *, quick: bool = False,
@@ -72,6 +62,4 @@ def write_bench(name: str, report: dict, *, quick: bool = False,
     tmp = path.with_name(path.name + ".tmp")
     tmp.write_text(json.dumps(report, indent=2, sort_keys=False) + "\n")
     os.replace(tmp, path)
-
-    _mirror_gauges(name, report, "")
     return path

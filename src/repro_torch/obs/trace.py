@@ -13,12 +13,22 @@ in-flight pipeline slot, so overlapping in-flight windows never render
 as bogus nesting).  In the exported trace each track becomes its own
 named thread row.
 
-The disabled path is free by construction: instrumented code fetches the
-process-wide tracer via :func:`get_tracer`, which defaults to the
-:data:`NOOP` tracer whose ``span``/``start_span`` return one shared
-no-op handle — no clock reads, no allocation, no state, and therefore
-*bitwise* no effect on any computation (there is nothing it could
-perturb; the overhead is one dict-free attribute call per span site).
+Recording is on by default: :func:`get_tracer` returns a process-wide
+:class:`Tracer` of 65,536 spans, so a span that instrumented code
+records reaches a reader in the same process whether or not anything
+installed a tracer.  ``set_tracer(NOOP)`` turns recording off: the
+:data:`NOOP` tracer's ``span``/``start_span`` return one shared no-op
+handle — no clock reads, no allocation, no state.  Neither perturbs a
+computation: a span only reads the host clock, so records are bitwise
+those of an untraced run.
+
+Each span records its *parent*, the innermost span a ``span`` call (or
+``with`` block) opened and has not closed on the same thread, and a
+*step*, its ``step`` arg or else its parent's; so self time and the
+step a span belongs to need no comparison of timestamps.  A handle from
+``start_span`` outlives its call site (the runner's in-flight ``train``
+window) and is never a parent.  :meth:`Tracer.spans` reads the spans
+with their ids, parents and steps.
 
 Usage::
 
@@ -37,12 +47,15 @@ On the jitted path that is *issue* time for asynchronously dispatched
 stages and issue+sync time for stages that block on a concrete value —
 the pipelined runner documents which of its spans mean what.
 
-Host-side numpy, copied line for line from the JAX package's module of
-the same path, so both packages give the same results from one seed.
+The JAX package's module of the same path, with three differences: the
+default is the bounded recorder, not :data:`NOOP`; spans carry their
+parent and step; and the Chrome export stamps ``ts`` in microseconds
+since the Unix epoch.
 """
 from __future__ import annotations
 
 import functools
+import itertools
 import json
 import os
 import threading
@@ -56,31 +69,57 @@ __all__ = ["Tracer", "NOOP", "get_tracer", "set_tracer", "use_tracer",
 class Span:
     """Open span handle; context manager or explicit ``.end()``."""
 
-    __slots__ = ("_tracer", "name", "track", "args", "thread", "t0", "_open")
+    __slots__ = ("_tracer", "name", "track", "args", "thread", "t0", "_open",
+                 "id", "parent", "step", "_stack")
 
     def __init__(self, tracer: "Tracer", name: str, track: Optional[str],
-                 args: dict):
+                 args: dict, push: bool):
         self._tracer = tracer
         self.name = name
         self.track = track
         self.args = args
-        self.thread = threading.current_thread().name
+        here = tracer._open
+        self.thread = here.thread
         self._open = True
+        self.id = next(tracer._ids)
+        top = here.spans
+        if top:
+            parent = top[-1]
+            self.parent = parent.id
+            self.step = args.get("step", parent.step)
+        else:
+            self.parent = None
+            self.step = args.get("step")
+        if push:                 # the thread's innermost open span now
+            top.append(self)
+            self._stack = top
+        else:
+            self._stack = None
         self.t0 = tracer.clock()
 
     def end(self) -> None:
-        if not self._open:       # idempotent: with-block + manual end
-            return
-        self._open = False
-        t1 = self._tracer.clock()
-        self._tracer._record(self.name, self.track, self.thread,
-                             self.t0, t1, self.args)
+        self.__exit__()
 
     def __enter__(self) -> "Span":
         return self
 
     def __exit__(self, *exc) -> bool:
-        self.end()
+        if not self._open:       # idempotent: with-block + manual end
+            return False
+        self._open = False
+        tracer = self._tracer
+        t1 = tracer.clock()
+        stack = self._stack
+        if stack is not None:
+            if stack[-1] is self:
+                stack.pop()
+            else:                # closed before a span opened inside it
+                stack.remove(self)
+        rec = (self.t0, t1, self.name, self.track, self.thread, self.args,
+               self.id, self.parent, self.step)
+        with tracer._lock:
+            tracer._buf[tracer._n % tracer._cap] = rec
+            tracer._n += 1
         return False
 
 
@@ -117,11 +156,23 @@ class _NoopTracer:
     def events(self) -> list:
         return []
 
+    def spans(self) -> list:
+        return []
+
     def durations(self, top: int = 10) -> list:
         return []
 
 
 NOOP = _NoopTracer()
+
+
+class _Open(threading.local):
+    """A thread's name and the spans it opened with ``span`` and has not
+    closed, innermost last."""
+
+    def __init__(self):
+        self.thread = threading.current_thread().name
+        self.spans: list = []
 
 
 class Tracer:
@@ -137,22 +188,27 @@ class Tracer:
         self._cap = capacity
         self._n = 0            # total spans ever recorded (ring write head)
         self._lock = threading.Lock()
+        self._open = _Open()
+        self._ids = itertools.count(1)
         self.clock = clock
         self.t0 = clock()      # trace epoch: exported ts are relative to it
+        self.epoch_ns = time.time_ns()      # the same instant, Unix time
+
+    @property
+    def capacity(self) -> int:
+        return self._cap
 
     # -- recording ---------------------------------------------------------
     def span(self, name: str, track: Optional[str] = None, **args) -> Span:
-        """Open a span; close it with ``.end()`` or a ``with`` block."""
-        return Span(self, name, track, args)
+        """Open a span, the parent of the spans its thread opens until it
+        closes; close it with ``.end()`` or a ``with`` block."""
+        return Span(self, name, track, args, True)
 
-    # same call, different intent: a handle that outlives the call site
-    start_span = span
-
-    def _record(self, name, track, thread, t0, t1, args) -> None:
-        with self._lock:
-            self._buf[self._n % self._cap] = (t0, t1, name, track, thread,
-                                              args)
-            self._n += 1
+    def start_span(self, name: str, track: Optional[str] = None,
+                   **args) -> Span:
+        """Open a span whose handle outlives the call site: it takes a
+        parent and a step as any span does, and is never a parent."""
+        return Span(self, name, track, args, False)
 
     @property
     def dropped(self) -> int:
@@ -160,18 +216,29 @@ class Tracer:
         return max(0, self._n - self._cap)
 
     # -- reading -----------------------------------------------------------
-    def events(self) -> list[dict]:
-        """Recorded spans, oldest first (completion order)."""
+    def _records(self) -> list:
         with self._lock:
             n, cap = self._n, self._cap
             if n <= cap:
-                raw = self._buf[:n]
-            else:
-                head = n % cap
-                raw = self._buf[head:] + self._buf[:head]
+                return self._buf[:n]
+            head = n % cap
+            return self._buf[head:] + self._buf[:head]
+
+    def events(self) -> list[dict]:
+        """Recorded spans, oldest first (completion order)."""
         return [{"name": name, "track": track, "thread": thread,
                  "ts": t0 - self.t0, "dur": t1 - t0, "args": args}
-                for (t0, t1, name, track, thread, args) in raw]
+                for (t0, t1, name, track, thread, args, *_)
+                in self._records()]
+
+    def spans(self) -> list[dict]:
+        """:meth:`events` with each span's ``id``, its ``parent``'s id
+        and its ``step`` (None where it has none)."""
+        return [{"name": name, "track": track, "thread": thread,
+                 "ts": t0 - self.t0, "dur": t1 - t0, "args": args,
+                 "id": sid, "parent": parent, "step": step}
+                for (t0, t1, name, track, thread, args, sid, parent, step)
+                in self._records()]
 
     def durations(self, top: int = 10) -> list[dict]:
         """``--durations``-style aggregate: per span name, total/count/
@@ -194,9 +261,12 @@ class Tracer:
         Every distinct track (explicit ``track=`` or, failing that, the
         recording thread's name) becomes one integer ``tid`` with a
         ``thread_name`` metadata record, and each span is one complete
-        ("X") event with microsecond ``ts``/``dur`` relative to the
-        trace epoch.
+        ("X") event with microsecond ``ts``/``dur``.  ``ts`` counts from
+        the Unix epoch, by the (clock, ``time.time_ns()``) pair the
+        tracer took at its own epoch: ``torch.profiler``'s host clock is
+        the Unix clock too, so the two traces load side by side.
         """
+        epoch_us = self.epoch_ns * 1e-3
         pid = os.getpid()
         tids: dict[str, int] = {}
         meta, events = [], []
@@ -211,7 +281,7 @@ class Tracer:
             args["thread"] = ev["thread"]
             events.append({"name": ev["name"], "ph": "X", "cat": "repro",
                            "pid": pid, "tid": tid,
-                           "ts": round(ev["ts"] * 1e6, 3),
+                           "ts": round(epoch_us + ev["ts"] * 1e6, 3),
                            "dur": round(ev["dur"] * 1e6, 3),
                            "args": args})
         events.sort(key=lambda e: e["ts"])
@@ -229,21 +299,24 @@ class Tracer:
 
 
 # -- process-wide current tracer ----------------------------------------------
-_current: Any = NOOP
+_DEFAULT = Tracer(capacity=65536)
+_current: Any = _DEFAULT
 
 
 def get_tracer():
-    """The process-wide tracer (:data:`NOOP` unless something enabled
-    tracing) — the only call instrumented code makes on the hot path."""
+    """The process-wide tracer (the bounded default recorder unless
+    another was installed) — the only call instrumented code makes on the
+    hot path."""
     return _current
 
 
 def set_tracer(tracer) -> Any:
-    """Install ``tracer`` (None resets to :data:`NOOP`); returns the
-    previous one so callers can restore it."""
+    """Install ``tracer`` (:data:`NOOP` turns recording off; None
+    reinstalls the default recorder); returns the previous one so
+    callers can restore it."""
     global _current
     prev = _current
-    _current = NOOP if tracer is None else tracer
+    _current = _DEFAULT if tracer is None else tracer
     return prev
 
 

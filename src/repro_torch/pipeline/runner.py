@@ -37,11 +37,11 @@ decision for step t+a is a commits stale (bounded by
 re-assigns the samples whose ids changed state since decide time, and
 ``realized_cost_fn`` re-scores the result.
 
-Spans (through :func:`repro_torch.obs.trace.get_tracer`: the NOOP
-tracer unless one is installed, so a traced run's records equal an
-untraced one's) carry the JAX package runner's names, tracks and
-``step`` args, and keep their meaning under the one-drain-late
-schedule:
+Spans (through :func:`repro_torch.obs.trace.get_tracer`, which
+records by default; a span only reads the host clock, so a traced run's
+records equal an untraced one's) carry the JAX package runner's names,
+tracks and ``step`` args, and keep their meaning under the
+one-drain-late schedule:
 
   * ``decide``, ``realized``, ``repair`` and ``advance`` on the
     ``decide`` track time the host's call of their stage (on a card at
@@ -56,7 +56,13 @@ schedule:
     which turns the loss into a float.  At depth 1 it also holds step
     t's train call, which comes just before; at depth >= 2 it does not
     hold step t+1's train call, which the drain issues first.  So a
-    ``train.sync`` span joins its own step's record.
+    ``train.sync`` span joins its own step's record;
+  * ``train.issue`` (the port's own), on the window's track, is the
+    host's call of step t's ``train_fn``: nested in ``train.sync`` at
+    depth 1, alone at depth >= 2.
+
+The spans that stages record inside a runner span (``decide.*`` inside
+``decide``, the train step's parts inside ``train.issue``) take its step.
 
 Stage contracts:
   * ``decide_fn(esd_state, batch) -> (assign, alg1_est | None)``;
@@ -237,14 +243,19 @@ class PipelinedRunner:
             # the train call and the wait for its loss, as one sync
             try:
                 with self._tr.span("train.sync", track=window.track, step=t):
-                    self._record(t, self.train_fn(train_input), aux, info)
+                    self._record(t, self._issue(t, train_input, window),
+                                 aux, info)
             finally:
                 window.end()
             return
-        self._trained.append((t, self.train_fn(train_input), aux, info,
-                              window))
+        self._trained.append((t, self._issue(t, train_input, window), aux,
+                              info, window))
         if len(self._trained) > 1:
             self._sync_record(*self._trained.popleft())
+
+    def _issue(self, t, train_input, window):
+        with self._tr.span("train.issue", track=window.track, step=t):
+            return self.train_fn(train_input)
 
     def _finish(self, pending: deque):
         while pending:

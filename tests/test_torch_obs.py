@@ -187,25 +187,40 @@ def _tracer_cases():
         meta = [e for e in doc["traceEvents"] if e["ph"] == "M"]
         assert {m["args"]["name"] for m in meta} == {"t0", "t1"}
         assert len({m["tid"] for m in meta}) == 2
-        return doc
+        # ts aside: the port counts it from the Unix epoch
+        return [{k: v for k, v in e.items() if k != "ts"}
+                for e in doc["traceEvents"]]
 
-    def noop_is_default_and_allocation_free(obs, _):
-        assert obs.get_tracer() is obs.NOOP
+    def noop_is_default_and_allocation_free(obs, key):
+        # the reference's default is NOOP; the port's the bounded
+        # recorder, and NOOP is installed to turn recording off
+        default = obs.get_tracer()
+        if key == "ref":
+            assert default is obs.NOOP
+        else:
+            assert isinstance(default, obs.Tracer)
+            assert default.enabled and default.capacity == 65536
+        with obs.use_tracer(obs.NOOP):
+            assert obs.get_tracer() is obs.NOOP
+            assert obs.get_tracer().span("a", track="x", step=1) \
+                is obs.NOOP.span("b")
+        assert obs.get_tracer() is default
         assert obs.NOOP.span("a", track="x", step=1) is obs.NOOP.span("b")
         assert obs.NOOP.events() == [] and obs.NOOP.durations() == []
         return obs.NOOP.enabled
 
     def set_tracer_restores(obs, _):
+        default = obs.get_tracer()
         tr = obs.Tracer(capacity=4)
         prev = obs.set_tracer(tr)
         try:
             assert obs.get_tracer() is tr
         finally:
             obs.set_tracer(prev)
-        assert obs.get_tracer() is obs.NOOP
+        assert obs.get_tracer() is default
         with obs.use_tracer(obs.Tracer(capacity=4)) as t2:
             assert obs.get_tracer() is t2
-        return obs.get_tracer() is obs.NOOP
+        return obs.get_tracer() is default
 
     def traced_decorator_resolves_at_call_time(obs, _):
         @obs.traced("work", track="lib")
@@ -236,7 +251,9 @@ def test_tracer_matches_reference(name):
 
 def test_chrome_export_matches_handwritten_oracle(tmp_path):
     """Nested spans on one track, exported by both packages, against the
-    trace_event document Perfetto parses."""
+    trace_event document Perfetto parses.  The reference stamps ``ts``
+    from its epoch; the port from the Unix epoch, by the wall-clock
+    instant it took at its own epoch."""
     def case(obs, key):
         clk = FakeClock()
         tr = obs.Tracer(capacity=8, clock=clk)
@@ -250,32 +267,41 @@ def test_chrome_export_matches_handwritten_oracle(tmp_path):
         outer.end()
         path = tmp_path / key / "trace.json"
         tr.export(path)
-        return json.loads(path.read_text()), tr.events()[0]["thread"]
+        return json.loads(path.read_text()), tr
 
-    doc, thread = both(case)
     pid = os.getpid()
-    assert doc == {
-        "traceEvents": [
-            {"name": "thread_name", "ph": "M", "pid": pid, "tid": 0,
-             "args": {"name": "main"}},
-            {"name": "outer", "ph": "X", "cat": "repro", "pid": pid,
-             "tid": 0, "ts": 1000000.0, "dur": 3000000.0,
-             "args": {"step": 0, "thread": thread}},
-            {"name": "inner", "ph": "X", "cat": "repro", "pid": pid,
-             "tid": 0, "ts": 2000000.0, "dur": 1000000.0,
-             "args": {"thread": thread}},
-        ],
-        "displayTimeUnit": "ms",
-    }
+
+    def oracle(thread, epoch_us):
+        return {
+            "traceEvents": [
+                {"name": "thread_name", "ph": "M", "pid": pid, "tid": 0,
+                 "args": {"name": "main"}},
+                {"name": "outer", "ph": "X", "cat": "repro", "pid": pid,
+                 "tid": 0, "ts": round(epoch_us + 1000000.0, 3),
+                 "dur": 3000000.0, "args": {"step": 0, "thread": thread}},
+                {"name": "inner", "ph": "X", "cat": "repro", "pid": pid,
+                 "tid": 0, "ts": round(epoch_us + 2000000.0, 3),
+                 "dur": 1000000.0, "args": {"thread": thread}},
+            ],
+            "displayTimeUnit": "ms",
+        }
+
+    doc, tr = case(J, "ref")
+    assert doc == oracle(tr.events()[0]["thread"], 0.0)
+    before = time.time_ns()
+    doc, tr = case(T, "port")
+    assert before <= tr.epoch_ns <= time.time_ns()
+    assert doc == oracle(tr.events()[0]["thread"], tr.epoch_ns * 1e-3)
 
 
 def test_tracer_overhead_smoke():
     """Loose smoke, as the reference's: 20k NOOP span sites and 20k live
     spans both complete far under any per-step budget."""
     t0 = time.perf_counter()
-    for _ in range(20_000):
-        with T.get_tracer().span("hot", track="x"):
-            pass
+    with T.use_tracer(T.NOOP):
+        for _ in range(20_000):
+            with T.get_tracer().span("hot", track="x"):
+                pass
     assert time.perf_counter() - t0 < 1.0
     tr = T.Tracer(capacity=1024)
     t0 = time.perf_counter()
@@ -560,17 +586,6 @@ def test_write_bench_invalid_never_touches_disk(tmp_path):
     both(case)
 
 
-def test_write_bench_mirrors_gauges_into_registry(tmp_path):
-    def case(obs, key):
-        with obs.use_registry() as reg:
-            obs.write_bench("obs", GOOD, results_dir=tmp_path / key)
-        assert reg.value("bench.obs.overhead.frac") == 0.001
-        assert reg.value("bench.obs.trace.n_events") == 10
-        return reg.snapshot()
-
-    both(case)
-
-
 def test_default_results_dir_is_the_ports_own():
     got, ref = T.default_results_dir(), J.default_results_dir()
     assert got != ref
@@ -718,12 +733,17 @@ def test_runner_spans_match_reference(name):
         tr = PKGS[key].Tracer(capacity=512, clock=TickClock())
         _run_runner(cls, sched, tr, PKGS[key])
         spans[key] = _span_multiset(tr)
-    assert spans["port"] == spans["ref"]
+    # the port's own train.issue, one a step on its window's track
+    depth = sched["depth"]
+    issue = collections.Counter({k: v for k, v in spans["port"].items()
+                                 if k[0] == "train.issue"})
+    assert issue == collections.Counter(
+        ("train.issue", f"train/{t % depth}", t) for t in range(7))
+    assert spans["port"] - issue == spans["ref"]
     names = {n for n, _, _ in spans["port"]}
     assert {"decide", "advance", "train", "train.sync"} <= names
     assert ("realized" in names) == bool(sched.get("realized"))
     assert ("repair" in names) == bool(sched.get("repair"))
-    depth = sched["depth"]
     assert {tr for n, tr, _ in spans["port"] if n == "train"} == {
         f"train/{s}" for s in range(depth)}
 
@@ -742,9 +762,15 @@ def test_runner_records_equal_traced_and_untraced(name):
 
 
 def test_runner_noop_tracer_is_default():
-    assert T.get_tracer() is T.NOOP
+    """The default is the bounded recorder, and a run records into it."""
+    default = T.get_tracer()
+    assert isinstance(default, T.Tracer) and default.capacity == 65536
+    first = max((e["id"] for e in default.spans()), default=0)
     recs = _run_runner(TRunner, dict(depth=2), None, T)
     assert [r["step"] for r in recs] == list(range(7))
+    decides = [e["step"] for e in default.spans()
+               if e["id"] > first and e["name"] == "decide"]
+    assert decides == list(range(7))
 
 
 @pytest.mark.parametrize("depth", [1, 2, 3])

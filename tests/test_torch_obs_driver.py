@@ -73,14 +73,15 @@ def _records(summary):
 @pytest.mark.parametrize("depth", [1, 2])
 def test_main_traces_dlrm_run(depth, tmp_path, tracers, capsys):
     argv = DLRM + ["--pipeline-depth", str(depth)]
+    default = T.get_tracer()
     untraced = TT.main(argv)
     assert tracers == []
-    assert T.get_tracer() is T.NOOP
+    assert T.get_tracer() is default
     path = tmp_path / "trace.json"
     summary = TT.main(argv + ["--trace-out", str(path),
                               "--validate-timing"])
     err = capsys.readouterr().err
-    assert T.get_tracer() is T.NOOP               # restored after the run
+    assert T.get_tracer() is default              # restored after the run
     assert _records(summary) == _records(untraced)
     assert T.get_registry().steps is summary["metrics"]
 
