@@ -46,8 +46,12 @@ Phases, each printing its own lines:
    phase 16's one-call dispatch; on the per-shard table of phase 15's
    decide, 2 shards behind the ``--ps-hetero`` links; the dense table,
    and the per-shard one at equal links, bit for bit the compact
-   route), the row pack alone on 256 slots of ids
-   (74 int32), dense features (13 f32) and labels (1 f32), and the
+   route); ``alg1_cost``, every worker's Alg. 1 in one launch, at 4 x
+   256 x 74 and at the benchmark cells' 8 x 128 x 26 (planes after 60
+   protocol steps), bit for bit its plain version and the per-worker
+   route, timed (device, call and host issue) beside that route's whole
+   call; the row pack alone on 256
+   slots of ids (74 int32), dense features (13 f32) and labels (1 f32), and the
    exchange's one-launch pack of all three for 4 workers of 256, bit for
    bit against its per-worker plain version (balanced, with overflow,
    with an empty destination, on a relaxed budget), timed beside the 12
@@ -134,10 +138,11 @@ Phases, each printing its own lines:
    the codec once a refresh, writing the quantized rows);
 6. train — ``run_dlrm`` at wdl-s1 (4 workers x 256 samples, ESD alpha 1,
    ragged exchange, 10 steps), then again with ``--codec int8``: one
-   launch of the fused auction kernel a step, its rounds per step equal
-   to the CPU's; one launch of the exchange's pack a step (with the codec
-   its quantized kernel), the row pack and the pack-quantize alone
-   never;
+   ``alg1_cost`` launch a step prices every worker's Alg. 1 (no B1
+   launch), one launch of the fused auction kernel a step, its rounds
+   per step equal to the CPU's; one launch of the exchange's pack a
+   step (with the codec its quantized kernel), the row pack and the
+   pack-quantize alone never;
 7. table 2 — ``auction_dispatch(exact=False)`` on the draws of
    ``benchmarks/table2.py`` (8 workers, 32 to 1,024 samples a worker):
    rounds, ms per decision and one auction_solve launch each, beside the
@@ -168,11 +173,13 @@ Phases, each printing its own lines:
    (loss, counts, cost, Alg.-1 estimate) bit for bit phase 6's, the
    auction's rounds and the launches a step depth 1's, the wall ms a
    step beside depth 1's; with ``--stale-decide`` (step 0's
-   ``alg1_realized`` equal to its ``alg1_est`` within 1e-6); and the
-   README's configuration (depth 4, lookahead 4, decide-ahead 3, 64 rows
-   a step prefetched into 512 slots): one staged_pull launch a step and
-   no staged_gather, rows prefetched after step 0, demand misses within
-   the misses;
+   ``alg1_realized`` equal to its ``alg1_est`` within 1e-6; two
+   alg1_cost launches a step, decide's and the re-score's, no B1); and
+   the README's configuration (depth 4, lookahead 4, decide-ahead 3, 64
+   rows a step prefetched into 512 slots): one staged_pull launch a step
+   and no staged_gather, three alg1_cost a step (decide, repair,
+   re-score) and no B1, rows prefetched after step 0, demand misses
+   within the misses;
 11. lm-serve — smollm-360m at full width and depth (bf16, tied head): a
    prefill of B = 4 x S = 2,048 through ``make_prefill_step`` (32 B8
    launches, 4 times: ms and peak memory), then
@@ -192,7 +199,7 @@ Phases, each printing its own lines:
    128, ``out_rows`` 512 a worker) at depth 1, depth 2 and with
    ``--codec int8``: finite records, ``n_active`` 3 at steps 3-6, no
    sample for worker 1 while it is down, depth 2's records bit for bit
-   depth 1's, B1 4 launches a step, one auction_solve and one
+   depth 1's, one alg1_cost (no B1), one auction_solve and one
    ``pack_send_all`` (``_quant`` with the codec) a step, and ms a step
    beside phase 6's; then an empty plan, its records bit for bit phase
    6's;
@@ -216,7 +223,9 @@ Phases, each printing its own lines:
    (one staged_pull a step); then ``esd_dispatch`` with the dense
    cost (B1 over the (502,000, 4) per-id table) on the run's final
    state: 4 B1 launches, one auction_solve and one pack_send_all, the
-   compact cost's assignment and exchange;
+   compact cost's assignment and exchange; the compact cost one
+   ``alg1_cost`` launch, its matrix and assignment the per-worker
+   route's;
 17. lm-ssm — falcon-mamba-7b at full width (d 4,096, d_inner 8,192, N
    16, vocab 65,024, bf16), its 64 layers cut to ``MAMBA_LAYERS``: 3
    ``run_lm`` steps at B 1, S 2,048 (ms a step, tokens/s, peak memory;
@@ -316,6 +325,7 @@ TF32X3_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
 BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"pooled_lookup": CSRC + "emb_lookup.cu",
+           "alg1_cost": CSRC + "emb_lookup.cu",
            "pack_send_all": CSRC + "exchange_pack.cu",
            "gather_rows": CSRC + "exchange_pack.cu",
            "staged_gather": CSRC + "emb_lookup.cu",
@@ -334,6 +344,9 @@ SOURCES = {"pooled_lookup": CSRC + "emb_lookup.cu",
            "linear_scan": CSRC + "linear_scan.cu",
            "linear_scan_bwd": CSRC + "linear_scan.cu"}
 REPLACES = {"pooled_lookup": "src/repro/kernels/emb_lookup.py:88",
+            "alg1_cost": "none: it fuses the per-id pricing of src/repro/"
+                         "kernels/ops.py:44 (cost_matrix_pallas_sparse) "
+                         "into B1's pooling, all workers in one launch",
             "pack_send_all": "src/repro/kernels/exchange_pack.py:34 with "
                              "the slot map around it: "
                              "src/repro/exchange/ragged.py:36 (pack_send)",
@@ -652,6 +665,8 @@ def phase_train_kernels(seed: int) -> dict:
     rec["pooled_lookup"] = pooled(f"(decide, U={table.shape[0]})", table,
                                   inv, w)
     compact = K.pooled_lookup(table, inv, w)
+    rec["alg1_cost"] = phase_alg1(latest, dirty, t_tran, dev, wl,
+                                  np.random.default_rng(seed + 34))
     # phase 16's one-call dispatch with the dense cost: the (V, 4) per-id
     # table of all 502,000 ids, pooled over the samples' own ids; the
     # same per-id values in the same order as the compact route
@@ -724,6 +739,102 @@ def phase_train_kernels(seed: int) -> dict:
                                       bound_ms=b_ms, bound_by=b_by)
     rec["pack_send_all"] = phase_pack(rng, wl, n, m, dev)
     return rec
+
+
+def phase_alg1(latest, dirty, t_tran, dev, wl, rng) -> dict:
+    """Alg. 1 for all workers in one launch (``alg1_cost``), bit for bit
+    its plain version and the per-worker route (the compact table's build
+    and a B1 launch a worker), timed beside that route's whole call: at
+    phase 3's decide (4 workers x 256 S1 samples of 74 ids, its random
+    planes) and at the benchmark cells' (8 workers x 128 samples of S1's
+    26 field ids, no history bag, over its 502,000 rows; the planes as
+    60 steps of the cache protocol at ratio 0.08 left them; the paper's
+    links).  Returns the cells' row."""
+    from repro_torch.core import dispatch as D
+    from repro_torch.core.cost import transmission_time_codec
+    from repro_torch.core.simulator import DEFAULT_BANDWIDTHS
+
+    def draw(n, m, F):
+        s = wl.sample_batch(rng, n * m)[:, :F].reshape(n, m, F)
+        return torch.as_tensor(s.astype(np.int32), device=dev)
+
+    alg1_row("phase 3's decide", draw(latest.shape[0], 256, 74), latest,
+             dirty, t_tran)
+    n, m, F, V = 8, 128, 26, wl.vocab
+    cap = int(0.08 * V)
+    state = D.esd_sparse_init(n, V, cap, max_ids=m * F, device=dev)
+    for _ in range(60):
+        state, _ = D.esd_state_update_sparse(
+            state, D.need_ids_list(draw(n, m, F)), cap)
+    t = torch.tensor(transmission_time_codec(512, DEFAULT_BANDWIDTHS(n)),
+                     dtype=torch.float32, device=dev)
+    return alg1_row("the cells' decide", draw(n, m, F), state.latest,
+                    state.dirty, t)
+
+
+def host_ms(fn, reps: int = 50) -> float:
+    """Median host ms to issue ``fn`` (no synchronise inside a call)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    xs = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        xs.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    return statistics.median(xs) * 1e3
+
+
+def alg1_row(what, samples, latest, dirty, t_tran) -> dict:
+    """One ``alg1_cost`` row: exact against plain and the per-worker
+    route, device, call and host-issue ms beside the route's, and the
+    bytes bound (each slot's id, its kept ids' 2n state bytes, the
+    (n, m, n) output)."""
+    from repro_torch.kernels import emb_lookup as K
+    from repro_torch.kernels.ops import cost_matrix_sparse_kernel
+
+    n, m, F = samples.shape
+
+    def fused():
+        return K.alg1_cost(samples, latest, dirty, t_tran)
+
+    def route():
+        return torch.stack([cost_matrix_sparse_kernel(samples[i], latest,
+                                                      dirty, t_tran)
+                            for i in range(n)])
+
+    out = fused()
+    ref = K.alg1_cost_ref(samples, latest, dirty, t_tran)
+    torch.cuda.synchronize()
+    check(torch.equal(out, ref), f"alg1_cost ({what}) is bitwise equal to "
+                                 f"plain")
+    check(torch.equal(out, route()), f"alg1_cost ({what}) is bitwise equal "
+                                     f"to the per-worker route (B1 a "
+                                     f"worker)")
+    ms, call_ms = device_ms(fused)
+    plain_ms, _ = device_ms(
+        lambda: K.alg1_cost_ref(samples, latest, dirty, t_tran), reps=20)
+    route_ms, route_call_ms = device_ms(route, reps=20)
+    issue_ms, route_issue_ms = host_ms(fused), host_ms(route, reps=20)
+    srt = torch.sort(samples.reshape(n * m, F), dim=1).values
+    kept = int(((srt != -1) & torch.cat(
+        [torch.ones_like(srt[:, :1], dtype=torch.bool),
+         srt[:, 1:] != srt[:, :-1]], 1)).sum())
+    b_ms, b_by = bound(n * m * F * 4 + kept * 2 * n + n * m * n * 4,
+                       kept * n * 6)
+    print(f"[kernel] alg1_cost ({what}, n={n} m={m} F={F} "
+          f"V={latest.shape[1]}, {kept} kept slots, planes "
+          f"{float(latest.float().mean()):.4f} latest, "
+          f"{float(dirty.float().mean()):.4f} dirty): exact, {ms:.4f} ms "
+          f"(call {call_ms:.4f}, host issue {issue_ms:.4f}), plain "
+          f"{plain_ms:.4f} ms, the per-worker route {route_ms:.4f} ms "
+          f"(call {route_call_ms:.4f}, host issue {route_issue_ms:.4f}), "
+          f"bound {b_ms:.6f} ms ({b_by})")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by, route_ms=route_ms,
+                route_call_ms=route_call_ms, host_issue_ms=issue_ms,
+                route_host_issue_ms=route_issue_ms)
 
 
 def phase_pack(rng, wl, n: int, m: int, dev) -> dict:
@@ -1482,8 +1593,9 @@ def phase_train(seed: int, codec=None) -> dict:
             *(out["stage_s"][s] for s in ("decide", "advance", "train")))]))
     rounds = [r.sum(dim=1).tolist() for r in solves]
     print(f"[train] auction rounds per step, per worker: {rounds}")
-    check(per_step.get("pooled_lookup") == 4.0,
-          "pooled_lookup launched once per worker and step (decide)")
+    check(per_step.get("alg1_cost") == 1.0 and "pooled_lookup" not in
+          launches, "decide prices every worker in one alg1_cost launch "
+                    "a step, and no pooled_lookup runs")
     check(per_step.get("auction_solve") == 1.0 and len(solves) == len(recs)
           and "auction_bids" not in launches,
           "the training auction ran as one auction_solve launch a step, "
@@ -1574,8 +1686,11 @@ def phase_train_pipeline(seed: int) -> dict:
               f"{out['wall_ms_mean']:.3f} (records, rounds and launches "
               f"equal)")
 
-    out, _, _ = run(["--pipeline-depth", "2", "--stale-decide"])
+    out, per_step, _ = run(["--pipeline-depth", "2", "--stale-decide"])
     recs = out["metrics"]
+    check(per_step.get("alg1_cost") == 2.0 and "pooled_lookup" not in
+          per_step, "stale: one alg1_cost a step for decide and one for "
+                    "the re-score, no B1")
     check(all("alg1_realized" in r for r in recs),
           "stale: every record has alg1_realized")
     check(math.isclose(recs[0]["alg1_realized"], recs[0]["alg1_est"],
@@ -1588,6 +1703,9 @@ def phase_train_pipeline(seed: int) -> dict:
     check(per_step.get("staged_pull") == 1.0
           and "staged_gather" not in per_step,
           "the prefetch pull launched staged_pull once a step, in place")
+    check(per_step.get("alg1_cost") == 3.0 and "pooled_lookup" not in
+          per_step, "decide-ahead: one alg1_cost a step each for decide, "
+                    "the repair and the re-score, no B1")
     check(all(r["prefetch_bytes"] > 0 for r in recs[1:]),
           "prefetch_bytes > 0 after step 0")
     check(all(r["demand_miss_bytes"] <= r["miss_pull"] * wire for r in recs),
@@ -2651,11 +2769,12 @@ def phase_train_elastic(seed: int) -> dict:
         check([r["n_active"] for r in recs]
               == [3 if 3 <= i <= 6 else 4 for i in range(12)],
               f"elastic {name}: n_active 3 at steps 3-6")
-        check(per_step.get("pooled_lookup") == 4.0
+        check(per_step.get("alg1_cost") == 1.0
+              and "pooled_lookup" not in per_step
               and per_step.get("auction_solve") == 1.0
               and per_step.get(pack) == 1.0,
-              f"elastic {name}: B1 once per worker and step, one "
-              f"auction_solve and one {pack} launch a step ({per_step})")
+              f"elastic {name}: one alg1_cost, one auction_solve and one "
+              f"{pack} launch a step, no pooled_lookup ({per_step})")
         print(f"[train-elastic] {name} auction rounds per step, per "
               f"worker: {[r.sum(dim=1).tolist() for r in solves]}")
         if received:
@@ -2909,10 +3028,14 @@ def phase_train_dense(seed: int) -> dict:
     step); then ``esd_dispatch`` with the dense cost (B1 over the
     (502,000, 4) per-id table) on the run's final state and the next
     batch: 4 B1 launches, one auction_solve and one pack_send_all, the
-    assignment and exchanged samples those of the compact cost."""
-    from repro_torch.core.dispatch import esd_dispatch
+    assignment and exchanged samples those of the compact cost (one
+    alg1_cost launch), whose cost and assignment are the per-worker
+    route's."""
+    from repro_torch.core.dispatch import (esd_cost_matrix, esd_dispatch,
+                                           hybrid_dispatch)
     from repro_torch.core.simulator import DEFAULT_BANDWIDTHS
     from repro_torch.data.synthetic import WORKLOADS
+    from repro_torch.kernels.ops import cost_matrix_batched_kernel
 
     total: dict = {}
     one, one_launch = TRAIN_DEPTH1[None]
@@ -2969,11 +3092,27 @@ def phase_train_dense(seed: int) -> dict:
           f"esd_dispatch(sparse_cost=False): 4 B1 launches, one auction and "
           f"one pack ({launches})")
     B1_INPUTS["dense"]["launches"] = launches["pooled_lookup"]
+    _zero_launches()
     exch_c, assign_c = esd_dispatch(samples, state, t, 1.0,
                                     exchange="ragged")
+    torch.cuda.synchronize()
+    compact = {k: v for k, v in _read_launches().items() if v}
+    for k, v in compact.items():
+        total[k] = total.get(k, 0) + v
+    check(compact == {"alg1_cost": 1, "auction_solve": 1,
+                      "pack_send_all": 1},
+          f"esd_dispatch: one alg1_cost launch prices every worker, one "
+          f"auction and one pack ({compact})")
     check(torch.equal(assign, assign_c) and torch.equal(exch, exch_c),
           "esd_dispatch: the dense cost's assignment and exchange are the "
           "compact cost's")
+    C_loop = torch.stack([esd_cost_matrix(samples[i], state, t)
+                          for i in range(n)])
+    check(torch.equal(cost_matrix_batched_kernel(samples, state.latest,
+                                                 state.dirty, t), C_loop)
+          and torch.equal(hybrid_dispatch(C_loop, m, 1.0), assign_c),
+          "esd_dispatch: the one-launch cost and its assignment are the "
+          "per-worker route's (B1 a worker)")
     print(f"[train-dense] esd_dispatch at wdl-s1 (4 x 256, the dense "
           f"(502,000, 4) cost table, ragged): launches {launches}; samples "
           f"received a worker {torch.bincount(assign.reshape(-1).long(), minlength=n).tolist()}; "

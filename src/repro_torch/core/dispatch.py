@@ -11,7 +11,12 @@ worker's decision stays independent of the others', as under
   * Alg. 1 (:func:`esd_cost_matrix`): always a pooled lookup of a per-id
     cost table on B1 (:mod:`repro_torch.kernels.ops`), so card and CPU
     sum in one order: the compact touched-ids table, priced per shard's
-    link with a multi-PS partition, or the dense (V, n) table;
+    link with a multi-PS partition, or the dense (V, n) table.  The
+    n workers' matrices come from one launch instead
+    (:func:`repro_torch.kernels.ops.cost_matrix_batched_kernel`, the
+    same bits) wherever that route's inputs allow
+    (:func:`esd_cost_matrices`, which decide, the stale re-score and the
+    commit-time repair call);
   * Alg. 2 (:func:`hybrid_dispatch`): the top ``floor(k * alpha)``
     regret rows go to the eps-scaled auction (:func:`auction_fixed`:
     every worker's auction in one launch of the fused auction kernel,
@@ -48,14 +53,16 @@ import torch
 
 from ..exchange.ragged import ragged_exchange_many
 from ..kernels import auction as KA
-from ..kernels.ops import (cost_matrix_kernel, cost_matrix_sparse_kernel,
+from ..kernels.ops import (cost_matrix_batched_kernel, cost_matrix_kernel,
+                           cost_matrix_sparse_kernel,
                            cost_matrix_sparse_ps_kernel)
 from ..obs.trace import get_tracer
 from .cost import unique_padded
 
 __all__ = ["heu_dispatch", "changed_samples_mask", "esd_reassign",
            "auction_fixed", "hybrid_dispatch", "dispatch_cap",
-           "exchange_budget", "esd_cost_matrix", "esd_decide",
+           "exchange_budget", "esd_cost_matrix", "esd_cost_matrices",
+           "esd_decide",
            "esd_dispatch", "EsdState", "esd_init", "esd_state_update",
            "need_matrix", "SparseEsdState", "esd_sparse_init",
            "esd_state_update_sparse", "need_ids_list", "need_ids_local"]
@@ -300,6 +307,29 @@ def esd_cost_matrix(samples: torch.Tensor, state, t_tran: torch.Tensor,
     return C
 
 
+def esd_cost_matrices(samples: torch.Tensor, state, t_tran: torch.Tensor,
+                      col_bias: Optional[torch.Tensor] = None,
+                      sparse_cost: bool = True, part=None):
+    """All n workers' Alg. 1 matrices, ``(C (n, m, n), fused)``: one
+    launch of :func:`repro_torch.kernels.ops.cost_matrix_batched_kernel`
+    where its inputs allow (one PS, ``part`` None or of ``n_ps == 1``;
+    the sparse cost; (n,) link times; as many workers as it takes), with
+    ``fused = n``; else :func:`esd_cost_matrix` worker by worker, with
+    ``fused = 0``.  Both give the same bits."""
+    C = None
+    if (sparse_cost and (part is None or part.n_ps == 1)
+            and t_tran.dim() == 1):
+        C = cost_matrix_batched_kernel(samples, state.latest, state.dirty,
+                                       t_tran)
+    if C is None:
+        return torch.stack([esd_cost_matrix(s, state, t_tran, col_bias,
+                                            sparse_cost, part)
+                            for s in samples]), 0
+    if col_bias is not None:
+        C = C + col_bias[None, None, :].to(C.dtype)
+    return C, samples.shape[0]
+
+
 def esd_decide(samples: torch.Tensor, state, t_tran: torch.Tensor,
                alpha: float, cap_slack: float = 0.0, with_cost: bool = False,
                col_bias: Optional[torch.Tensor] = None,
@@ -309,7 +339,7 @@ def esd_decide(samples: torch.Tensor, state, t_tran: torch.Tensor,
     block per worker -> assign (n, m) int32, and with ``with_cost`` also
     each worker's Alg.-1 objective of its assignment (n,) f32.
     ``sparse_cost`` and ``part`` pick the cost route
-    (:func:`esd_cost_matrix`).
+    (:func:`esd_cost_matrices`).
 
     Elastic clusters: ``col_bias`` biases the cost columns (see
     :func:`esd_cost_matrix`) and ``cap`` overrides the default
@@ -317,12 +347,16 @@ def esd_decide(samples: torch.Tensor, state, t_tran: torch.Tensor,
     the static capacity so the survivors of the worst planned
     simultaneous loss can absorb every sample.
 
-    Span: ``decide.cost``, the n workers' Alg.-1 matrices."""
+    Span: ``decide.cost``, the n workers' Alg.-1 matrices
+    (:func:`esd_cost_matrices`); its ``fused`` counts the workers'
+    matrices the one batched launch built (n or 0)."""
     n, m, _ = samples.shape
-    with get_tracer().span("decide.cost"):
-        C = torch.stack([esd_cost_matrix(samples[i], state, t_tran,
-                                         col_bias, sparse_cost, part)
-                         for i in range(n)])                      # (n, m, n)
+    tr = get_tracer()
+    with tr.span("decide.cost") as sp:
+        C, fused = esd_cost_matrices(samples, state, t_tran, col_bias,
+                                     sparse_cost, part)
+        if tr.enabled:
+            sp.args["fused"] = fused
     if cap is None:
         cap = dispatch_cap(m, n, cap_slack)
     assign = hybrid_dispatch(C, m, alpha, cap=cap)

@@ -44,6 +44,7 @@ SIGNATURES = {
                                         _I, _I, _I, _I, _I, _I, _P],
         "pooled_lookup_quant_launch": [_P, _P, _P, _P, _P, _P,
                                        _I, _I, _I, _I, _I, _I, _I, _P],
+        "alg1_cost_launch": [_P] * 5 + [_I] * 3 + [_L] * 3 + [_P],
         "empty_launch": [_P],
     },
     "exchange_pack": {

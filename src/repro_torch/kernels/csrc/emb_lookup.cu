@@ -172,6 +172,37 @@
 //     column.  A PAD lookup is skipped: it adds +-0, which changes no sum
 //     that starts at +0.
 //
+// alg1_cost_launch replaces no TPU kernel: it fuses the per-id pricing of
+// src/repro/kernels/ops.py:44 (cost_matrix_pallas_sparse, the XLA around
+// its pooled_lookup) into B1's pooling, for all n workers in one launch.
+//     out[i, s, e] = sum over the kept slots f of bag (i, s), in f
+//                    order, of (1 - lat[e,id]) T_e
+//                              + (sum_j d[j,id] T_j - d[e,id] T_e)
+// A slot is kept when its id is not PAD (-1) and no earlier slot of the
+// bag holds it: the first occurrence the stable sort of dedup_mask keeps.
+// An id outside [0, V) that is not PAD is priced as one no worker holds,
+// as the compact route prices it.  The route it replaces built, per
+// worker, the batch's sorted unique ids, a compact (U, n) table of
+// per-id costs and the ids remapped into it, then pooled it on B1: about
+// 80 small PyTorch ops a worker, 650 host calls a step at n = 8, at
+// 25-40 us each on the card's host.  The work is small: at the training
+// benchmark's decide shape (n 8, m 128, F 26) 26,624 slots, each reading
+// 2n state bytes, plus the ids and the (n, m, n) output, 0.57 MB, 0.17 us
+// of device-memory bytes; so the launch floor and latency bound it.
+// Design: a warp a bag, 8 bags a block (1,024 bags, 128 blocks).  The
+// lanes take the bag 32 slots at a time: each loads its id, finds by
+// __match_any_sync whether an earlier lane holds it and by a broadcast
+// walk whether an earlier chunk does, and for a kept slot loads its 2n
+// state bytes (all in flight at once) into two bit masks and folds
+// sum_j d[j,id] T_j over j in order.  Then
+// the warp walks the kept slots in f order; each slot's masks and fold
+// are broadcast and lane e < n adds its column's cost.  Every operation
+// is the route's own, rounded apart (__fmul_rn, __fadd_rn, __fsub_rn: no
+// FMA contraction), and a PAD or repeated slot, which the route adds as
+// +0, is skipped, so the result is the route's bit for bit: tied auction
+// costs break on the last bit.  n <= 32: a lane a column.  chip_smoke.py
+// phase 3 times it beside the route at that shape and at 4 x 256 x 74.
+//
 // empty_launch launches a kernel that does nothing: the launch floor that
 // the others' times are read against.
 //
@@ -203,6 +234,8 @@ constexpr int kRefreshThreads = 1024; // plane_refresh: its one block
 constexpr int kBlockPull = 256;       // the longest list the block pulls
 constexpr int kKeysSmem = 48 * 1024;  // keys kept in shared memory (192 KB)
 constexpr int kRadixBins = 256;
+constexpr int kAlg1Warps = 8;         // alg1_cost: bags a block
+constexpr int kAlg1MaxN = 32;         // alg1_cost: workers, a lane each
 
 // B1's PAD rule, as its plain version applies it: a PAD id (< 0) reads
 // row 0 with weight 0, no weights are all ones
@@ -825,6 +858,66 @@ __global__ void pooled_lookup_bag_kernel(Rows rows,
   }
 }
 
+// Alg. 1 for every worker's bags: a warp per bag b (worker b / m's sample
+// b % m), lane e < n its cost column
+__global__ void __launch_bounds__(kAlg1Warps * 32)
+alg1_cost_kernel(const int* __restrict__ samples,
+                 const unsigned char* __restrict__ latest,
+                 const unsigned char* __restrict__ dirty,
+                 const float* __restrict__ t, float* __restrict__ out,
+                 int B, int F, int n, int64_t V, int64_t lat_stride,
+                 int64_t dirty_stride) {
+  __shared__ float tt[kAlg1MaxN];
+  if (threadIdx.x < n) tt[threadIdx.x] = t[threadIdx.x];
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kAlg1Warps + warp;
+  if (b >= B) return;                    // whole warps leave together
+  const int* bag = samples + b * F;
+  const float te = lane < n ? tt[lane] : 0.f;
+  float acc = 0.f;
+  for (int f0 = 0; f0 < F; f0 += 32) {
+    const int id = f0 + lane < F ? __ldg(bag + f0 + lane) : -1;
+    // kept: not PAD, and the first of its id in the bag
+    const unsigned same = __match_any_sync(0xffffffffu, id);
+    bool keep = id != -1 && (same & ((1u << lane) - 1u)) == 0u;
+    for (int j = 0; keep && j < f0; ++j) keep = __ldg(bag + j) != id;
+    unsigned lat = 0u, dty = 0u;
+    float p = 0.f;
+    if (keep) {
+      if (id >= 0 && id < V) {
+#pragma unroll 8
+        for (int j = 0; j < n; ++j) {
+          lat |= static_cast<unsigned>(latest[j * lat_stride + id] != 0) << j;
+          dty |= static_cast<unsigned>(dirty[j * dirty_stride + id] != 0)
+                 << j;
+        }
+      }
+      // sum_j d[j,id] T_j, a left fold over j as the route folds it
+      p = __fmul_rn(static_cast<float>(dty & 1u), tt[0]);
+      for (int j = 1; j < n; ++j)
+        p = __fadd_rn(p, __fmul_rn(static_cast<float>((dty >> j) & 1u),
+                                   tt[j]));
+    }
+    unsigned kept = __ballot_sync(0xffffffffu, keep);
+    while (kept) {
+      const int src = __ffs(kept) - 1;
+      kept &= kept - 1u;
+      const unsigned l = __shfl_sync(0xffffffffu, lat, src);
+      const unsigned d = __shfl_sync(0xffffffffu, dty, src);
+      const float pf = __shfl_sync(0xffffffffu, p, src);
+      if (lane < n) {
+        const float miss = __fmul_rn(
+            __fsub_rn(1.f, static_cast<float>((l >> lane) & 1u)), te);
+        const float push = __fsub_rn(
+            pf, __fmul_rn(static_cast<float>((d >> lane) & 1u), te));
+        acc = __fadd_rn(acc, __fmul_rn(__fadd_rn(miss, push), 1.f));
+      }
+    }
+  }
+  if (lane < n) out[b * n + lane] = acc;
+}
+
 __global__ void empty_kernel() {}
 
 template <class Rows>
@@ -1003,4 +1096,24 @@ extern "C" int pooled_lookup_quant_launch(const void* codes,
   return G == 1
       ? launch_bags<QuantRows, false, true>(rows, i, w, o, B, F, st)
       : launch_bags<QuantRows, false, false>(rows, i, w, o, B, F, st);
+}
+
+// B = n * m bags of F ids (samples (n, m, F) int32), latest and dirty (n,
+// V) bytes (bool) with row strides, t (n,) f32 -> out (n, m, n) f32
+extern "C" int alg1_cost_launch(const void* samples, const void* latest,
+                                const void* dirty, const void* t, void* out,
+                                int B, int F, int n, long long V,
+                                long long lat_stride, long long dirty_stride,
+                                void* stream) {
+  if (B == 0 || n == 0) return 0;
+  if (n > kAlg1MaxN) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = static_cast<unsigned>(
+      (static_cast<int64_t>(B) + kAlg1Warps - 1) / kAlg1Warps);
+  alg1_cost_kernel<<<blocks, kAlg1Warps * 32, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(samples),
+      static_cast<const unsigned char*>(latest),
+      static_cast<const unsigned char*>(dirty), static_cast<const float*>(t),
+      static_cast<float*>(out), B, F, n, V, lat_stride, dirty_stride);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -20,6 +20,13 @@
   plane where a live slot holds the id and from the table elsewhere, a
   warp per (bag, 128 columns) with its row loads in flight.  Replaces
   ``repro/kernels/emb_lookup.py:pooled_lookup_staged``.
+* :func:`alg1_cost` — Alg. 1 for all n workers in one launch: each
+  (worker, sample) bag's kept ids priced straight from the (n, V) state
+  planes and summed in f order, bit for bit the per-worker route of
+  :func:`repro_torch.kernels.ops.cost_matrix_sparse_kernel` (a compact
+  per-id table pooled on :func:`pooled_lookup`).  Replaces no TPU
+  kernel: it fuses the reference's ``cost_matrix_pallas_sparse`` pricing
+  into B1's pooling.
 * :func:`pooled_lookup_quant` — the pooled bag over a quantized table,
   ``out[b] = sum_f w[b, f] * (codes[id] * scale[id, g] + zp[id, g])``,
   the dequant fused into the accumulate, on :func:`pooled_lookup`'s warp
@@ -49,13 +56,16 @@ __all__ = ["LAUNCHES", "pooled_lookup", "pooled_lookup_ref",
            "staged_pull", "staged_pull_ref",
            "plane_refresh", "plane_refresh_ref",
            "pooled_lookup_staged", "pooled_lookup_staged_ref",
-           "pooled_lookup_quant", "pooled_lookup_quant_ref"]
+           "pooled_lookup_quant", "pooled_lookup_quant_ref",
+           "ALG1_MAX_WORKERS", "alg1_cost", "alg1_cost_ref"]
 
 LAUNCHES = {"pooled_lookup": 0, "staged_gather": 0, "staged_pull": 0,
             "plane_refresh": 0,
-            "pooled_lookup_staged": 0, "pooled_lookup_quant": 0}
+            "pooled_lookup_staged": 0, "pooled_lookup_quant": 0,
+            "alg1_cost": 0}
 
 _MAX_F = 4096   # the longest bag pooled_lookup_staged takes
+ALG1_MAX_WORKERS = 32   # alg1_cost: a warp's lanes, a cost column each
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple):
@@ -489,4 +499,91 @@ def pooled_lookup_quant(codes: torch.Tensor, scale: torch.Tensor,
         torch.cuda.current_stream(codes.device).cuda_stream)
     _raise_on(rc, "pooled_lookup_quant")
     LAUNCHES["pooled_lookup_quant"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# alg1_cost
+# --------------------------------------------------------------------------
+def alg1_cost_ref(samples: torch.Tensor, latest: torch.Tensor,
+                  dirty: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`alg1_cost`: every slot priced by
+    the per-id formula in its float ops and order, weighted 1 where kept
+    and 0 elsewhere, and summed over f = 0..F-1 in order, each product
+    rounded before its add."""
+    n, m, F = samples.shape
+    V = latest.shape[1]
+    s = samples.reshape(n * m, F)
+    earlier = torch.ones((F, F), dtype=torch.bool,
+                         device=s.device).tril(-1)          # [f, j]: j < f
+    repeat = ((s[:, :, None] == s[:, None, :]) & earlier).any(-1)
+    w = ((s != -1) & ~repeat).to(torch.float32)             # (B, F)
+    held = (s >= 0) & (s < V)
+    col = torch.where(held, s, torch.zeros_like(s)).long()
+    lat = (latest[:, col] & held).to(torch.float32)         # (n, B, F)
+    d = (dirty[:, col] & held).to(torch.float32)
+    t = t.to(torch.float32)
+    te = t[:, None, None]
+    p = d[0] * t[0]
+    for j in range(1, n):
+        p = p + d[j] * t[j]
+    v = (1.0 - lat) * te + (p - d * te)
+    acc = torch.zeros((n, n * m), dtype=torch.float32, device=s.device)
+    for f in range(F):
+        acc = acc + v[:, :, f] * w[:, f]
+    return acc.T.reshape(n, m, n).contiguous()
+
+
+def _check_plane(name: str, x: torch.Tensor, n: int):
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(x).__name__}")
+    if x.dtype != torch.bool:
+        raise TypeError(f"{name} must be torch.bool, got {x.dtype}")
+    if x.dim() != 2 or x.shape[0] != n:
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
+                         f"({n}, V)")
+    if x.shape[1] > 1 and x.stride(1) != 1:
+        raise ValueError(f"{name} must have unit column stride")
+
+
+def alg1_cost(samples: torch.Tensor, latest: torch.Tensor,
+              dirty: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Alg. 1 for every worker: ``out[i, s, e]`` is the cost of worker e
+    training worker i's sample s,
+
+        sum over the kept slots f of samples[i, s], in f order, of
+        (1 - latest[e, id]) * t[e] + (sum_j dirty[j, id] * t[j]
+                                      - dirty[e, id] * t[e])
+
+    with the sum over j a left fold.  A slot is kept when its id is not
+    PAD (-1) and no earlier slot of the sample holds it; an id outside
+    [0, V) that is not PAD is priced as one no worker holds.
+
+    samples: (n, m, F) int32; latest, dirty: (n, V) bool, unit column
+    stride (any row stride); t: (n,) f32; n <= ``ALG1_MAX_WORKERS``.
+    Returns (n, m, n) f32: one launch, no host sync.
+    """
+    _check("samples", samples, torch.int32, (None, None, None))
+    n, m, F = samples.shape
+    _check_plane("latest", latest, n)
+    _check_plane("dirty", dirty, n)
+    V = latest.shape[1]
+    if dirty.shape[1] != V:
+        raise ValueError(f"dirty has {dirty.shape[1]} columns, latest {V}")
+    _check("t", t, torch.float32, (n,))
+    if n > ALG1_MAX_WORKERS:
+        raise ValueError(f"alg1_cost takes at most {ALG1_MAX_WORKERS} "
+                         f"workers, got {n}")
+    if not _on_cuda(samples, latest, dirty, t):
+        return alg1_cost_ref(samples, latest, dirty, t)
+    from ._build import load_library
+
+    lib = load_library("emb_lookup")
+    out = torch.empty((n, m, n), dtype=torch.float32, device=samples.device)
+    rc = lib.alg1_cost_launch(
+        samples.data_ptr(), latest.data_ptr(), dirty.data_ptr(),
+        t.data_ptr(), out.data_ptr(), n * m, F, n, V, latest.stride(0),
+        dirty.stride(0), torch.cuda.current_stream(samples.device).cuda_stream)
+    _raise_on(rc, "alg1_cost")
+    LAUNCHES["alg1_cost"] += 1
     return out

@@ -9,6 +9,13 @@ pooled_lookup` pools it over the remapped ids, so the kernel never sees
 the vocabulary.  On CUDA tensors that is the B1 kernel; on CPU tensors
 its plain version, which sums in the same order.
 
+:func:`cost_matrix_batched_kernel` is the same Alg. 1 for all n workers
+in one launch of :func:`repro_torch.kernels.emb_lookup.alg1_cost`, which
+prices each kept id straight from the state planes and pools in f
+order: ``torch.stack`` of :func:`cost_matrix_sparse_kernel` over the
+workers, bit for bit, with no compaction, no per-id table and no
+per-worker loop.
+
 :func:`cost_matrix_sparse_ps_kernel` is the multi-PS Alg. 1 on the same
 kernel: the compact table's rows are priced at each id's owning shard's
 link (:func:`repro_torch.core.cost.per_id_cost_rows_ps` at ``t_cols =
@@ -33,9 +40,10 @@ import torch
 from ..core.auction import _solve
 from ..core.cost import (dedup_mask, per_id_cost_rows, per_id_cost_rows_ps,
                          unique_padded)
-from .emb_lookup import pooled_lookup
+from .emb_lookup import ALG1_MAX_WORKERS, alg1_cost, pooled_lookup
 
 __all__ = ["cost_table_sparse", "cost_matrix_sparse_kernel",
+           "cost_matrix_batched_kernel",
            "cost_table_sparse_ps", "cost_matrix_sparse_ps_kernel",
            "cost_table_dense", "cost_matrix_kernel", "auction_solve_kernel"]
 
@@ -79,6 +87,22 @@ def cost_matrix_sparse_kernel(samples: torch.Tensor,
     link times -> (k, n) f32 cost matrix."""
     return pooled_lookup(*cost_table_sparse(samples, latest_in_cache, dirty,
                                             t_tran))
+
+
+def cost_matrix_batched_kernel(samples: torch.Tensor,
+                               latest_in_cache: torch.Tensor,
+                               dirty: torch.Tensor,
+                               t_tran: torch.Tensor):
+    """Touched-ids Alg. 1 for every worker in one launch: (n, m, F)
+    samples, (n, V) bool state planes and (n,) link times -> (n, m, n)
+    f32, worker i's block the (m, n) matrix of
+    :func:`cost_matrix_sparse_kernel` on ``samples[i]``, bit for bit.
+    None where n is more than the kernel's lanes take
+    (:data:`repro_torch.kernels.emb_lookup.ALG1_MAX_WORKERS`)."""
+    if samples.shape[0] > ALG1_MAX_WORKERS:
+        return None
+    return alg1_cost(samples.to(torch.int32).contiguous(), latest_in_cache,
+                     dirty, t_tran.to(torch.float32).contiguous())
 
 
 def cost_table_sparse_ps(samples: torch.Tensor,

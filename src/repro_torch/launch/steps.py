@@ -23,7 +23,7 @@ import torch
 
 from ..configs.base import INPUT_SHAPES, ModelConfig, ShapeConfig
 from ..core.dispatch import (changed_samples_mask, dispatch_cap,
-                             esd_cost_matrix, esd_decide, esd_reassign,
+                             esd_cost_matrices, esd_decide, esd_reassign,
                              esd_state_update, esd_state_update_sparse,
                              exchange_budget, need_ids_list, need_matrix)
 from ..elastic import mask_state
@@ -302,11 +302,12 @@ def make_dlrm_esd_stages(n: int, m: int, t_tran: torch.Tensor, alpha: float,
         return (flat(s2), flat(d2), flat(l2)), new_state, counts
 
     def realized(esd_state, sparse, assign, t, col_bias=None):
-        s, a = ids(sparse), split(assign).long()
+        C, _ = esd_cost_matrices(ids(sparse), esd_state, t, col_bias,
+                                 part=part)
+        got = torch.gather(C, 2, split(assign).long()[:, :, None])[:, :, 0]
         total = torch.zeros((), dtype=torch.float32, device=sparse.device)
-        for i in range(n):
-            C = esd_cost_matrix(s[i], esd_state, t, col_bias, part=part)
-            total = total + torch.gather(C, 1, a[i][:, None])[:, 0].sum()
+        for i in range(n):       # a worker at a time, in order: the same bits
+            total = total + got[i].sum()
         return total
 
     def realized_cost(esd_state, sparse, assign):
@@ -360,9 +361,7 @@ def make_dlrm_repair_stage(n: int, m: int, t_tran: torch.Tensor, *,
         if part is not None:
             s = part.to_linear(s)
         flagged = changed_samples_mask(s, decide_state, committed_state)
-        C = torch.stack([esd_cost_matrix(s[i], committed_state, t_tran,
-                                         part=part)
-                         for i in range(n)])                      # (n, m, n)
+        C, _ = esd_cost_matrices(s, committed_state, t_tran, part=part)
         a2, n_re = esd_reassign(C, assign.reshape(n, m), flagged, cap)
         return a2.reshape(-1), n_re
 

@@ -8,7 +8,9 @@ Without a CUDA device every test here skips.  staged_gather and
 gather_rows copy rows and must be exact, as must pack_send_all, the
 exchange's one-launch pack (slot maps, counts, overflow and send
 blocks); pooled_lookup sums in the plain version's order with the
-multiply and the add rounded apart and must be exact too;
+multiply and the add rounded apart and must be exact too, and so must
+alg1_cost, which prices and pools all workers' Alg. 1 in one launch
+(against its plain version and the per-worker pooled_lookup route);
 pooled_lookup_staged does the same and is held bit for bit at the
 serving shapes and around them (and to rtol = atol = 1e-5 in the older
 tests).  gather_rows_quant, the pack's quantized kernel and both
@@ -247,6 +249,76 @@ def test_pooled_lookup_matches_plain(cuda, E):
         torch.cuda.synchronize()
         assert torch.equal(got, tk.pooled_lookup_ref(x["table"], x["ids"], w))
     assert tk.LAUNCHES["pooled_lookup"] == n0 + 2
+
+
+def _per_worker_b1(samples, latest, dirty, t):
+    from repro_torch.kernels.ops import cost_matrix_sparse_kernel
+
+    return torch.stack([cost_matrix_sparse_kernel(samples[i], latest, dirty,
+                                                  t)
+                        for i in range(samples.shape[0])])
+
+
+def _check_alg1(samples, latest, dirty, t):
+    n0 = tk.LAUNCHES["alg1_cost"]
+    got = tk.alg1_cost(samples, latest, dirty, t)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["alg1_cost"] == n0 + 1
+    assert torch.equal(got, tk.alg1_cost_ref(samples, latest, dirty, t))
+    assert torch.equal(got, _per_worker_b1(samples, latest, dirty, t))
+
+
+def test_alg1_cost_matches_plain_at_the_decide_shape(cuda):
+    """The cells' decide: 8 workers x 128 samples of 26 ids over 502,000
+    rows, Zipf keys, the planes as 30 steps of the cache protocol left
+    them (cache ratio 0.08), the paper's links; bit for bit the plain
+    version and the per-worker B1 route."""
+    from repro_torch.core import dispatch as D
+    from repro_torch.core.cost import transmission_time_codec
+    from repro_torch.core.simulator import DEFAULT_BANDWIDTHS
+    from repro_torch.quant.codecs import resolve_link_codecs
+
+    n, m, F, V = 8, 128, 26, 502_000
+    rng = np.random.default_rng(34)
+    cap = int(0.08 * V)
+    state = D.esd_sparse_init(n, V, cap, max_ids=m * F, device=cuda)
+
+    def batch():
+        ids = (rng.zipf(1.25, (n, m, F)) - 1) % V
+        ids[rng.random((n, m, F)) < 0.05] = -1
+        return torch.from_numpy(ids.astype(np.int32)).to(cuda)
+
+    for _ in range(30):
+        state, _ = D.esd_state_update_sparse(state, D.need_ids_list(batch()),
+                                             cap)
+    samples = batch()
+    assert bool(state.dirty.any()) and bool(state.latest.any())
+    bw = DEFAULT_BANDWIDTHS(n)
+    for codec in (None, "int8"):
+        t = torch.tensor(transmission_time_codec(
+            512, bw, resolve_link_codecs("uniform", bw, codec)),
+            dtype=torch.float32, device=cuda)
+        _check_alg1(samples, state.latest, state.dirty, t)
+
+
+@pytest.mark.parametrize("n,m,F,V", [(1, 5, 1, 7), (3, 17, 33, 50),
+                                     (8, 64, 74, 300), (32, 9, 26, 1000),
+                                     (5, 40, 100, 40)])
+def test_alg1_cost_matches_plain(cuda, n, m, F, V):
+    rng = np.random.default_rng(n * F + V)
+    ids = rng.integers(0, V, (n, m, F)).astype(np.int32)
+    ids[rng.random((n, m, F)) < 0.25] = -1
+    samples = torch.from_numpy(ids).to(cuda)
+    t = torch.from_numpy(rng.random(n).astype(np.float32)).to(cuda)
+    for hit, dirt in ((0.3, 0.5), (1.0, 0.0), (0.0, 0.0), (0.9, 0.9)):
+        latest = torch.from_numpy(rng.random((n, V)) < hit).to(cuda)
+        dirty = latest & torch.from_numpy(rng.random((n, V)) < dirt).to(cuda)
+        _check_alg1(samples, latest, dirty, t)
+    # planes with a row stride, as the sparse engine's views are
+    wide = torch.zeros((n, V + 1), dtype=torch.bool, device=cuda)
+    wide[:, :V] = latest
+    want = tk.alg1_cost(samples, latest, dirty, t)
+    assert torch.equal(tk.alg1_cost(samples, wide[:, :V], dirty, t), want)
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
