@@ -20,7 +20,10 @@ LIMITS = {"assign_bad": 0, "exchange_bad": 0, "counts_bad": 0,
           "grad_gap": 1e-6, "change_gap": 1e-6}
 
 
-def write_tiny(root: Path, depth: int = 2, codec: str | None = None) -> Path:
+def write_tiny(root: Path, depth: int = 2, codec: str | None = None,
+               bag_sizes: list | None = None) -> Path:
+    """The tiny cell under ``root``; ``bag_sizes``, if given, the ids a
+    sample of each of its six fields."""
     root = Path(root)
     (root / "configs").mkdir(parents=True, exist_ok=True)
     (root / "mixes").mkdir(exist_ok=True)
@@ -29,6 +32,8 @@ def write_tiny(root: Path, depth: int = 2, codec: str | None = None) -> Path:
     cfg.update(name="wdl-tiny", program_workload="tiny", embedding_dim=16,
                mlp_dims=[64, 32], table_sizes=[2000, 2000, 100, 100, 100,
                                                100], limits=LIMITS)
+    if bag_sizes is not None:
+        cfg["bag_sizes"] = list(bag_sizes)
     (root / "configs" / "wdl-tiny.json").write_text(json.dumps(cfg))
     mix = json.loads((HERE / "mixes" / "esd.n8b128.d2.json").read_text())
     mix.update(name="tiny", workers=4, batch_per_worker=16,

@@ -1,12 +1,14 @@
 """The benchmark's traffic generator: a frozen copy of the CTR stream
 the port draws (Zipf ids over per-field tables with group locality, an
-optional multi-hot history bag, dense features, labels).
+optional multi-hot history bag, dense features, labels), widened to a
+bag of ids a field.
 
-It takes the record's shape (the tables, the dense width, the history
-slots) from a configuration file, the key distribution (each field's
-Zipf skew by its table's size, the user groups) from a traffic mix and
-its seed from the command line, so the program under test receives
-only the arrays.
+It takes the record's shape (the tables, the ids a field, the dense
+width, the history slots) from a configuration file, the key
+distribution (each field's Zipf skew by its table's size, the user
+groups) from a traffic mix and its seed from the command line, so the
+program under test receives only the arrays.  With one id a field the
+stream is the port's, draw for draw.
 """
 from __future__ import annotations
 
@@ -14,7 +16,20 @@ from functools import lru_cache
 
 import numpy as np
 
-__all__ = ["zipf_ids", "CTRStream", "stream", "first_batches"]
+__all__ = ["bag_sizes", "record_width", "zipf_ids", "CTRStream",
+           "stream", "first_batches"]
+
+
+def bag_sizes(cfg: dict) -> tuple:
+    """Ids a sample in each field: the configuration's ``bag_sizes``,
+    one a field where it has none."""
+    return tuple(int(b) for b in
+                 cfg.get("bag_sizes", [1] * len(cfg["table_sizes"])))
+
+
+def record_width(cfg: dict) -> int:
+    """Id slots a sample: every field's bag, then the history bag."""
+    return sum(bag_sizes(cfg)) + int(cfg["hist_max"])
 
 
 @lru_cache(maxsize=None)
@@ -37,11 +52,18 @@ def zipf_ids(rng: np.random.Generator, a: float, size: int,
 
 
 class CTRStream:
-    """Sparse (k, F + hist_max) flat ids, PAD -1, dense (k, n_dense) f32
-    and labels (k,) f32, drawn batch by batch from one numpy generator."""
+    """Sparse (k, record_width) flat ids, PAD -1, dense (k, n_dense) f32
+    and labels (k,) f32, drawn batch by batch from one numpy generator.
+    A sample's columns are field 0's bag, field 1's, ..., then its
+    history bag; every id of a sample draws from its user group."""
 
     def __init__(self, cfg: dict, mix: dict):
         self.table_sizes = tuple(int(v) for v in cfg["table_sizes"])
+        self.bag_sizes = bag_sizes(cfg)
+        if len(self.bag_sizes) != len(self.table_sizes) or \
+                min(self.bag_sizes) < 1:
+            raise ValueError(f"bag_sizes {self.bag_sizes}: one size of 1 "
+                             f"or more a table")
         self.zipf_a = tuple(
             float(mix["zipf_a_large"] if size >= mix["large_table_rows"]
                   else mix["zipf_a_small"]) for size in self.table_sizes)
@@ -54,10 +76,6 @@ class CTRStream:
     @property
     def n_fields(self) -> int:
         return len(self.table_sizes)
-
-    @property
-    def width(self) -> int:
-        return self.n_fields + self.hist_max
 
     @property
     def vocab(self) -> int:
@@ -73,16 +91,16 @@ class CTRStream:
         groups = rng.integers(0, self.n_groups, batch)
         cols = []
         for f in range(self.n_fields):
-            size = self.table_sizes[f]
-            ids = zipf_ids(rng, self.zipf_a[f], batch, size)
+            size, b = self.table_sizes[f], self.bag_sizes[f]
+            ids = zipf_ids(rng, self.zipf_a[f], batch * b, size)
             if size >= 10 * self.n_groups and self.group_frac > 0:
                 slice_size = size // self.n_groups
-                local = zipf_ids(rng, self.zipf_a[f], batch, slice_size)
-                local = groups * slice_size + local
-                use_local = rng.random(batch) < self.group_frac
+                local = zipf_ids(rng, self.zipf_a[f], batch * b, slice_size)
+                local = np.repeat(groups, b) * slice_size + local
+                use_local = rng.random(batch * b) < self.group_frac
                 ids = np.where(use_local, local, ids)
-            cols.append(ids + off[f])
-        out = np.stack(cols, axis=1)
+            cols.append(ids.reshape(batch, b) + off[f])
+        out = np.concatenate(cols, axis=1)
         if self.hist_max:
             size = self.table_sizes[0]
             L = np.minimum(rng.geometric(1.0 / self.hist_mean, batch),

@@ -27,7 +27,7 @@ import torch
 
 from .gen import stream
 from .manifest import Bench
-from .peaks import link_times, merged, union
+from .peaks import kept_slots, link_times, merged, union
 from .reference.check import NUMBERS, judge, verdict
 from .weights import make_weights
 
@@ -35,6 +35,11 @@ __all__ = ["FORBIDDEN", "Run", "run_cell", "loaded_forbidden"]
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 STAGES = ("decide", "advance", "train")
+# the profiled slice's clock markers: ``torch.cuda._sleep``'s kernel,
+# which no program path launches, each spinning about half a millisecond
+# and waited for; the profile has missed kernels in the first 3 ms after
+# its start, so ten
+MARKER, MARKERS, MARKER_CYCLES = "spin_kernel", 10, 1_000_000
 _OPS = ("miss_pull", "update_push", "evict_push")
 
 
@@ -81,7 +86,7 @@ class Run:
     device_s: dict = field(default_factory=dict)   # stage -> [s by step]
     counts: dict = field(default_factory=dict)     # step -> {op: (n,)}
     rounds: dict = field(default_factory=dict)     # step -> [tensors]
-    unique: dict = field(default_factory=dict)     # step -> [U by worker]
+    kept: dict = field(default_factory=dict)       # step -> Alg.-1 slots
     slice: Slice | None = None
 
     def window_steps(self) -> list:
@@ -94,6 +99,20 @@ class Run:
         if self.slice is not None:
             skip = set(self.slice.decided) | set(self.slice.trained)
         return [t for t in self.window_steps() if t not in skip]
+
+
+def on_device_clock(kernels, marks, host_spans):
+    """The profile's operations without the clock markers, and the
+    host's ``(name, start s, end s)`` spans in the profile's us, placed by
+    the last marker profiled against the last launched (a missed marker
+    is one of the first); None for the spans where no marker was."""
+    found = [k for k in kernels if MARKER in k[0]]
+    ops = [k for k in kernels if MARKER not in k[0]]
+    if not found:
+        return ops, None
+    at = found[-1][1] - marks[-1] * 1e6
+    return ops, [(name, t0 * 1e6 + at, t1 * 1e6 + at)
+                 for name, t0, t1 in host_spans]
 
 
 def _sync(device):
@@ -155,6 +174,7 @@ def drive(subject, cfg, mix, seed, seconds, trace, device):
     norms = {}
 
     host_spans = []      # (what the host did, start, end) in the slice
+    marks = []           # host time of each marker kernel's launch
 
     def span(name, t0):
         if profiling():
@@ -183,9 +203,15 @@ def drive(subject, cfg, mix, seed, seconds, trace, device):
                 else torch.profiler.ProfilerActivity.CPU]
         prof = torch.profiler.profile(activities=acts)
         prof.start()
+        if device.type == "cuda":
+            # marker kernels tie the profile's clock to the host's; the
+            # profile can miss what the card runs just after its start,
+            # so a few, each waited for, before the slice opens
+            for _ in range(MARKERS):
+                marks.append(time.perf_counter())
+                torch.cuda._sleep(MARKER_CYCLES)
+                _sync(device)
         run.slice.t0 = time.perf_counter()
-        # a marker kernel ties the profile's clock to the host's
-        torch.zeros(1, device=device)
 
     def stop_slice():
         _sync(device)
@@ -205,12 +231,12 @@ def drive(subject, cfg, mix, seed, seconds, trace, device):
         _log(f"profiled slice: {run.slice.window_s:.3f} s, "
              f"{len(run.slice.trained)} trains, {len(kernels)} device "
              f"operations read in {time.perf_counter() - t_read:.3f} s")
-        if not kernels:
-            return
-        at = kernels[0][1] - run.slice.t0 * 1e6      # the marker's start
-        run.slice.kernels = kernels[1:]
-        run.slice.ranges = [(name, t0 * 1e6 + at, t1 * 1e6 + at)
-                            for name, t0, t1 in host_spans]
+        run.slice.kernels, ranges = on_device_clock(kernels, marks,
+                                                    host_spans)
+        # with none, the host's spans stay off the device clock
+        _log(f"{len(kernels) - len(run.slice.kernels)} of {len(marks)} "
+             f"clock markers profiled")
+        run.slice.ranges = ranges or []
 
     def profiling() -> bool:
         return prof is not None and not run.slice.done
@@ -327,8 +353,7 @@ def drive(subject, cfg, mix, seed, seconds, trace, device):
             t = next(pulled)
             # decide runs up to depth steps ahead of the slice's trains
             if trace and slice_steps.start <= t < slice_steps.stop + depth:
-                run.unique[t] = [int(np.unique(b[b >= 0]).size)
-                                 for b in sparse.reshape(n, m, -1)]
+                run.kept[t] = kept_slots(sparse)
             with streams.chain():
                 batch = (torch.as_tensor(sparse, device=device),
                          torch.as_tensor(dense, device=device),
@@ -336,11 +361,12 @@ def drive(subject, cfg, mix, seed, seconds, trace, device):
             yield batch, None
 
     if trace and device.type == "cuda":
-        # the profiler's first start sets up its tracing: in set-up, not
-        # in the window
+        # the profiler's first start sets up its tracing, and the marker
+        # kernel's first launch loads it: in set-up, not in the window
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]):
-            torch.zeros(1, device=device)
+            torch.cuda._sleep(MARKER_CYCLES)
+            _sync(device)
     try:
         with streams.chain():
             state = subject.init_state()

@@ -80,7 +80,7 @@ def device_offset_us(run, spans):
     """The program's ``perf_counter`` seconds to the slice's device
     microseconds: the median over the slice's decide calls of the mean
     of the start and end gaps between the harness's ``decide`` range
-    (already on the device clock, by the slice's marker kernel) and the
+    (already on the device clock, by the slice's marker kernels) and the
     program's ``decide`` span of the same call; None, said on stderr,
     where the gaps' quartiles lie more than ``MAX_SPREAD_US`` apart."""
     sl = run.slice

@@ -10,9 +10,10 @@ from __future__ import annotations
 import numpy as np
 
 from .reference.codec import row_bytes
+from .reference.models import kind_of
 
 __all__ = ["HBM_BYTES_PER_S", "F32_FLOPS_PER_S", "GBPS", "link_times",
-           "model_flops_per_sample", "pooled_lookup_bytes",
+           "model_flops_per_sample", "alg1_cost_bytes", "kept_slots",
            "pack_send_all_bytes", "merged", "union"]
 
 HBM_BYTES_PER_S = 3.35e12      # HBM3
@@ -30,43 +31,30 @@ def link_times(embedding_dim: int, bandwidths_gbps, codec=None
                       np.float64) / bw
 
 
-def _mlp_flops(din: int, dims) -> int:
-    total = 0
-    for dout in dims:
-        total += 2 * din * dout
-        din = dout
-    return total
-
-
 def model_flops_per_sample(cfg: dict) -> float:
-    """Forward and backward operations of one sample: every product
-    (bottom and top MLP, the cross layers' x @ w) three times its
-    forward (the forward, the input's and the weight's gradient), the
-    cross layers' elementwise terms and the interaction's pooling sums
-    likewise.  The embedding gather and the optimizer are counted as
-    bytes, not operations."""
-    E, F = cfg["embedding_dim"], len(cfg["table_sizes"])
-    W = F + cfg["hist_max"]
-    dims = list(cfg["mlp_dims"])
-    fwd = _mlp_flops(cfg["n_dense"], dims + [E])
-    if cfg["kind"] == "dcn":
-        d = E * (F + 2)
-        fwd += _mlp_flops(d, dims + [1])
-        # x @ w (2d), x0 * xw, + b, + x (3d) a layer; pooling the bag
-        fwd += cfg["cross_layers"] * 5 * d + cfg["hist_max"] * E
-    else:
-        fwd += _mlp_flops(E, dims + [1])
-        # the bag's mean over W rows, the dense projection added, wide
-        fwd += W * E + E + W
-    return 3.0 * fwd
+    """Forward and backward operations of one sample: the kind's forward
+    operations (``reference/models/<kind>.py::flops_per_sample``: every
+    product, elementwise term and pooling sum) three times (the forward,
+    the input's and the weight's gradient).  The embedding gather and
+    the optimizer are counted as bytes, not operations."""
+    return 3.0 * kind_of(cfg).flops_per_sample(cfg)
 
 
-def pooled_lookup_bytes(bags: int, width: int, unique_rows: int,
-                        cols: int) -> int:
-    """B1 as decide calls it: (bags, width) int32 ids and f32 weights
-    read, ``unique_rows`` rows of the (U, cols) f32 cost table read
-    once, the (bags, cols) f32 result written."""
-    return 8 * bags * width + 4 * unique_rows * cols + 4 * bags * cols
+def alg1_cost_bytes(n: int, m: int, width: int, kept: int) -> int:
+    """``alg1_cost`` as decide calls it: the (n m, width) int32 ids
+    read, the ``latest`` and ``dirty`` bytes of all n workers (2n) for
+    each of the ``kept`` slots (not PAD, the first of its id in its
+    sample), the (n, m, n) f32 costs written."""
+    return 4 * n * m * width + 2 * n * kept + 4 * n * m * n
+
+
+def kept_slots(sparse: np.ndarray) -> int:
+    """The slots of a (samples, width) id batch that Alg. 1 prices: not
+    PAD (-1) and the first of its id in its sample."""
+    s = np.sort(sparse, axis=1)
+    kept = s != -1
+    kept[:, 1:] &= s[:, 1:] != s[:, :-1]
+    return int(kept.sum())
 
 
 def pack_send_all_bytes(n: int, m: int, row_words: int) -> int:

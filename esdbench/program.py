@@ -6,13 +6,42 @@ times.  Every module is looked up when the step is built, so a test can
 break the path underneath."""
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
+from .gen import record_width
 from .peaks import link_times
 from .reference.check import capacity_of
 from .weights import leaf_blocks, leaf_specs
 
 __all__ = ["Program"]
+
+
+def model_config(cls, cfg: dict):
+    """The port's model configuration ``cls`` (a dataclass) from the
+    configuration's keys that name its fields, ``program_workload`` as
+    ``workload``; lists become tuples."""
+    given = dict(cfg, workload=cfg["program_workload"])
+    kw = {f.name: given[f.name] for f in dataclasses.fields(cls)
+          if f.name in given}
+    return cls(**{k: tuple(v) if isinstance(v, list) else v
+                  for k, v in kw.items()})
+
+
+def leaf_groups(weights: dict) -> dict:
+    """The leaves as the model's keywords: ``<group>.<i>`` leaves as list
+    ``<group>`` in the order of i, any other leaf under its own name."""
+    groups, lists = {}, {}
+    for name, w in weights.items():
+        group, _, i = name.rpartition(".")
+        if group and i.isdigit():
+            lists.setdefault(group, []).append((int(i), w))
+        else:
+            groups[name] = w
+    for group, items in lists.items():
+        groups[group] = [w for _, w in sorted(items, key=lambda e: e[0])]
+    return groups
 
 
 class Program:
@@ -34,18 +63,8 @@ class Program:
         self.cfg, self.mix, self.device = cfg, mix, device
         n, m = mix["workers"], mix["batch_per_worker"]
         V = sum(cfg["table_sizes"])
-        pcfg = DLRMConfig(cfg["name"], cfg["kind"], cfg["program_workload"],
-                          embedding_dim=cfg["embedding_dim"],
-                          n_dense=cfg["n_dense"],
-                          mlp_dims=tuple(cfg["mlp_dims"]),
-                          cross_layers=cfg["cross_layers"])
-        L = len(cfg["mlp_dims"]) + 1
-        extra = {k: weights[k] for k in ("wide", "cross_w", "cross_b")
-                 if k in weights}
-        self.model = M.DLRM(pcfg, weights["embed"],
-                            [weights[f"bottom.{i}"] for i in range(L)],
-                            [weights[f"top.{i}"] for i in range(L)],
-                            **extra)
+        self.model = M.DLRM(model_config(DLRMConfig, cfg),
+                            **leaf_groups(weights))
         self.names = [name for name, _ in self.model.named_parameters()]
         if sorted(self.names) != sorted(s[0] for s in leaf_specs(cfg)):
             raise SystemExit(f"the program's leaves {self.names} are not "
@@ -65,8 +84,7 @@ class Program:
                                    exchange=mix["exchange"],
                                    capacity=capacity, codec=mix["codec"])
         self._init_state = lambda: D.esd_sparse_init(
-            n, V, capacity, max_ids=out_rows * (len(cfg["table_sizes"])
-                                                + cfg["hist_max"]),
+            n, V, capacity, max_ids=out_rows * record_width(cfg),
             device=device)
 
     def init_state(self):

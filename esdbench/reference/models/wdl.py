@@ -1,13 +1,32 @@
 """Wide & Deep (arXiv:1606.07792) over one flat embedding table, as the
 ESD paper trains it: the deep part's input is the mean of a sample's
-embedding rows (its fields and its history bag, PAD -1 left out) plus
-the bottom MLP's projection of the dense features; the wide part sums a
-scalar row of each id.  No biases."""
+embedding rows (its fields' bags and its history bag, PAD -1 left out)
+plus the bottom MLP's projection of the dense features; the wide part
+sums a scalar row of each id.  No biases."""
 from __future__ import annotations
 
 import torch
 
-from ._mlp import mlp
+from ...gen import record_width
+from ._mlp import mlp, mlp_flops, mlp_specs
+
+
+def leaf_specs(cfg: dict) -> list:
+    V, E = sum(cfg["table_sizes"]), cfg["embedding_dim"]
+    dims = list(cfg["mlp_dims"])
+    return ([("embed", (V, E), 0.01)]
+            + mlp_specs("bottom", cfg["n_dense"], dims + [E])
+            + mlp_specs("top", E, dims + [1])
+            + [("wide", (V, 1), 0.01)])
+
+
+def flops_per_sample(cfg: dict) -> int:
+    """The MLPs' products; the mean over the record's W rows, the dense
+    projection added, the wide part's W scalars."""
+    E, W = cfg["embedding_dim"], record_width(cfg)
+    dims = list(cfg["mlp_dims"])
+    return (mlp_flops(cfg["n_dense"], dims + [E])
+            + mlp_flops(E, dims + [1]) + W * E + E + W)
 
 
 def forward(P: dict, ids: torch.Tensor, dense: torch.Tensor, cfg: dict,

@@ -6,12 +6,11 @@ The tables are held compact: only the rows of ``universe`` (the ids the
 followed batches touch), since no other row moves."""
 from __future__ import annotations
 
-import importlib
-
 import numpy as np
 import torch
 
 from .codec import fake_quant
+from .models import kind_of
 
 __all__ = ["TABLES", "plain_mm", "tf32_mm", "RefTrainer"]
 
@@ -57,8 +56,7 @@ class RefTrainer:
     def __init__(self, cfg: dict, weights: dict, universe: np.ndarray,
                  lr: float, dtype, mm, codec=None):
         self.cfg, self.lr, self.mm, self.codec = cfg, lr, mm, codec
-        self.forward = importlib.import_module(
-            f"esdbench.reference.models.{cfg['kind']}").forward
+        self.forward = kind_of(cfg).forward
         dev = weights["embed"].device
         self.universe = torch.as_tensor(np.asarray(universe, np.int64),
                                         device=dev)

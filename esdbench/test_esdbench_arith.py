@@ -26,10 +26,22 @@ def test_link_times_are_the_ports():
 
 
 def test_byte_counts():
-    assert peaks.pooled_lookup_bytes(128, 74, 3000, 8) == \
-        8 * 128 * 74 + 4 * 3000 * 8 + 4 * 128 * 8
+    # ids (4 x 2 x 3 int32), 2 x 4 state bytes for each of 20 kept
+    # slots, the (4, 2, 4) f32 costs
+    assert peaks.alg1_cost_bytes(4, 2, 3, 20) == 96 + 160 + 128 == 384
+    # the cells' decide: 8 x 128 samples of 26 distinct ids
+    assert peaks.alg1_cost_bytes(8, 128, 26, 1024 * 26) == 565_248
     assert peaks.pack_send_all_bytes(8, 128, 88) == \
         4 * 1024 + 8 * 1024 * 88 + 4 * 64 + 4
+
+
+def test_kept_slots_are_the_first_of_each_id_in_a_sample():
+    ids = np.array([[5, 5, -1, 7, 5],      # 5, 7
+                    [-1, -1, -1, -1, -1],  # nothing
+                    [3, 9, 1, 9, 3],       # 3, 9, 1
+                    [0, 1, 2, 3, 4]])      # all five
+    assert peaks.kept_slots(ids) == 2 + 0 + 3 + 5
+    assert peaks.kept_slots(ids[:, :1]) == 3
 
 
 def test_model_flops():
@@ -65,13 +77,14 @@ def _run(depth=1):
     run.counts = {3: one, 4: one}
     run.slice = Slice(t0=0.0, t1=2.0, decided=[5], advanced=[5],
                       trained=[4, 5],
-                      kernels=[("pooled_lookup_narrow_kernel", i * 12500.0,
-                                (i + 1) * 12500.0) for i in range(8)]
-                      + [("pack_send_all_kernel", 2e5, 4e5),
+                      kernels=[("(anonymous namespace)::alg1_cost_kernel("
+                                "int const*, unsigned char const*)", 0.0,
+                                1e5),
+                               ("pack_send_all_kernel", 2e5, 4e5),
                                ("other", 5e5, 6e5)],
                       ranges=[("decide", 0.0, 1.5e5),
                               ("train", 4e5, 1e6)], done=True)
-    run.unique = {5: [100] * 8}
+    run.kept = {5: 20000}
     return run
 
 
@@ -103,9 +116,13 @@ def test_device_readers():
     assert READ("miss_pulls_per_sample")(run) == pytest.approx(80 / 1024)
     mfu = peaks.model_flops_per_sample(CFG) * 2 * 1024 / 2.0 / 67e12
     assert READ("train_mfu")(run) == pytest.approx(100 * mfu)
-    b1 = 8 * peaks.pooled_lookup_bytes(128, 26, 100, 8)
-    assert READ("pooled_lookup_roofline")(run) == pytest.approx(
-        100 * b1 / 3.35e12 / 0.1)
+    a1 = 4 * 1024 * 26 + 16 * 20000 + 4 * 1024 * 8
+    assert READ("alg1_cost_roofline")(run) == pytest.approx(
+        100 * a1 / 3.35e12 / 0.1)
+    # a profile with another number of launches than decided steps
+    run.slice.decided = [4, 5]
+    run.kept[4] = 20000
+    assert READ("alg1_cost_roofline")(run) is None
     b2 = peaks.pack_send_all_bytes(8, 128, 26 + 13 + 1)
     assert READ("pack_send_all_roofline")(run) == pytest.approx(
         100 * b2 / 3.35e12 / 0.2)
@@ -114,9 +131,25 @@ def test_device_readers():
 def test_readers_find_nothing_without_a_slice():
     run = _run()
     run.slice = None
-    for name in ("device_idle_share", "train_mfu", "pooled_lookup_roofline",
+    for name in ("device_idle_share", "train_mfu", "alg1_cost_roofline",
                  "pack_send_all_roofline"):
         assert READ(name)(run) is None
+
+
+def test_host_spans_go_on_the_device_clock_by_the_last_marker():
+    """The profile missed the first two of three markers (launched at
+    host 10.000, 10.001 and 10.002 s): the one it holds is the last, at
+    device 5,000 us, so the host's 10.003 s is device 6,000 us."""
+    from esdbench.harness import MARKER, on_device_clock
+    spin = f"at::cuda::(anonymous namespace)::{MARKER}(long)"
+    kernels = [(spin, 5000.0, 5500.0), ("alg1_cost_kernel", 6100.0, 6110.0)]
+    ops, ranges = on_device_clock(kernels, [10.0, 10.001, 10.002],
+                                  [("decide", 10.003, 10.004)])
+    assert ops == [("alg1_cost_kernel", 6100.0, 6110.0)]
+    assert ranges == [("decide", pytest.approx(6000.0),
+                       pytest.approx(7000.0))]
+    # no marker profiled: the operations stand, the spans are not placed
+    assert on_device_clock(kernels[1:], [10.0], []) == (ops, None)
 
 
 def test_breakdown_labels_gaps_by_host_range():

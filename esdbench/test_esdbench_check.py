@@ -54,6 +54,16 @@ def test_int8_wire(tmp_path, subject, correct):
     assert _run(root, subject=subject)["correct"] is correct
 
 
+@pytest.mark.parametrize("subject,correct", [("program", True),
+                                             ("control", False)])
+def test_multi_hot_records(tmp_path, subject, correct):
+    """Bags of 3, 1, 2, 1, 1 and 4 ids in the six fields (12 a sample):
+    the port's wdl kind over them through the run's check path."""
+    root = write_tiny(tmp_path, bag_sizes=[3, 1, 2, 1, 1, 4])
+    res = _run(root, subject=subject)
+    assert res["correct"] is correct, res["checked"]
+
+
 def test_control_is_not_correct(tiny):
     root, _, _ = tiny
     assert _run(root, subject="control")["correct"] is False

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from esdbench.gen import CTRStream, first_batches
+from esdbench.gen import CTRStream, first_batches, record_width
 from esdbench.manifest import HERE
 from esdbench.weights import BLOCK_ROWS, leaf_blocks, leaf_specs, make_leaf
 
@@ -57,6 +57,46 @@ def test_every_seed_draws_its_own_ids():
         assert ((sa >= off) & (sa < off + np.asarray(sizes))).all()
 
 
+@pytest.mark.parametrize("hist_max", [0, 5])
+def test_multi_hot_records_lay_out_each_fields_bag(hist_max):
+    """Field f's b_f ids fill its own columns, in its table, with no
+    PAD; the history bag follows; every id of a sample keeps to the
+    sample's user group as often as the mix says."""
+    bags = [3, 1, 2, 1, 1, 4]
+    cfg = dict(_cfg("wdl-s1"), table_sizes=[2000, 2000, 100, 100, 100, 100],
+               bag_sizes=bags, hist_max=hist_max)
+    mix = dict(_mix(), workers=4, batch_per_worker=64, hist_mean=2.0,
+               large_table_rows=1000)
+    assert record_width(cfg) == 12 + hist_max
+    gen = CTRStream(cfg, mix)
+    off, sizes = gen.offsets(), gen.table_sizes
+    (ids, dense, labels), = first_batches(cfg, mix, 2 ** 32 + 9, 1)
+    assert ids.shape == (256, 12 + hist_max) and dense.shape == (256, 13)
+    col = 0
+    for f, b in enumerate(bags):
+        block = ids[:, col:col + b]
+        assert ((block >= off[f]) & (block < off[f] + sizes[f])).all()
+        col += b
+    hist = ids[:, col:]
+    assert ((hist == -1) | ((hist >= 0) & (hist < sizes[0]))).all()
+    # a bag's ids are drawn apart: the 3-id bag of field 0 is not one
+    # id repeated
+    assert (ids[:, 0] != ids[:, 1]).any()
+    # field 0's large table: two ids of one sample share their group's
+    # slice when both draw from it (0.7 x 0.7; 0.54 here); ids of two
+    # samples meet in one slice in 0.10 of pairs here
+    slice_of = ids[:, 1:3] // (2000 // mix["n_groups"])
+    assert (slice_of[:, 0] == slice_of[:, 1]).mean() > 0.4
+
+
+def test_bag_sizes_must_match_the_tables():
+    cfg = dict(_cfg("wdl-s1"), bag_sizes=[1] * 25)
+    with pytest.raises(ValueError):
+        CTRStream(cfg, _mix())
+    with pytest.raises(ValueError):
+        CTRStream(dict(cfg, bag_sizes=[0] + [1] * 25), _mix())
+
+
 @pytest.mark.parametrize("kind", ["wdl", "dcn"])
 def test_leaves_are_the_ports(kind):
     from repro_torch.configs import DLRM_CONFIGS
@@ -71,6 +111,29 @@ def test_leaves_are_the_ports(kind):
     ours = {name: shape for name, shape, _ in leaf_specs(cfg)}
     theirs = {name: tuple(p.shape) for name, p in model.named_parameters()}
     assert ours == theirs
+
+
+def test_the_programs_model_is_built_from_the_configuration():
+    """The port's config from the keys that name its fields (a field
+    added later is read from the file), the leaves grouped as the
+    model's keywords, lists in index order."""
+    import dataclasses
+
+    from esdbench.program import leaf_groups, model_config
+    from repro_torch.configs.dlrm_configs import DLRMConfig
+    cfg = _cfg("wdl-s1")
+    assert model_config(DLRMConfig, cfg) == DLRMConfig(
+        "wdl-s1", "wdl", "S1", embedding_dim=512, n_dense=13,
+        mlp_dims=(1024, 512, 256), cross_layers=0)
+
+    @dataclasses.dataclass(frozen=True)
+    class Later(DLRMConfig):
+        bag_sizes: tuple = ()
+    got = model_config(Later, dict(cfg, bag_sizes=[3, 1]))
+    assert got.bag_sizes == (3, 1) and got.workload == "S1"
+    w = {"top.1": 1, "embed": 0, "top.0": 2, "bottom.0": 3, "cross_w": 4}
+    assert leaf_groups(w) == {"embed": 0, "cross_w": 4, "top": [2, 1],
+                              "bottom": [3]}
 
 
 def test_a_leaf_is_its_blocks_and_repeats():

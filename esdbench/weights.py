@@ -4,14 +4,16 @@ Both the program and the reference receive these tensors: the program
 as its model's parameters, the reference as its starting point (it
 makes them again from the seed once the program has been freed).  Each
 leaf, and each block of a table's rows, draws from a generator of its
-own, so any block can be made again alone.  The distributions are the
-port's: tables N(0, 1) * 0.01, products N(0, 1) * din ** -0.5,
-``cross_w`` N(0, 1) * d ** -0.5, ``cross_b`` zero.
+own, so any block can be made again alone.  Each leaf is N(0, 1) times
+its scale (zero where the scale is 0), the port's distributions: tables
+0.01, products din ** -0.5, as the kind's module lists them.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .reference.models import kind_of
 
 __all__ = ["BLOCK_ROWS", "leaf_specs", "make_block", "make_leaf",
            "make_weights", "leaf_blocks"]
@@ -21,26 +23,9 @@ BLOCK_ROWS = 1 << 16
 
 def leaf_specs(cfg: dict) -> list:
     """``(name, shape, scale)`` of every leaf, in the order of the
-    port's ``DLRM.named_parameters()``; scale 0 is a zero leaf."""
-    V, E = sum(cfg["table_sizes"]), cfg["embedding_dim"]
-    F = len(cfg["table_sizes"])
-    dims = list(cfg["mlp_dims"])
-    specs = [("embed", (V, E), 0.01)]
-    din = cfg["n_dense"]
-    for i, dout in enumerate(dims + [E]):
-        specs.append((f"bottom.{i}", (din, dout), din ** -0.5))
-        din = dout
-    din = E * (F + 2) if cfg["kind"] == "dcn" else E
-    for i, dout in enumerate(dims + [1]):
-        specs.append((f"top.{i}", (din, dout), din ** -0.5))
-        din = dout
-    if cfg["kind"] == "wdl":
-        specs.append(("wide", (V, 1), 0.01))
-    if cfg["kind"] == "dcn":
-        d = E * (F + 2)
-        specs.append(("cross_w", (cfg["cross_layers"], d), d ** -0.5))
-        specs.append(("cross_b", (cfg["cross_layers"], d), 0.0))
-    return specs
+    port's ``DLRM.named_parameters()``; scale 0 is a zero leaf.  The
+    kind's module (``reference/models/<kind>.py``) lists them."""
+    return kind_of(cfg).leaf_specs(cfg)
 
 
 def _seed(seed: int, leaf: int, block: int) -> int:
