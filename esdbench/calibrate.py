@@ -8,7 +8,9 @@ the reference, as a run does; no window is measured.
     python3 esdbench/calibrate.py --workload <name> --seeds 12 \\
         --control-seeds 3 --fault-seeds 3 [--faults a,b] [--out FILE]
 
-prints one JSON line a reading: {"kind", "seed", "numbers"}."""
+prints one JSON line a reading: {"kind", "seed", "numbers"}.  The
+imports sit inside the functions: the stream's processes run this file
+again when they start, and need none of them."""
 from __future__ import annotations
 
 import argparse
@@ -21,16 +23,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
-import torch  # noqa: E402
-
-from esdbench.faults import FAULTS, planted  # noqa: E402
-from esdbench.harness import drive  # noqa: E402
-from esdbench.manifest import Bench  # noqa: E402
-from esdbench.reference.check import judge  # noqa: E402
-from esdbench.weights import make_weights  # noqa: E402
-
 
 def reading(cfg, mix, seed, device, subject="program", detail=None):
+    import torch
+
+    from esdbench.harness import drive
+    from esdbench.reference.check import judge
+    from esdbench.weights import make_weights
+
     mix = dict(mix, cost_steps=0)
     weights = make_weights(cfg, seed, device)
     if subject == "program":
@@ -49,6 +49,11 @@ def reading(cfg, mix, seed, device, subject="program", detail=None):
 
 
 def main(argv=None):
+    import torch
+
+    from esdbench.faults import FAULTS, planted
+    from esdbench.manifest import Bench
+
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", type=int, default=12)

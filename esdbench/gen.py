@@ -9,6 +9,12 @@ distribution (each field's Zipf skew by its table's size, the user
 groups) from a traffic mix and its seed from the command line, so the
 program under test receives only the arrays.  With one id a field the
 stream is the port's, draw for draw.
+
+A batch is made in two parts: :meth:`CTRStream.draw` takes every random
+number the batch uses from the generator, in the port's order, and
+:meth:`CTRStream.assemble` turns them into the arrays.  No draw depends
+on a lookup, so a process that only draws can run ahead of those that
+look up (``feed.py``).
 """
 from __future__ import annotations
 
@@ -16,8 +22,8 @@ from functools import lru_cache
 
 import numpy as np
 
-__all__ = ["bag_sizes", "record_width", "zipf_ids", "CTRStream",
-           "stream", "first_batches"]
+__all__ = ["bag_sizes", "record_width", "seed_words", "Zipf", "zipf",
+           "CTRStream"]
 
 
 def bag_sizes(cfg: dict) -> tuple:
@@ -32,23 +38,55 @@ def record_width(cfg: dict) -> int:
     return sum(bag_sizes(cfg)) + int(cfg["hist_max"])
 
 
+def seed_words(seed: int) -> list:
+    """The generator's seed for ``--seed`` (any whole number)."""
+    return [int(seed) & (2 ** 64 - 1), 1]
+
+
+class Zipf:
+    """Zipf(a) truncated to [0, vocab) by rank-frequency sampling: a
+    uniform u gives the number of the truncated power law's CDF entries
+    below it, ``np.searchsorted(cdf, u)`` (side left), the port's id.
+
+    Found through a guide table over G = 2**k >= vocab buckets: u * G is
+    exact, so the entries below u lie between the entries below
+    floor(u G) / G and below (floor(u G) + 1) / G, and a bisection over
+    that bucket ends the search.  Most buckets hold at most one entry;
+    the deep tail's hold a few dozen."""
+
+    def __init__(self, a: float, vocab: int):
+        if not 0 < vocab < 2 ** 31:
+            raise ValueError(f"vocab {vocab}: 1 to 2**31 - 1 ids")
+        ranks = np.arange(1, vocab + 1, dtype=np.float64)
+        cdf = np.cumsum(ranks ** (-a))
+        cdf /= cdf[-1]
+        self.cdf = cdf
+        self.G = 1 << int(vocab - 1).bit_length()
+        # an entry c lies below b / G exactly when floor(c G) + 1 <= b
+        first = np.floor(cdf * self.G).astype(np.int64) + 1
+        self.guide = np.cumsum(np.bincount(first, minlength=self.G + 2)
+                               [:self.G + 1]).astype(np.int32)
+        self.iters = int(np.diff(self.guide).max()).bit_length()
+
+    def ids(self, u: np.ndarray) -> np.ndarray:
+        b = (u * self.G).astype(np.int64)
+        lo, hi = self.guide[b], self.guide[b + 1]
+        open_ = np.flatnonzero(lo < hi)
+        if open_.size:
+            l, h, v = lo[open_], hi[open_], u[open_]
+            for _ in range(self.iters):
+                mid = (l + h) >> 1
+                below = self.cdf[mid] < v
+                l = np.where(below, mid + 1, l)
+                h = np.where(below, h, mid)
+            lo[open_] = l
+        return lo.astype(np.int64)
+
+
 @lru_cache(maxsize=None)
-def _cdf(a: float, vocab: int) -> np.ndarray:
-    """The truncated power law's CDF, built once a (skew, size): the
-    draws are the port's, without its CDF a table a batch (which keeps
-    the loader thread, and the interpreter lock, busy)."""
-    ranks = np.arange(1, vocab + 1, dtype=np.float64)
-    cdf = np.cumsum(ranks ** (-a))
-    cdf /= cdf[-1]
-    cdf.flags.writeable = False
-    return cdf
-
-
-def zipf_ids(rng: np.random.Generator, a: float, size: int,
-             vocab: int) -> np.ndarray:
-    """Zipf(a) truncated to [0, vocab): rank-frequency sampling."""
-    u = rng.random(size)
-    return np.searchsorted(_cdf(a, vocab), u).astype(np.int64)
+def zipf(a: float, vocab: int) -> Zipf:
+    """One sampler a (skew, size), built on first use."""
+    return Zipf(a, vocab)
 
 
 class CTRStream:
@@ -85,59 +123,73 @@ class CTRStream:
         return np.concatenate([[0], np.cumsum(self.table_sizes)[:-1]]
                               ).astype(np.int64)
 
-    def sample_batch(self, rng: np.random.Generator, batch: int
-                     ) -> np.ndarray:
-        off = self.offsets()
+    def _local(self, f: int) -> bool:
+        """Whether field f's ids may come from the group's slice."""
+        return self.table_sizes[f] >= 10 * self.n_groups and \
+            self.group_frac > 0
+
+    def _uniforms(self, rng, f: int, n: int) -> tuple:
+        """A bag's uniforms: the table's, then, for a grouped field, the
+        slice's and the choice between them."""
+        return tuple(rng.random(n) for _ in range(3 if self._local(f)
+                                                  else 1))
+
+    def draw(self, rng: np.random.Generator, batch: int) -> tuple:
+        """Every number one batch uses, in the order the stream draws
+        them: the samples' groups, each field's uniforms, the history
+        bags' lengths and uniforms, the dense features, the labels'
+        uniforms."""
         groups = rng.integers(0, self.n_groups, batch)
-        cols = []
-        for f in range(self.n_fields):
-            size, b = self.table_sizes[f], self.bag_sizes[f]
-            ids = zipf_ids(rng, self.zipf_a[f], batch * b, size)
-            if size >= 10 * self.n_groups and self.group_frac > 0:
-                slice_size = size // self.n_groups
-                local = zipf_ids(rng, self.zipf_a[f], batch * b, slice_size)
-                local = np.repeat(groups, b) * slice_size + local
-                use_local = rng.random(batch * b) < self.group_frac
-                ids = np.where(use_local, local, ids)
-            cols.append(ids.reshape(batch, b) + off[f])
-        out = np.concatenate(cols, axis=1)
+        fields = [self._uniforms(rng, f, batch * b)
+                  for f, b in enumerate(self.bag_sizes)]
+        hist = None
         if self.hist_max:
-            size = self.table_sizes[0]
-            L = np.minimum(rng.geometric(1.0 / self.hist_mean, batch),
-                           self.hist_max)
-            hist = zipf_ids(rng, self.zipf_a[0], batch * self.hist_max, size)
-            if size >= 10 * self.n_groups and self.group_frac > 0:
-                slice_size = size // self.n_groups
-                local = zipf_ids(rng, self.zipf_a[0], batch * self.hist_max,
-                                 slice_size)
-                local = np.repeat(groups, self.hist_max) * slice_size + local
-                use_local = rng.random(batch * self.hist_max) < self.group_frac
-                hist = np.where(use_local, local, hist)
-            hist = hist.reshape(batch, self.hist_max) + off[0]
-            hist[np.arange(self.hist_max)[None, :] >= L[:, None]] = -1
-            out = np.concatenate([out, hist], axis=1)
-        return out
+            lengths = rng.geometric(1.0 / self.hist_mean, batch)
+            hist = (lengths,) + self._uniforms(rng, 0,
+                                               batch * self.hist_max)
+        dense = rng.standard_normal((batch, self.n_dense))
+        return groups, fields, hist, dense, rng.random(batch)
+
+    def _ids(self, f: int, uniforms: tuple, groups: np.ndarray,
+             b: int) -> np.ndarray:
+        size, a = self.table_sizes[f], self.zipf_a[f]
+        if len(uniforms) == 1:
+            return zipf(a, size).ids(uniforms[0]).reshape(groups.size, b)
+        # each id from the table or from its group's slice: only the
+        # uniform of the side it takes is looked up
+        slice_size = size // self.n_groups
+        local = uniforms[2] < self.group_frac
+        mine, table = np.flatnonzero(local), np.flatnonzero(~local)
+        ids = np.empty(local.size, np.int64)
+        ids[table] = zipf(a, size).ids(uniforms[0][table])
+        # slot p is sample p // b's
+        ids[mine] = groups[mine // b] * slice_size + \
+            zipf(a, slice_size).ids(uniforms[1][mine])
+        return ids.reshape(groups.size, b)
+
+    def assemble(self, numbers: tuple) -> tuple:
+        """(sparse int32, dense f32, labels f32) from :meth:`draw`'s
+        numbers."""
+        groups, fields, hist, dense, labels = numbers
+        off = self.offsets()
+        sparse = np.empty((groups.size, sum(self.bag_sizes) + self.hist_max),
+                          np.int32)
+        col = 0
+        for f, (u, b) in enumerate(zip(fields, self.bag_sizes)):
+            sparse[:, col:col + b] = self._ids(f, u, groups, b) + off[f]
+            col += b
+        if hist is not None:
+            lengths = np.minimum(hist[0], self.hist_max)
+            bag = self._ids(0, hist[1:], groups, self.hist_max) + off[0]
+            bag[np.arange(self.hist_max)[None, :] >= lengths[:, None]] = -1
+            sparse[:, col:] = bag
+        return (sparse, dense.astype(np.float32),
+                (labels < 0.25).astype(np.float32))
 
     def batches(self, seed, batch: int):
         """The infinite stream of (sparse int32, dense, labels) batches
-        that ``seed`` (any whole number, or a list of them) gives."""
+        that ``seed`` (any whole number, or a list of them) gives, drawn
+        in this thread."""
         rng = np.random.default_rng(seed)
         while True:
-            sparse = self.sample_batch(rng, batch).astype(np.int32)
-            dense = rng.standard_normal((batch, self.n_dense)
-                                        ).astype(np.float32)
-            labels = (rng.random(batch) < 0.25).astype(np.float32)
-            yield sparse, dense, labels
-
-
-def stream(cfg: dict, mix: dict, seed: int):
-    """A cell's batches for ``--seed`` (any whole number): k = workers x
-    batch_per_worker samples a step, the ids, dense features and labels
-    all drawn from the seed."""
-    k = mix["workers"] * mix["batch_per_worker"]
-    return CTRStream(cfg, mix).batches([int(seed) & (2 ** 64 - 1), 1], k)
-
-
-def first_batches(cfg: dict, mix: dict, seed: int, steps: int) -> list:
-    it = stream(cfg, mix, seed)
-    return [next(it) for _ in range(steps)]
+            yield self.assemble(self.draw(rng, batch))

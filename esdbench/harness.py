@@ -4,7 +4,8 @@ the check against the reference, and the result line.
 The loop is the port's ``PipelinedRunner`` over the program's decide,
 advance and train stages, glued as ``run_dlrm`` glues them (the same
 CUDA-event and host timing, the same stream rules at depth >= 2), fed
-from the benchmark's generator on the port's ``PrefetchLoader`` thread.
+by the port's ``PrefetchLoader`` thread, which hands on the batches the
+benchmark's generator draws in processes of its own (``feed.py``).
 Set-up runs ``warmup_steps`` steps through that same loop (the ones
 the reference follows; it trains beside the first ``checked_steps``),
 then the window runs until ``--seconds`` have passed since the last set-up
@@ -14,10 +15,8 @@ from __future__ import annotations
 
 import gc
 import itertools
-import json
 import subprocess
 import sys
-import threading
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -25,7 +24,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .gen import stream
+from .feed import Feed
 from .manifest import Bench
 from .peaks import kept_slots, link_times, merged, union
 from .reference.check import NUMBERS, judge, verdict
@@ -120,19 +119,6 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-class _Feed:
-    """The generator's batches until ``stop`` is set."""
-
-    def __init__(self, it):
-        self.it, self.stop = it, threading.Event()
-
-    def __iter__(self):
-        for b in self.it:
-            if self.stop.is_set():
-                return
-            yield b
-
-
 def _power_line() -> str:
     try:
         return subprocess.run(
@@ -147,9 +133,11 @@ def _log(msg: str):
     print(f"[esdbench] {msg}", file=sys.stderr, flush=True)
 
 
-def drive(subject, cfg, mix, seed, seconds, trace, device):
-    """Set-up and window through the runner; returns the run and what
-    the set-up steps produced, on the host."""
+def drive(subject, cfg, mix, seed, seconds, trace, device, feed=None):
+    """Set-up and window through the runner, fed by ``feed`` (the cell's
+    :class:`Feed` for ``seed``; one of its own, closed at the end, where
+    none is given); returns the run and what the set-up steps produced,
+    on the host."""
     from repro_torch.data.loader import PrefetchLoader
     from repro_torch.kernels import auction as KA
     from repro_torch.pipeline.runner import PipelinedRunner
@@ -336,8 +324,10 @@ def drive(subject, cfg, mix, seed, seconds, trace, device):
             stop_slice()
         return {"step": t, "loss": loss}
 
-    feed = _Feed(stream(cfg, mix, seed))
-    loader = PrefetchLoader(iter(feed), depth=2)
+    own = feed is None
+    if own:
+        feed = Feed(cfg, mix, seed)
+    loader = PrefetchLoader(feed, depth=2)
     pulled = itertools.count()
 
     def device_batches():
@@ -384,6 +374,8 @@ def drive(subject, cfg, mix, seed, seconds, trace, device):
         for _ in loader:
             pass
         loader._thread.join(timeout=60)
+        if own:
+            feed.close()
         KA.ROUNDS_LOG = None
         gc.unfreeze()
     if streams.enabled:
@@ -440,8 +432,10 @@ def breakdown(run: Run) -> dict:
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
              root: Path, t_start: float, device: str = "cuda",
-             subject: str = "program", here: Path | None = None) -> dict:
-    """One run; returns the result line's object.  ``device="cpu"`` and
+             subject: str = "program", here: Path | None = None,
+             feed: Feed | None = None) -> dict:
+    """One run, fed by ``feed`` where given (the cell's, for ``seed``);
+    returns the result line's object.  ``device="cpu"`` and
     ``subject="control"`` are for the tests and the calibration, never
     for a benchmark run."""
     bench = Bench(root) if here is None else Bench(root, here)
@@ -466,7 +460,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
         from .reference.control import Control
         subj = Control(cfg, mix, weights, dev)
     del weights
-    run, out = drive(subj, cfg, mix, seed, seconds, trace, dev)
+    run, out = drive(subj, cfg, mix, seed, seconds, trace, dev, feed)
     attempted = len(run.window_steps())
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
@@ -515,31 +509,3 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
               file=sys.stderr)
     print(f"correct {correct}", file=sys.stderr, flush=True)
     return result
-
-
-def main(argv=None, t_start: float | None = None) -> int:
-    import argparse
-
-    t_start = time.perf_counter() if t_start is None else t_start
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--workload", required=True)
-    ap.add_argument("--seed", type=int, required=True)
-    ap.add_argument("--seconds", type=float, required=True)
-    ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
-    args = ap.parse_args(argv)
-    root = Path(__file__).resolve().parent.parent
-    bench = Bench(root)
-    chips = bench.cell(args.workload)["chips"]
-    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
-        _log(f"needs {chips} CUDA card(s): "
-             f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}"
-             f" found")
-        return 2
-    result = run_cell(args.workload, args.seed, args.seconds,
-                      bool(args.trace), root=root, t_start=t_start)
-    found = loaded_forbidden()
-    if found:
-        _log(f"modules loaded that the run may not hold: {found}")
-        return 3
-    print(json.dumps(result), flush=True)
-    return 0

@@ -101,9 +101,12 @@ class Program:
 
     def grad_norms(self) -> dict:
         """Each leaf's first gradient norm from the optimizer's state
-        after one step (row-wise Adagrad: a row's mean square)."""
+        after one step (row-wise Adagrad: a row's mean square; a 1-D
+        leaf's, each element's square)."""
         params = dict(self.model.named_parameters())
-        return {name: torch.sqrt(a.double().sum() * params[name].shape[-1])
+        return {name: torch.sqrt(a.double().sum() * (
+                    params[name].shape[-1] if params[name].dim() >= 2
+                    else 1))
                 for name, a in zip(self.names, self.step.state["opt"])}
 
     def change_norms(self, seed: int) -> dict:

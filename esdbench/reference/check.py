@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..gen import first_batches
+from ..feed import first_batches
 from ..peaks import link_times
 from ..weights import make_weights
 from .codec import fake_quant

@@ -1,6 +1,6 @@
 """Alg. 1's cost, the sample exchange and the cache protocol, in numpy,
 written from the paper's description (arXiv:2512.21615, Alg. 1 and
-Sec. 4) over dense (workers, vocabulary) planes.
+Sec. 4) over dense planes of every worker and id.
 
 The protocol, one BSP iteration over the ids each worker trains:
   A. update push: a dirty holder pushes an id that another worker
@@ -140,64 +140,84 @@ def exchange(blocks, assign: np.ndarray, n: int):
 
 
 class CacheState:
-    """The replicated cache state of ``n`` workers over ``vocab`` ids:
-    dense (n, vocab) planes, of which a step reads and writes only the
-    columns of the ids trained in it, and each worker's cache."""
+    """The replicated cache state of ``n`` workers over ``vocab`` ids.
+
+    The planes are held id-major, (vocab, n), so the columns a step
+    reads and writes (the ids trained in it) are rows of n entries;
+    ``latest`` and ``dirty`` give them as (n, vocab) views.  Each
+    worker's cache is a row of ``cached`` with its count of ids, so the
+    LRU cut looks for candidates only in a cache over its capacity."""
 
     def __init__(self, n: int, vocab: int, capacity):
         self.n, self.vocab, self.capacity = n, vocab, capacity
-        self.latest = np.zeros((n, vocab), bool)
-        self.dirty = np.zeros((n, vocab), bool)
-        self.stamp = np.zeros((n, vocab), np.int64)
+        self._latest = np.zeros((vocab, n), bool)
+        self._dirty = np.zeros((vocab, n), bool)
+        self._stamp = np.zeros((vocab, n), np.int64)
         self.cached = np.zeros((n, vocab), bool)
+        self.n_cached = np.zeros(n, np.int64)
         self.step = 0
+
+    @property
+    def latest(self) -> np.ndarray:
+        return self._latest.T
+
+    @property
+    def dirty(self) -> np.ndarray:
+        return self._dirty.T
+
+    @property
+    def stamp(self) -> np.ndarray:
+        return self._stamp.T
 
     def update(self, trained: list) -> dict:
         """One iteration; ``trained[j]`` the distinct ids worker j
         trains.  Returns the (n,) counts of each kind of transfer."""
         n = self.n
         self.step += 1
-        # the step touches only the ids someone trains: their columns
-        U = np.unique(np.concatenate([np.asarray(v, np.int64)
-                                      for v in trained]))
-        need = np.zeros((n, U.size), bool)
+        trained = [np.asarray(v, np.int64) for v in trained]
+        # the step touches only the ids someone trains: their rows
+        U = np.unique(np.concatenate(trained))
+        need = np.zeros((U.size, n), bool)
         for j, ids in enumerate(trained):
-            need[j, np.searchsorted(U, ids)] = True
-        cnt = need.sum(axis=0)
-        latest, dirty = self.latest[:, U], self.dirty[:, U]
+            need[np.searchsorted(U, ids), j] = True
+        cnt = need.sum(axis=1)
+        latest, dirty = self._latest[U], self._dirty[U]
         # A. update push
-        other = ~(need & (cnt == 1)[None, :])
+        other = ~(need & (cnt == 1)[:, None])
         pushers = dirty & other
-        update_push = pushers.sum(axis=1)
-        n_push = pushers.sum(axis=0)
-        latest &= ~((n_push > 0)[None, :] & ~pushers)
-        latest &= ~(n_push > 1)[None, :]
+        update_push = pushers.sum(axis=0)
+        n_push = pushers.sum(axis=1)
+        latest &= ~((n_push > 0)[:, None] & ~pushers)
+        latest &= ~(n_push > 1)[:, None]
         dirty &= ~pushers
         # B. miss pull
-        miss_pull = (need & ~latest).sum(axis=1)
+        miss_pull = (need & ~latest).sum(axis=0)
         latest |= need
         # C. train
         dirty |= need
         latest &= need
-        self.latest[:, U], self.dirty[:, U] = latest, dirty
-        self.stamp[:, U] = np.where(need, self.step, self.stamp[:, U])
+        self._latest[U], self._dirty[U] = latest, dirty
+        for j, ids in enumerate(trained):
+            self._stamp[ids, j] = self.step
         # the LRU cut: the lowest (stamp, id) go, never this step's ids
         evict_push = np.zeros(n, np.int64)
-        for j in range(n):
-            self.cached[j, trained[j]] = True
+        for j, ids in enumerate(trained):
+            self.n_cached[j] += ids.size - int(self.cached[j, ids].sum())
+            self.cached[j, ids] = True
             if self.capacity is None:
                 continue
-            cand = np.flatnonzero(self.cached[j])
-            excess = cand.size - self.capacity
+            excess = int(self.n_cached[j]) - self.capacity
             if excess <= 0:
                 continue
-            key = self.stamp[j, cand] * self.vocab + cand
+            cand = np.flatnonzero(self.cached[j])
+            key = self._stamp[cand, j] * self.vocab + cand
             gone = cand[np.argpartition(key, excess - 1)[:excess]]
-            gone = gone[self.stamp[j, gone] != self.step]
-            evict_push[j] = int((self.latest[j, gone]
-                                 & self.dirty[j, gone]).sum())
-            self.latest[j, gone] = False
-            self.dirty[j, gone] = False
+            gone = gone[self._stamp[gone, j] != self.step]
+            evict_push[j] = int((self._latest[gone, j]
+                                 & self._dirty[gone, j]).sum())
+            self._latest[gone, j] = False
+            self._dirty[gone, j] = False
             self.cached[j, gone] = False
+            self.n_cached[j] -= gone.size
         return {"miss_pull": miss_pull, "update_push": update_push,
                 "evict_push": evict_push}

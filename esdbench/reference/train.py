@@ -1,6 +1,7 @@
 """The reference training step: the BCE loss of a plain forward, its
 gradient by autograd, and row-wise Adagrad (one accumulator a row of
-every leaf, lr 1e-2, eps 1e-10), at a chosen dtype and product.
+every leaf of two or more dimensions, one an element of a 1-D leaf such
+as a bias; lr 1e-2, eps 1e-10), at a chosen dtype and product.
 
 The tables are held compact: only the rows of ``universe`` (the ids the
 followed batches touch), since no other row moves."""
@@ -65,7 +66,8 @@ class RefTrainer:
             w = w[self.universe] if name in TABLES else w
             self.P[name] = w.to(dtype).clone().requires_grad_(True)
         self.P0 = {k: v.detach().clone() for k, v in self.P.items()}
-        self.acc = {k: torch.zeros(v.shape[:-1], dtype=dtype, device=dev)
+        self.acc = {k: torch.zeros(v.shape[:-1] if v.dim() >= 2
+                                   else v.shape, dtype=dtype, device=dev)
                     for k, v in self.P.items()}
         self.grad_norms = None
         # the quantized wire: each table's pushed gradient carries its
@@ -101,17 +103,24 @@ class RefTrainer:
                 self.residual[k] = acc - grads[i]
         with torch.no_grad():
             for k, g in zip(names, grads):
-                a = self.acc[k] + torch.mean(g * g, dim=-1)
+                if g.dim() >= 2:
+                    a = self.acc[k] + torch.mean(g * g, dim=-1)
+                    scale = torch.rsqrt(a + _EPS)[..., None]
+                else:
+                    a = self.acc[k] + g * g
+                    scale = torch.rsqrt(a + _EPS)
                 self.acc[k] = a
-                self.P[k] -= self.lr * g * torch.rsqrt(a + _EPS)[..., None]
+                self.P[k] -= self.lr * g * scale
         if self.grad_norms is None:
             self.grad_norms = self.norms_from_acc()
         return loss.detach()
 
     def norms_from_acc(self) -> dict:
         """Each leaf's gradient norm as the optimizer's state holds it
-        after one step: sqrt(row width * sum of the rows' mean squares)."""
-        return {k: float(torch.sqrt(a.double().sum() * self.P[k].shape[-1]))
+        after one step: sqrt(row width * sum of the rows' mean squares),
+        or of a 1-D leaf sqrt(sum of the squares)."""
+        return {k: float(torch.sqrt(a.double().sum() * (
+                    self.P[k].shape[-1] if self.P[k].dim() >= 2 else 1)))
                 for k, a in self.acc.items()}
 
     def change_norms(self) -> dict:

@@ -6,7 +6,8 @@ import numpy as np
 import pytest
 import torch
 
-from esdbench.gen import CTRStream, first_batches, record_width
+from esdbench.feed import first_batches
+from esdbench.gen import CTRStream, record_width
 from esdbench.manifest import HERE
 from esdbench.weights import BLOCK_ROWS, leaf_blocks, leaf_specs, make_leaf
 

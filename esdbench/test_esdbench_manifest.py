@@ -1,6 +1,8 @@
 """The manifest finds every piece by name, and a later cell, mix,
 metric or model kind needs only new files and entries."""
+import hashlib
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -106,7 +108,8 @@ PROBE = '''import json, sys
 import numpy as np, torch
 import esdbench
 from esdbench import peaks, weights
-from esdbench.gen import first_batches, record_width
+from esdbench.feed import first_batches
+from esdbench.gen import record_width
 from esdbench.reference.train import RefTrainer, plain_mm
 cfg, mix = (json.loads(open(p).read()) for p in sys.argv[1:3])
 w = weights.make_weights(cfg, 5, "cpu")
@@ -152,6 +155,75 @@ def test_a_new_kind_takes_only_new_files(tmp_path):
     assert got["loss"] > 0 and set(got["grads"]) == {"embed", "proj",
                                                      "head"}
     assert all(g > 0 for g in got["grads"].values())
+
+
+PIN = '''import hashlib, json, sys
+from esdbench import peaks, weights
+from esdbench.feed import first_batches
+from esdbench.gen import record_width
+cfg, mix = (json.loads(open(p).read()) for p in sys.argv[1:3])
+h = hashlib.sha256()
+for batch in first_batches(cfg, mix, 2 ** 31 + 17, 3):
+    for a in batch:
+        h.update(a.tobytes())
+print(json.dumps({"seed": 2 ** 31 + 17, "batches": 3,
+                  "leaf_specs": weights.leaf_specs(cfg),
+                  "model_flops_per_sample": peaks.model_flops_per_sample(cfg),
+                  "record_width": record_width(cfg),
+                  "stream_sha256": h.hexdigest()}))
+'''
+
+
+def _digests(root):
+    return {p.relative_to(root): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in root.rglob("*") if p.is_file()}
+
+
+def test_a_new_cell_takes_only_new_files(tmp_path):
+    """A copy of the benchmark with a cell of a new kind over multi-hot
+    records (``toy``), its configuration and its pin, each a new file or
+    entry: the benchmark's own tests of its cells and of its manifest
+    pass in the copy, and no file the copy had changed but
+    ``BENCHMARK.json``."""
+    here = tmp_path / "esdbench"
+    shutil.copytree(HERE, here,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(HERE.parent / "BENCHMARK.json", tmp_path)
+    before = _digests(tmp_path)
+    (here / "reference" / "models" / "toy.py").write_text(TOY)
+    cfg = json.loads((here / "configs" / "wdl-s1.json").read_text())
+    cfg.update(name="toy-mh", kind="toy", embedding_dim=8,
+               table_sizes=[500, 30, 20], bag_sizes=[2, 1, 3])
+    (here / "configs" / "toy-mh.json").write_text(json.dumps(cfg))
+    data = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    data["configs"].append({"name": "toy-mh", "source": "tests",
+                            "file": "esdbench/configs/toy-mh.json",
+                            "reduced": [], "why": "tests"})
+    data["workloads"].append({"name": "toy-mh.esd.n8b128.d2",
+                              "config": "toy-mh", "traffic": "esd.n8b128.d2",
+                              "chips": 1, "why": "tests"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(data))
+    env = dict(os.environ, PYTHONPATH=str(HERE.parent / "src"))
+    pin = subprocess.run(
+        [sys.executable, "-c", PIN, str(here / "configs" / "toy-mh.json"),
+         str(here / "mixes" / "esd.n8b128.d2.json")], cwd=tmp_path,
+        env=env, capture_output=True, text=True, timeout=300)
+    assert pin.returncode == 0, pin.stderr
+    (here / "pins" / "toy-mh.esd.n8b128.d2.json").write_text(
+        pin.stdout.splitlines()[-1])
+    changed = {p for p, d in _digests(tmp_path).items()
+               if p in before and before[p] != d}
+    assert changed == {tmp_path.joinpath("BENCHMARK.json")
+                       .relative_to(tmp_path)}
+    mine = "esdbench/test_esdbench_manifest.py"
+    res = subprocess.run(
+        [sys.executable, "-m", "pytest", "-v", "-p", "no:cacheprovider",
+         "esdbench/test_esdbench_parity.py", mine, "--deselect",
+         f"{mine}::test_a_new_cell_takes_only_new_files"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stdout[-4000:]
+    assert "test_cell_reads_as_before[toy-mh.esd.n8b128.d2] PASSED" in \
+        res.stdout
 
 
 def test_metric_without_a_list_follows_its_end_to_end_metric(tmp_path):
