@@ -67,11 +67,15 @@ Phases, each printing its own lines:
    and E = 4; both of its layouts).
    The auction's bids at Table 2's and the simulator's shapes (k = 256
    and 8,192 rows of 8 workers, 1,024 of 16, 64 of 1; a random
-   unassigned mask), bit for bit; and the fused whole-solve auction
-   kernel at the training step's decide (4 auctions of 256 x 4), the
-   simulator's S1 decisions (an exact grid, and a price war cut at 6,000
-   rounds) and Table 2's largest, bit for bit in assignment, slot prices
-   and owners and rounds, with its ms a solve and us a round.  The flash
+   unassigned mask), bit for bit; and the fused whole-solve auction at
+   the benchmark cells' decide (8 auctions of 128 x 8), the training
+   step's decide (4 auctions of 256 x 4), the simulator's S1 decisions
+   (an exact grid, and a price war cut at 6,000 rounds) and Table 2's
+   largest, on each route that takes the shape (the warp kernel and the
+   block kernel), bit for bit in assignment, slot prices and owners and
+   rounds, with its ms a solve and us a round on each, a check that
+   ``solve_route`` picks the faster, and the cells' rows bidding a
+   round.  The flash
    attention at the LM path's
    shape (smollm-360m: B = 4, S = 2,048, 5 KV heads x 3, hd = 64,
    causal; the prefill's too) and around it (non-causal, hd 128, hd
@@ -1766,19 +1770,31 @@ def phase_solve_kernel(seed: int) -> dict:
     """B7's fused whole-solve kernel against its plain version on the
     card, bit for bit in assignment, slot prices, slot owners and rounds,
     at the training step's decide (4 auctions of 256 x 4, capacity 64,
-    ``auction_fixed``'s nine phases), the S1 simulator's decisions (256 x
-    8, capacity 32, exact grid, ``_solve``'s phases; and a price war of
-    tied columns, its phases cut at 3,000 rounds) and Table 2's largest
-    (8,192 x 8, capacity 1,024).  Its time a solve and a round (over the
-    longest of the batch's auctions), and a bound from the bytes the
-    rounds' bid passes read (each bidder's cost row, in every round it
-    bids) plus the eps table and the outputs."""
+    ``auction_fixed``'s nine phases), the benchmark cells' decide (8
+    auctions of 128 x 8, capacity 16, nine phases; costs a worker's
+    misses times its link's row time, 4 links at 5 Gbps and 4 at 0.5),
+    the S1 simulator's decisions (256 x 8, capacity 32, exact grid,
+    ``_solve``'s phases; and a price war of tied columns, its phases cut
+    at 3,000 rounds) and Table 2's largest (8,192 x 8, capacity 1,024).
+    Each case on both routes where the warp route takes its shape, bit
+    for bit on each; its time a solve and a round (over the longest of
+    the batch's auctions) on each, and a check that the route
+    ``solve_route`` picks is not slower than the other (within 5 %);
+    a bound from the bytes the rounds' bid passes read (each bidder's
+    cost row, in every round it bids) plus the eps table and the outputs.
+    At the cells' shape it also prints how many rows bid in each round
+    of the longest auction (the plain version's rounds, counted)."""
     from repro_torch.core.auction import phase_eps
     from repro_torch.core.dispatch import _eps
     from repro_torch.kernels import auction as A
 
     def span(C):
         return float(np.float32(C.max()) - np.float32(C.min()))
+
+    def fixed(C):
+        spans = (C.max(axis=(1, 2)) - C.min(axis=(1, 2))).clip(1e-6)
+        return torch.stack([_eps(torch.as_tensor(spans), min(p, 6))
+                            for p in range(9)], dim=1)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 19)
@@ -1788,26 +1804,29 @@ def phase_solve_kernel(seed: int) -> dict:
     war = np.round(rng.random((1, 256, 8)) * 10_000).astype(np.float32)
     war[:, :, 4:] = war[:, :, :4]                 # tied columns
     t2 = rng.random((1, 8192, 8)).astype(np.float32)
-    spans = (decide.max(axis=(1, 2)) - decide.min(axis=(1, 2))).clip(1e-6)
-    fixed_eps = torch.stack([_eps(torch.as_tensor(spans), min(p, 6))
-                             for p in range(9)], dim=1)
-    cases = (("decide", decide, 64, fixed_eps, 2000),
+    row_s = np.float32(512 * 4 * 8) / np.array([5e9] * 4 + [5e8] * 4,
+                                               np.float32)
+    cells = rng.integers(0, 27, (8, 128, 8)).astype(np.float32) * row_s
+    cases = (("cells", cells, 16, fixed(cells), 2000),
+             ("decide", decide, 64, fixed(decide), 2000),
              ("s1", s1, 32, [phase_eps(span(s1), 1 / 257)], 200_000),
              ("s1-war", war, 32, [[1 / 257] * 2], 3000),
              ("table2", t2, 1024, [phase_eps(span(t2), span(t2) * 1e-3)],
               200_000))
-    out = {}
+    out, slow = {}, []
     for what, C, cap, eps, max_rounds in cases:
         cost = torch.as_tensor(C, device=dev)
         eps = torch.as_tensor(np.asarray(eps, np.float32), device=dev)
+        B, k, n = C.shape
+        picked = A.solve_route(k, n, cap)
         got = A.auction_solve(cost, cap, eps, max_rounds)
         # the plain version on the same card tensors, counting each
         # round's bidders
-        bidders = [0]
+        bidders = []
         body = A._round_body
 
         def counted(c, e, state):
-            bidders[0] += int((state[0] < 0).sum())
+            bidders.append((state[0] < 0).sum(dim=1).tolist())
             return body(c, e, state)
 
         A._round_body = counted
@@ -1818,37 +1837,65 @@ def phase_solve_kernel(seed: int) -> dict:
             plain_ms = (time.perf_counter() - t) * 1e3
         finally:
             A._round_body = body
-        same = [torch.equal(a.view(torch.int32), b.view(torch.int32))
-                for a, b in zip(got, want)]
-        check(all(same), f"auction_solve {what}: assignment, slot prices, "
-                         f"slot owners and rounds bitwise equal to plain "
-                         f"({same})")
-        B, k, n = C.shape
+        n_bids = sum(map(sum, bidders))
         rounds = got[3].sum(dim=1)
         longest = int(rounds.max())
-        ms, call_ms = device_ms(
-            lambda: A.auction_solve(cost, cap, eps, max_rounds),
-            reps=10 if what in ("s1-war", "table2") else 30)
-        n_bytes = (bidders[0] * n * 4 + eps.numel() * 4
+        n_bytes = (n_bids * n * 4 + eps.numel() * 4
                    + B * (k * 4 + 2 * n * cap * 4) + got[3].numel() * 4)
-        b_ms, b_by = bound(n_bytes, 4 * bidders[0] * n)
-        smem = A.solve_smem_bytes(k, n, cap, True)
-        print(f"[kernel] auction_solve {what} B={B} k={k} n={n} c={cap} "
-              f"(cost in {'shared memory' if smem <= A.SMEM_MAX else 'L2'}):"
-              f" bitwise, rounds {rounds.tolist()} ({bidders[0]} bids), "
-              f"{ms:.4f} ms a solve (call {call_ms:.4f}), "
-              f"{ms / max(longest, 1) * 1e3:.3f} us a round; plain "
-              f"{plain_ms:.1f} ms (one run, host clock), library none, bound"
-              f" {b_ms:.6f} ms ({b_by})")
+        b_ms, b_by = bound(n_bytes, 4 * n_bids * n)
+        times = {}
+        for route in ["block"] + (["warp"] if A.warp_fits(k, n, cap)
+                                  else []):
+            res = got if route == picked else A._launch_solve(
+                cost, cap, eps, max_rounds, route)
+            same = [torch.equal(a.view(torch.int32), b.view(torch.int32))
+                    for a, b in zip(res, want)]
+            check(all(same), f"auction_solve {what} ({route}): "
+                             f"assignment, slot prices, slot owners and "
+                             f"rounds bitwise equal to plain ({same})")
+            ms, call_ms = device_ms(
+                lambda: A._launch_solve(cost, cap, eps, max_rounds, route),
+                reps=10 if what in ("s1-war", "table2") else 30)
+            times[route] = ms
+            where = ("registers" if route == "warp" else
+                     "shared memory" if A.solve_smem_bytes(k, n, cap, True)
+                     <= A.SMEM_MAX else "L2")
+            print(f"[kernel] auction_solve {what} B={B} k={k} n={n} c={cap}"
+                  f" {route} route{' (picked)' if route == picked else ''}"
+                  f" (cost in {where}): bitwise, rounds {rounds.tolist()} "
+                  f"({n_bids} bids), {ms:.4f} ms a solve (call "
+                  f"{call_ms:.4f}), {ms / max(longest, 1) * 1e3:.3f} us a "
+                  f"round; plain {plain_ms:.1f} ms (one run, host clock), "
+                  f"library none, bound {b_ms:.6f} ms ({b_by})")
+        if times[picked] > 1.05 * min(times.values()):
+            slow.append(f"{what}: {times}")
+        if what == "cells":
+            # bidders a round in the longest auction, by power-of-2 bins
+            b = int(rounds.argmax())
+            per = [r[b] for r in bidders if r[b] > 0]
+            hist = {}
+            for nb in per:
+                top = 1 << (nb - 1).bit_length()
+                key = str(top) if top <= 2 else f"{top // 2 + 1}-{top}"
+                hist[key] = hist.get(key, 0) + 1
+            print(f"[kernel] auction_solve cells: rows bidding a round in "
+                  f"auction {b} ({len(per)} rounds): {hist}")
+            out["cells"] = dict(ms=times[picked], route=picked,
+                                us_round=times[picked] / longest * 1e3,
+                                block_us_round=times["block"] / longest
+                                * 1e3, bidders=hist)
         if what == "decide":
-            out = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+            out.update(max_abs_err=0.0, ms=times[picked], plain_ms=plain_ms,
                        bound_ms=b_ms, bound_by=b_by)
+    check(not slow, f"auction_solve: solve_route picks a route more than 5 % "
+                    f"slower than the other at {slow}")
     return out
 
 
 def phase_sim_parity(seed: int):
     """The simulator with the auction, and the serving simulator, on the
-    card against the CPU: every field but wall-clock time equal."""
+    card against the CPU: every field but wall-clock time equal; then
+    each one's card solves again on both auction routes, timed."""
     from repro_torch.core.simulator import GBPS, SimConfig, simulate
     from repro_torch.data.synthetic import WORKLOADS
     from repro_torch.kernels import auction as A
@@ -1860,11 +1907,13 @@ def phase_sim_parity(seed: int):
                 iters=4, warmup=1, alpha=1.0, opt="auction", seed=seed,
                 bandwidths=np.array([5.0, 2.0, 1.0, 0.5]) * GBPS)
     runs = {}
+    sim_solves, serve_solves = [], []
     for dev in ("cuda", "cpu"):
         A.ROUNDS_LOG = []
         n0 = A.LAUNCHES["auction_solve"]
         try:
-            res = simulate(SimConfig(device=dev, **base))
+            with _recording_solves(sim_solves if dev == "cuda" else []):
+                res = simulate(SimConfig(device=dev, **base))
         finally:
             log, A.ROUNDS_LOG = A.ROUNDS_LOG, None
         runs[dev] = (res, [int(r.sum()) for r in log],
@@ -1886,7 +1935,8 @@ def phase_sim_parity(seed: int):
     knobs = ServeKnobs(qps=2000.0, duration_s=0.5)
     scfg = dict(workload=WORKLOADS["S1"], n_workers=8, opt="auction",
                 seed=seed, serve=knobs)
-    card = simulate_serve(SimConfig(device="cuda", **scfg))
+    with _recording_solves(serve_solves):
+        card = simulate_serve(SimConfig(device="cuda", **scfg))
     cpu = simulate_serve(SimConfig(device="cpu", **scfg))
     for f in ("p50_s", "p99_s", "mean_s", "slo_violation_rate", "n_requests",
               "n_batches", "pull_rows", "refresh_rows", "staleness_p99_s"):
@@ -1897,6 +1947,78 @@ def phase_sim_parity(seed: int):
     print(f"[parity] simulate_serve S1, 8 workers, 2,000 QPS for 0.5 s, opt "
           f"auction, card vs CPU: all fields equal; p99 "
           f"{card.p99_s * 1e3:.4f} ms, {card.n_batches} batches")
+    _route_times("simulate tiny", sim_solves)
+    _route_times("simulate_serve S1", serve_solves)
+
+
+class _recording_solves:
+    """Within the block, every ``auction_solve`` on card tensors appends
+    (cost, capacity, eps, max_rounds, its outputs) to ``into``."""
+
+    def __init__(self, into: list):
+        self.into = into
+
+    def __enter__(self):
+        from repro_torch.kernels import auction as A
+
+        self.solve = solve = A.auction_solve
+
+        def recorded(cost, capacity, eps, max_rounds):
+            out = solve(cost, capacity, eps, max_rounds)
+            if cost.is_cuda:
+                self.into.append((cost, capacity, eps, max_rounds, out))
+            return out
+
+        A.auction_solve = recorded
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import auction as A
+
+        A.auction_solve = self.solve
+
+
+def _route_times(what: str, solves: list):
+    """A caller's recorded solves again, by shape, on each route that
+    takes the shape: bit for bit the recorded outputs; the device ms of
+    the shape's solves in sequence and the us a round over the sum of each
+    solve's longest auction; the route ``solve_route`` picks not slower
+    than the other (within 5 %)."""
+    from repro_torch.kernels import auction as A
+
+    check(len(solves) > 0, f"{what}: recorded the card's solves")
+    by_shape = {}
+    for rec in solves:
+        cost, cap = rec[0], rec[1]
+        by_shape.setdefault((*cost.shape, cap), []).append(rec)
+    slow = []
+    for (B, k, n, cap), group in sorted(by_shape.items()):
+        picked = A.solve_route(k, n, cap)
+        rounds = sum(int(out[3].sum(dim=1).max()) for *_, out in group)
+        times = {}
+        for route in ["block"] + (["warp"] if A.warp_fits(k, n, cap)
+                                  else []):
+            for cost, c, eps, max_rounds, out in group:
+                got = A._launch_solve(cost, c, eps, max_rounds, route)
+                check(all(torch.equal(a.view(torch.int32),
+                                      b.view(torch.int32))
+                          for a, b in zip(got, out)),
+                      f"{what}: the {route} route bit for bit the recorded "
+                      f"solve")
+
+            def run():
+                for cost, c, eps, max_rounds, _ in group:
+                    A._launch_solve(cost, c, eps, max_rounds, route)
+
+            times[route], _ = device_ms(run, reps=5)
+        print(f"[kernel] auction_solve {what}: {len(group)} solves of (B, k,"
+              f" n, c) = {(B, k, n, cap)}, {picked} route picked, {rounds} "
+              f"rounds; " + ", ".join(
+                  f"{r} {t:.4f} ms ({t / max(rounds, 1) * 1e3:.3f} us a "
+                  f"round)" for r, t in times.items()))
+        if times[picked] > 1.05 * min(times.values()):
+            slow.append((B, k, n, cap, times))
+    check(not slow, f"{what}: solve_route picks a route more than 5 % "
+                    f"slower than the other at {slow}")
 
 
 # simulate() at S1 with ESD and the auction (phase 8's configuration,
@@ -1922,10 +2044,13 @@ def phase_table2() -> dict:
             for bpw, c in costs.items()}
     _zero_launches()
     solves = 0
+    recorded = []
     for bpw, cost in costs.items():
         before = _read_launches()["auction_solve"]
-        assign, rounds = auction_dispatch(cost, bpw, exact=False,
-                                          device="cuda", return_rounds=True)
+        with _recording_solves(recorded):
+            assign, rounds = auction_dispatch(cost, bpw, exact=False,
+                                              device="cuda",
+                                              return_rounds=True)
         launched = _read_launches()["auction_solve"] - before
         check(launched == 1, f"table 2 bpw {bpw}: one auction_solve launch "
                              f"a decision ({launched})")
@@ -1950,6 +2075,7 @@ def phase_table2() -> dict:
     launches = {k: v for k, v in _read_launches().items() if v}
     check(launches == {"auction_solve": solves},
           "table 2: one auction_solve launch a decision, nothing else")
+    _route_times("table2 sweep", recorded)
     return launches
 
 

@@ -20,7 +20,8 @@ worker's decision stays independent of the others', as under
   * Alg. 2 (:func:`hybrid_dispatch`): the top ``floor(k * alpha)``
     regret rows go to the eps-scaled auction (:func:`auction_fixed`:
     every worker's auction in one launch of the fused auction kernel,
-    a block each), the rest to the greedy
+    a warp or a block each by the auction's shape), the rest to the
+    greedy
     :func:`heu_dispatch`.  The greedy scans and the auction's straggler
     placement are sequential over samples; they run on the host over
     small integer arrays, in the reference's order;
@@ -179,9 +180,10 @@ def auction_fixed(C: torch.Tensor, capacity: int, n_phases: int = 7,
 
     The eps table of the ``n_phases + 2`` phases (the two extra terminal
     phases rerun repair and re-bid at the final eps) is built here; the
-    B auctions then run in one launch of the fused auction kernel, a
-    block each, every phase's rounds tested for an unassigned row before
-    each round on the device, at most ``rounds_per_phase`` a phase.
+    B auctions then run in one launch of the fused auction kernel (a
+    warp or a block each, :func:`repro_torch.kernels.auction.solve_route`),
+    every phase's rounds tested for an unassigned row before each round
+    on the device, at most ``rounds_per_phase`` a phase.
     """
     single = C.dim() == 2
     C = (C[None] if single else C).to(torch.float32).contiguous()
@@ -201,7 +203,8 @@ def hybrid_dispatch(C: torch.Tensor, m: int, alpha: float,
     int32.
 
     Spans: ``decide.auction`` (the regret sort, the gather, the eps
-    table and the auction's launch), ``decide.auction_wait`` (the host's
+    table and the auction's launch) with ``warp``, the auctions that
+    took the warp route (B or 0), ``decide.auction_wait`` (the host's
     wait for the auction's result), ``decide.straggler`` with ``rows``,
     the rows the auction left (only when it left some), and
     ``decide.greedy``."""
@@ -227,13 +230,15 @@ def hybrid_dispatch(C: torch.Tensor, m: int, alpha: float,
         with tr.span("decide.greedy"):
             return out(torch.stack([heu_dispatch(C[b], cap)
                                     for b in range(B)]))
-    with tr.span("decide.auction"):
+    with tr.span("decide.auction") as sp:
         order = torch.argsort(-_regret(C), dim=1, stable=True)     # (B, k)
         opt_idx, heu_idx = order[:, :opt_rows], order[:, opt_rows:]
         C_opt = torch.gather(C, 1,
                              opt_idx[:, :, None].expand(B, opt_rows, n))
         a_opt = auction_fixed(C_opt, opt_cap)
         placed = a_opt >= 0
+        if tr.enabled:
+            sp.args["warp"] = KA.warp_auctions(C_opt, opt_cap)
     with tr.span("decide.auction_wait"):
         all_placed = bool(placed.all())
     if not all_placed:

@@ -60,6 +60,7 @@ SIGNATURES = {
     "auction": {
         "auction_bids_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
         "auction_solve_launch": [_P] * 6 + [_I] * 7 + [_L, _P],
+        "auction_solve_warp_launch": [_P] * 6 + [_I] * 6 + [_L, _P],
     },
     "flash_attn_sm90": {
         "flash_attention_sm90_launch": [_P] * 5 + [_I] * 7 + [_L] * 10

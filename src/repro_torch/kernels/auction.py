@@ -1,20 +1,24 @@
 """The auction's kernels: wrappers and plain versions.
 
-:func:`auction_solve` — a whole eps-scaled auction in one launch, one
-thread block per independent auction.  For each of B auctions over a
-(k, n) cost matrix with ``capacity`` slots a worker, it runs P phases:
-phase p > 0 first runs the eps-CS repair (:func:`_repair`), then every
-phase runs rounds (:func:`_round_body`) while a row of that auction is
-unassigned and fewer than ``max_rounds`` rounds of the phase have run,
-at the phase's eps.  It returns the final state and the rounds of each
-phase.  It is the simulator's ``opt="auction"`` (B = 1, through
+:func:`auction_solve` — a whole eps-scaled auction in one launch.  For
+each of B auctions over a (k, n) cost matrix with ``capacity`` slots a
+worker, it runs P phases: phase p > 0 first runs the eps-CS repair
+(:func:`_repair`), then every phase runs rounds (:func:`_round_body`)
+while a row of that auction is unassigned and fewer than ``max_rounds``
+rounds of the phase have run, at the phase's eps.  It returns the final
+state and the rounds of each phase.  It is the simulator's
+``opt="auction"`` (B = 1, through
 :func:`repro_torch.core.auction.auction_solve`) and the training step's
 in-step ``Opt`` (B = n workers, through :func:`repro_torch.core.
 dispatch.auction_fixed`).  Replaces the Pallas TPU kernel
 ``repro/kernels/auction.py:auction_bids`` together with the round and
 phase loops around it in the JAX package (``core/auction.py:
 _round_body``, ``_auction_phase``; ``kernels/ops.py:_resolve``,
-``_phase``; ``core/dispatch_tpu.py:auction_fixed``).
+``_phase``; ``core/dispatch_tpu.py:auction_fixed``).  It has two
+routes, one kernel each, picked by :func:`solve_route` from the shape:
+"warp" solves each auction in one warp (up to 256 rows, 8 workers and
+32 slots a worker), "block" in one thread block (every other shape).
+Both give the same bits.
 
 :func:`auction_bids` — one round's bids, the arithmetic the fused
 kernel shares (for every unassigned bidder row, its best worker against
@@ -28,15 +32,16 @@ the workers' cheapest slot prices, and its bid):
 It is held against its plain version on the card and runs on no driver
 path.
 
-Both kernels are CUDA C++ for ``sm_90a`` in ``csrc/auction.cu``, which
+The kernels are CUDA C++ for ``sm_90a`` in ``csrc/auction.cu``, which
 states what bounds them and how the design answers it.  The wrappers
 check device, dtype, shape and contiguity and raise on anything their
 kernel does not take.  Given CUDA tensors they launch the kernel on the
 current stream or raise; they run the plain version (``*_ref``) only
 because the tensors lie on the CPU.  ``LAUNCHES`` counts kernel
-launches; nothing else adds to it.  ``ROUNDS_LOG``, when set to a list,
-receives each :func:`auction_solve` call's (B, P) rounds tensor, left
-where it lies (appending reads nothing back from the card).
+launches (a solve counts under ``auction_solve`` on either route);
+nothing else adds to it.  ``ROUNDS_LOG``, when set to a list, receives
+each :func:`auction_solve` call's (B, P) rounds tensor, left where it
+lies (appending reads nothing back from the card).
 """
 from __future__ import annotations
 
@@ -46,7 +51,8 @@ from .emb_lookup import _check, _on_cuda, _raise_on
 
 __all__ = ["NEG", "LAUNCHES", "ROUNDS_LOG", "SMEM_MAX", "auction_bids",
            "auction_bids_ref", "auction_solve", "auction_solve_ref",
-           "solve_smem_bytes"]
+           "solve_route", "solve_smem_bytes", "warp_auctions", "warp_fits",
+           "warp_smem_bytes"]
 
 NEG = -1e30
 LAUNCHES = {"auction_bids": 0, "auction_solve": 0}
@@ -55,6 +61,11 @@ ROUNDS_LOG: list | None = None
 _MAX_N = 12_288        # the bid kernel stages the price row in 48 KB
 SMEM_MAX = 232_448     # shared memory a block can use on Hopper
 _MAX_IDX = 1 << 16     # rows, slots a worker and workers: 16-bit key fields
+_WARP_MAX_K = 256      # rows in the warp kernel's ballot masks: 8 a lane
+_WARP_MAX_N = 8        # workers' cheapest prices and slots in registers
+# the warp route's limit on slots a worker, from the crossover measured on
+# the card: faster at c 32 (S1, 256 x 8), slower at c 64 (256 x 4)
+WARP_ROUTE_C = 32
 
 
 # --------------------------------------------------------------------------
@@ -268,6 +279,46 @@ def solve_smem_bytes(k: int, n: int, capacity: int, with_cost: bool) -> int:
     return total + (4 * k * n if with_cost else 0)
 
 
+def warp_smem_bytes(k: int, n: int, capacity: int) -> int:
+    """Shared memory of one warp of the warp route, as
+    ``csrc/auction.cu:warp_layout`` lays it out: a round's bid keys (at
+    most k), the cost matrix, the slots' prices, price keys, owners,
+    order and ranks, the rows' workers and slots, and a round's bidder
+    rows."""
+    nc = n * capacity
+    return (8 * k + _align8(4 * k * n) + 5 * _align8(4 * nc)
+            + 3 * _align8(4 * k))
+
+
+def warp_fits(k: int, n: int, capacity: int) -> bool:
+    """Whether the warp kernel takes an auction of this shape: at most
+    256 rows (8 a lane in its ballot masks) and 8 workers (their cheapest
+    prices and slots in registers)."""
+    return (k <= _WARP_MAX_K and 1 <= n <= _WARP_MAX_N and capacity >= 1
+            and warp_smem_bytes(k, n, capacity) <= SMEM_MAX)
+
+
+def solve_route(k: int, n: int, capacity: int) -> str:
+    """The route :func:`auction_solve` takes on the card for B auctions
+    of k rows, n workers and ``capacity`` slots a worker: "warp" where
+    the warp kernel takes the shape and ``capacity`` is at most
+    ``WARP_ROUTE_C`` (its slot ranks then fit one shuffle pass), else
+    "block"."""
+    if capacity <= WARP_ROUTE_C and warp_fits(k, n, capacity):
+        return "warp"
+    return "block"
+
+
+def warp_auctions(cost: torch.Tensor, capacity: int) -> int:
+    """How many of ``cost``'s (B, k, n) auctions :func:`auction_solve`
+    solves on the warp route: B on the card where :func:`solve_route`
+    picks it, 0 otherwise (on the CPU the plain version runs)."""
+    B, k, n = cost.shape
+    if not cost.is_cuda or solve_route(k, n, capacity) != "warp":
+        return 0
+    return B
+
+
 def auction_solve(cost: torch.Tensor, capacity: int, eps: torch.Tensor,
                   max_rounds: int):
     """B independent eps-scaled auctions, each solved whole.
@@ -276,12 +327,12 @@ def auction_solve(cost: torch.Tensor, capacity: int, eps: torch.Tensor,
     eps of each auction's P phases; max_rounds: the rounds a phase may
     run.  Returns (assign (B, k) int32, -1 where a row stayed
     unassigned; slot prices (B, n, capacity) f32; slot owners (B, n,
-    capacity) int32; rounds (B, P) int32).
+    capacity) int32; rounds (B, P) int32).  On the card one launch, on
+    the route :func:`solve_route` picks from (k, n, capacity).
     """
     _check("cost", cost, torch.float32, (None, None, None))
     B, k, n = cost.shape
     _check("eps", eps, torch.float32, (B, None))
-    P = eps.shape[1]
     if n == 0 or capacity < 1:
         raise ValueError(f"auction_solve needs a worker and a slot, got "
                          f"n={n}, capacity={capacity}")
@@ -297,13 +348,16 @@ def auction_solve(cost: torch.Tensor, capacity: int, eps: torch.Tensor,
     if not _on_cuda(cost, eps):
         out = auction_solve_ref(cost, capacity, eps, max_rounds)
     else:
-        out = _launch_solve(cost, capacity, eps, max_rounds)
+        out = _launch_solve(cost, capacity, eps, max_rounds,
+                            solve_route(k, n, capacity))
     if ROUNDS_LOG is not None:
         ROUNDS_LOG.append(out[3])
     return out
 
 
-def _launch_solve(cost, capacity, eps, max_rounds):
+def _launch_solve(cost, capacity, eps, max_rounds, route):
+    """One launch of the route's kernel ("warp" or "block"); the caller
+    has checked the inputs."""
     B, k, n = cost.shape
     P = eps.shape[1]
     dev = cost.device
@@ -311,18 +365,28 @@ def _launch_solve(cost, capacity, eps, max_rounds):
     prices = torch.empty((B, n, capacity), dtype=torch.float32, device=dev)
     owners = torch.empty((B, n, capacity), dtype=torch.int32, device=dev)
     rounds = torch.empty((B, P), dtype=torch.int32, device=dev)
+    if route not in ("warp", "block"):
+        raise ValueError(f"unknown auction_solve route {route!r}")
+    if route == "warp" and not warp_fits(k, n, capacity):
+        raise ValueError(f"the warp route does not take k={k}, n={n}, "
+                         f"capacity={capacity}")
     if B == 0:
         return assign, prices, owners, rounds
-    with_cost = solve_smem_bytes(k, n, capacity, True) <= SMEM_MAX
     from ._build import load_library
 
     lib = load_library("auction")
-    rc = lib.auction_solve_launch(
-        cost.data_ptr(), eps.data_ptr(), assign.data_ptr(),
-        prices.data_ptr(), owners.data_ptr(), rounds.data_ptr(), B, k, n,
-        capacity, P, max_rounds, int(with_cost),
-        solve_smem_bytes(k, n, capacity, with_cost),
-        torch.cuda.current_stream(dev).cuda_stream)
+    ptrs = (cost.data_ptr(), eps.data_ptr(), assign.data_ptr(),
+            prices.data_ptr(), owners.data_ptr(), rounds.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if route == "warp":
+        rc = lib.auction_solve_warp_launch(
+            *ptrs, B, k, n, capacity, P, max_rounds,
+            warp_smem_bytes(k, n, capacity), stream)
+    else:
+        with_cost = solve_smem_bytes(k, n, capacity, True) <= SMEM_MAX
+        rc = lib.auction_solve_launch(
+            *ptrs, B, k, n, capacity, P, max_rounds, int(with_cost),
+            solve_smem_bytes(k, n, capacity, with_cost), stream)
     _raise_on(rc, "auction_solve")
     LAUNCHES["auction_solve"] += 1
     return assign, prices, owners, rounds

@@ -21,7 +21,9 @@ auction_bids takes one subtraction per value, exact max/argmax and two
 rounded additions: best_j and bid bit for bit.  auction_solve, the whole
 eps-scaled auction in one launch, shares that arithmetic and compares
 and subtracts nothing else: assignment, slot prices, slot owners and
-each phase's rounds bit for bit, and the solvers on it equal the CPU's.
+each phase's rounds bit for bit, on each route that takes the shape (a
+warp an auction, a block an auction), and the solvers on it equal the
+CPU's.
 flash_attention sums in f32 in another order and with exp2f: outputs
 within 2e-5 in f32 and within 1e-2 in bf16 (the outputs' own rounding,
 2**-7 relative at |out| ~ 1), lse within 2e-5; the gradients through
@@ -446,19 +448,33 @@ def test_auction_on_card_equals_cpu(cuda, exact):
 def _solve_case(name, rng):
     """(cost (B, k, n) f32, capacity, eps (B, P), max_rounds) as the
     callers build them: auction_fixed's nine phases at the training
-    step's decide, _solve's phase list for the simulator and Table 2."""
+    step's decide and at the benchmark cells' (8 workers' auctions of 128
+    x 8, capacity 16, costs a worker's misses times its link's row time:
+    4 links at 5 Gbps, 4 at 0.5; "cells-war" with rows tied in fours, so
+    that phases run out of rounds), _solve's phase list for the simulator
+    and Table 2."""
     from repro_torch.core.dispatch import _eps
 
     def phases(C, eps):
         return [ta.phase_eps(float(C.max() - C.min()), eps)]
 
+    def fixed(C):
+        span = torch.from_numpy(C.max(axis=(1, 2)) - C.min(axis=(1, 2)))
+        return torch.stack([_eps(span.clamp(min=1e-6), min(p, 6))
+                            for p in range(9)], dim=1).numpy()
+
     if name == "decide":
         C = (np.round(rng.random((4, 256, 4)) * 4e3).astype(np.float32)
              / np.float32(4e3) * np.float32(1e-3))
-        span = torch.from_numpy(C.max(axis=(1, 2)) - C.min(axis=(1, 2)))
-        eps = torch.stack([_eps(span.clamp(min=1e-6), min(p, 6))
-                           for p in range(9)], dim=1).numpy()
-        return C, 64, eps, 2000
+        return C, 64, fixed(C), 2000
+    if name in ("cells", "cells-war"):
+        row_s = np.float32(512 * 4 * 8) / np.array([5e9] * 4 + [5e8] * 4,
+                                                   np.float32)
+        misses = rng.integers(0, 27, (8, 128, 8))
+        if name == "cells-war":
+            misses = np.repeat(misses[:, :32], 4, axis=1)
+        C = misses.astype(np.float32) * row_s
+        return C, 16, fixed(C), 2000
     if name == "s1":
         C = np.round(rng.random((1, 256, 8)) * 10_000).astype(np.float32)
         return C, 32, phases(C, 1 / 257), 200_000
@@ -474,10 +490,21 @@ def _solve_case(name, rng):
     return C, 8, [[1e-5, 5e-6, 1e-6]] * 2, 7
 
 
+# the route auction_solve takes at each case's shape
+_SOLVE_ROUTE = {"decide": "block", "s1": "warp", "table2": "block",
+                "one-worker": "block", "runs-out": "warp", "cells": "warp",
+                "cells-war": "warp"}
+
+
 @pytest.mark.parametrize("name", ["decide", "s1", "table2", "one-worker",
-                                  "runs-out"])
+                                  "runs-out", "cells", "cells-war"])
 def test_auction_solve_matches_plain(cuda, name):
+    """Each case through auction_solve (one launch, on the route
+    solve_route picks), then on each route that takes its shape: the
+    same bits as the plain version, and as each other."""
     C, cap, eps, max_rounds = _solve_case(name, np.random.default_rng(3))
+    B, k, n = C.shape
+    assert tb.solve_route(k, n, cap) == _SOLVE_ROUTE[name]
     cost = torch.from_numpy(C).to(cuda)
     eps = torch.as_tensor(np.asarray(eps, np.float32), device=cuda)
     n0 = tb.LAUNCHES["auction_solve"]
@@ -487,7 +514,14 @@ def test_auction_solve_matches_plain(cuda, name):
     want = tb.auction_solve_ref(cost, cap, eps, max_rounds)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and _same_bits(a, b)
-    if name == "runs-out":
+    routes = ["block"] + (["warp"] if tb.warp_fits(k, n, cap) else [])
+    assert name == "table2" or "warp" in routes
+    for route in routes:
+        out = tb._launch_solve(cost, cap, eps, max_rounds, route)
+        torch.cuda.synchronize()
+        for a, b in zip(out, want):
+            assert a.dtype == b.dtype and _same_bits(a, b), route
+    if name in ("runs-out", "cells-war"):
         assert int(got[3].max()) == max_rounds
 
 
